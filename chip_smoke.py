@@ -8,16 +8,24 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles every kernel under zonos_tpu_torch/csrc/ (one nvcc per
    source, in parallel) and prints the build time.
-3. kernels: holds each kernel against its plain PyTorch version on the same
-   inputs at flagship shapes, with the tolerance stated beside each check.
-4. main path: text -> codes -> 44.1 kHz wav on the full-width flagship
-   transformer (random bf16 weights from a seed) and the full DAC (random
-   fp32), at batch 1 (twice, same seed: identical codes) and at batch 4;
-   launch counts are zeroed just before and read just after, and every
-   kernel of the path must have launched.
+3. kernels: holds each kernel (K1, K2, K3, K5, K6, K7) against its plain
+   PyTorch version on the same inputs at flagship shapes, with the tolerance
+   stated beside each check.
+4. main paths, each with the launch counts zeroed just before and read just
+   after, and each failing if a kernel of that path did not launch:
+   - transformer: text -> codes -> 44.1 kHz wav on the full-width flagship
+     transformer (random bf16 weights from a seed) and the full DAC (random
+     fp32), at batch 1 (twice, same seed: identical codes) and at batch 4,
+     260 frames each; K1, K2, K3, K5;
+   - hybrid: the same on the full-width, full-depth flagship Mamba2 hybrid at
+     batch 1 (twice, identical codes; fp32 SSM state) and at batch 8 (16 CFG
+     rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7.
+   Each is followed by a profile of its batch-1 decode step (device busy
+   and idle share, top kernels).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
-   timings; prints the ``{"kernels": [...]}`` line.
+   timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
+   with further shapes under ``"more"``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -25,6 +33,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -37,6 +46,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 MAX_NEW_TOKENS = 430  # ~5 s of audio at 86.13 frames/s
+# The transformer path runs fewer frames to keep the script near 6 minutes;
+# its cache still passes 256 rows, so K1 as well as K2 runs on it.
+TRANSFORMER_NEW_TOKENS = 260
 FRAMES_PER_S = 44100 / 512
 SLEEP_CYCLES = 60_000_000  # ~30 ms at the H100's clock: longer than queueing a timed batch
 TEXTS = [
@@ -44,7 +56,14 @@ TEXTS = [
     "Speech synthesis is wonderful.",
     "How are you today?",
     "She sells seashells by the seashore.",
+    "A state space model carries its past in a fixed-size state.",
+    "Please call Stella and ask her to bring these things.",
+    "It was the best of times, it was the worst of times.",
+    "Rain in the morning, sunshine in the afternoon.",
 ]
+TRANSFORMER_KERNELS = ("flash_decode_attention", "decode_attention_single", "fused_sample",
+                       "snake_conv1d")
+HYBRID_KERNELS = TRANSFORMER_KERNELS + ("ssd_chunked", "fused_state_step")
 
 
 def fail(msg: str) -> None:
@@ -242,43 +261,164 @@ def check_snake_conv(gen, frames: int = 86) -> float:
     return worst
 
 
+# flagship hybrid SSM widths: H heads of headdim P, d_state N, one group
+SSM_H, SSM_P, SSM_N = 64, 64, 128
+
+
+def ssd_inputs(gen, B: int, L: int) -> tuple:
+    """x, dt, A, B, C, D, init at the flagship SSM widths, fp32."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (rnd(B, L, SSM_H, SSM_P), rnd(B, L, SSM_H).abs() * 0.5, -rnd(SSM_H).abs(),
+            rnd(B, L, 1, SSM_N), rnd(B, L, 1, SSM_N), rnd(SSM_H), rnd(B, SSM_H, SSM_P, SSM_N))
+
+
+def check_ssd_chunked(gen) -> float:
+    """K6 vs the plain version (fp32, TF32 off) at the flagship widths, batch 2,
+    L in (37, 64, 150, 1024), with and without an init state; tolerance
+    1e-4 x max|ref| for y and for the final state.  Returns the largest
+    absolute error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
+
+    worst = worst_rel = 0.0
+    for L in (37, 64, 150, 1024):
+        x, dt, A, Bm, Cm, D, init = ssd_inputs(gen, 2, L)
+        for state in (init, None):
+            refs = ssd_chunked_plain(x, dt, A, Bm, Cm, D, state)
+            outs = ssd_chunked(x, dt, A, Bm, Cm, D, state)
+            torch.cuda.synchronize()
+            for what, got, ref in zip(("y", "final state"), outs, refs):
+                err = float((got - ref).abs().max())
+                top = float(ref.abs().max())
+                if not err <= 1e-4 * top:
+                    fail(f"ssd_chunked L={L} init={state is not None} {what}: max abs err {err} "
+                         f"> 1e-4 x {top}")
+                worst, worst_rel = max(worst, err), max(worst_rel, err / top)
+    print(f"[kernels] K6 ok at B=2, H={SSM_H}, P={SSM_P}, N={SSM_N}, L in (37, 64, 150, 1024), "
+          f"with and without init: max abs err {worst:.3g}, worst / max|ref| {worst_rel:.3g} "
+          f"(tolerance 1e-4)", flush=True)
+    return worst
+
+
+def state_step_inputs(gen, BH: int, dtype) -> tuple:
+    """A stored state and fp32 C, B, dA, xdt at the flagship widths; one value
+    is pushed past the f8 range, which must store as +-448."""
+    import torch
+
+    state = (torch.randn((BH, SSM_P, SSM_N), generator=gen, device="cuda") * 4).to(dtype)
+    C, B = (torch.randn((BH, SSM_N), generator=gen, device="cuda") for _ in range(2))
+    dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+    xdt = torch.randn((BH, SSM_P), generator=gen, device="cuda")
+    xdt[0, 0] = 1e4
+    return state, C, B, dA, xdt
+
+
+def check_fused_state_step(gen) -> float:
+    """K7 vs the plain version at BH in (128, 1024), P 64, N 128, for fp32,
+    bf16 and f8 storage: y within 1e-5 x max|ref|, the new state within one
+    storage ulp of the plain version's (where fp32 products round apart).
+    Returns the largest absolute error of y."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssm_state import (
+        fused_state_step,
+        fused_state_step_plain,
+        storage_ulp,
+    )
+
+    worst = 0.0
+    for BH in (128, 1024):
+        for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+            state, C, B, dA, xdt = state_step_inputs(gen, BH, dtype)
+            ref_state = state.clone()
+            ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
+            y, _ = fused_state_step(state, C, B, dA, xdt)
+            torch.cuda.synchronize()
+            err = float((y - ref_y).abs().max())
+            if not err <= 1e-5 * float(ref_y.abs().max()):
+                fail(f"fused_state_step BH={BH} {dtype}: y max abs err {err}")
+            diff = (state.float() - ref_state.float()).abs()
+            if not bool((diff <= storage_ulp(ref_state)).all()) or not bool(
+                    torch.isfinite(state.float()).all()):
+                fail(f"fused_state_step BH={BH} {dtype}: state off by more than one ulp "
+                     f"(max {float(diff.max())}) or not finite")
+            worst = max(worst, err)
+            print(f"[kernels] K7 ok at BH={BH}, {str(dtype).split('.')[-1]}: y max abs err "
+                  f"{err:.3g}; {int((diff == 0).sum())}/{diff.numel()} stored values equal to "
+                  f"the plain version's, the rest within one ulp", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: main path
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(card: str):
+def load_model(kind: str):
+    """The full-width flagship ``kind`` ("transformer" or "hybrid"), random bf16
+    weights from seed 0, on the card."""
+    import torch
+
+    from zonos_tpu_torch import Zonos, ZonosConfig
+    from zonos_tpu_torch.config import HYBRID_CONFIG_DICT, TRANSFORMER_CONFIG_DICT
+
+    t0 = time.perf_counter()
+    cfg = TRANSFORMER_CONFIG_DICT if kind == "transformer" else HYBRID_CONFIG_DICT
+    model = Zonos(ZonosConfig.from_dict(cfg), seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(model.params))
+    print(f"[main {kind}] flagship {kind} ({n_params / 1e9:.3f} B params, bf16, "
+          f"{model.config.backbone.n_layer} layers) initialised in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return model
+
+
+def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
+                    new_tokens: int = MAX_NEW_TOKENS):
+    """Batch 1 twice (same seed: identical codes) and batch ``batch`` once, the
+    DAC decode and the wav saves, with the launch counts zeroed just before and
+    read just after; every kernel in ``expect`` must have launched."""
     import numpy as np
     import torch
     from scipy.io import wavfile
 
-    from zonos_tpu_torch import DACAutoencoder, Zonos, ZonosConfig, make_cond_dict
-    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
+    from zonos_tpu_torch import make_cond_dict
     from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    t0 = time.perf_counter()
-    model = Zonos(ZonosConfig.from_dict(TRANSFORMER_CONFIG_DICT), seed=0)
-    dac = DACAutoencoder(seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(model.params))
-    print(f"[main] flagship transformer ({n_params / 1e9:.3f} B params, bf16) and 44.1 kHz DAC "
-          f"initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    tag = f"[main {kind}]"
 
-    def generate(prefix, batch, seed):
+    def generate(prefix, rows, seed):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        codes = model.generate(prefix, max_new_tokens=MAX_NEW_TOKENS, batch_size=batch, seed=seed)
+        codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=rows, seed=seed)
         torch.cuda.synchronize()
         return codes, time.perf_counter() - t
 
-    def check_codes(codes, batch):
-        if len(codes) != batch:
-            fail(f"generate returned {len(codes)} samples, expected {batch}")
+    def check_codes(codes, rows):
+        if len(codes) != rows:
+            fail(f"generate returned {len(codes)} samples, expected {rows}")
         for c in codes:
-            if c.ndim != 2 or c.shape[0] != 9 or not 1 <= c.shape[1] <= MAX_NEW_TOKENS:
-                fail(f"codes of shape {c.shape}, expected [9, 1..{MAX_NEW_TOKENS}]")
+            if c.ndim != 2 or c.shape[0] != 9 or not 1 <= c.shape[1] <= new_tokens:
+                fail(f"codes of shape {c.shape}, expected [9, 1..{new_tokens}]")
             if c.min() < 0 or c.max() >= 1024:
                 fail(f"codes outside [0, 1024): {c.min()}..{c.max()}")
+
+    # record the SSM-state storage of every cache the path makes (hybrid only)
+    ssm_dtypes = {}
+    make_cache = model.backbone.make_cache
+
+    def recording_make_cache(cfg, rows, *args):
+        cache = make_cache(cfg, rows, *args)
+        if isinstance(cache, list):
+            ssm_dtypes[rows] = {st["ssm"].dtype for st in cache if "ssm" in st}
+        return cache
+
+    model.backbone = dataclasses.replace(model.backbone, make_cache=recording_make_cache)
 
     reset_launch_counts()
     prefix1 = model.prepare_conditioning(make_cond_dict(text=TEXTS[0], speaker=None))
@@ -286,10 +426,10 @@ def phase_main_path(card: str):
     codes1b, dt1b = generate(prefix1, 1, 7)
     check_codes(codes1, 1)
     if codes1[0].shape != codes1b[0].shape or not np.array_equal(codes1[0], codes1b[0]):
-        fail("batch-1 generate with the same seed gave different codes")
-    prefix4 = model.prepare_conditioning(make_cond_dict(text=TEXTS, speaker=None))
-    codes4, dt4 = generate(prefix4, 4, [11, 12, 13, 14])
-    check_codes(codes4, 4)
+        fail(f"{kind}: batch-1 generate with the same seed gave different codes")
+    prefixn = model.prepare_conditioning(make_cond_dict(text=TEXTS[:batch], speaker=None))
+    codesn, dtn = generate(prefixn, batch, [11 + i for i in range(batch)])
+    check_codes(codesn, batch)
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -299,9 +439,10 @@ def phase_main_path(card: str):
     if wav.shape != (1, 1, codes1[0].shape[1] * 512) or not np.isfinite(wav).all():
         fail(f"DAC decode gave shape {wav.shape} or non-finite samples")
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, "b1.wav")] + [os.path.join(tmp, f"b4_{i}.wav") for i in range(4)]
+        paths = [os.path.join(tmp, "b1.wav")] + [os.path.join(tmp, f"b{batch}_{i}.wav")
+                                                  for i in range(batch)]
         dac.save_codes(paths[:1], codes1)
-        dac.save_codes(paths[1:], codes4)
+        dac.save_codes(paths[1:], codesn)
         for path in paths:
             sr, data = wavfile.read(path)
             data = data.astype(np.float64) / 32767.0
@@ -309,37 +450,46 @@ def phase_main_path(card: str):
             if sr != 44100 or not np.isfinite(data).all() or not rms > 0:
                 fail(f"{os.path.basename(path)}: sr {sr}, rms {rms}")
     counts = dict(launch_counts)
-    print(f"[main] launches on the main path: {counts}", flush=True)
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    model.backbone = dataclasses.replace(model.backbone, make_cache=make_cache)
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in expect:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the {kind} path")
+    if ssm_dtypes:
+        print(f"{tag} SSM state storage by cache rows: "
+              f"{ {rows: sorted(str(d) for d in ds) for rows, ds in ssm_dtypes.items()} }",
+              flush=True)
+        if ssm_dtypes.get(2 * batch) != {torch.float8_e4m3fn}:
+            fail(f"{kind}: batch {batch} ({2 * batch} rows) did not store the SSM state in f8")
 
     for label, codes, dt in (("batch 1", codes1, dt1), ("batch 1 again", codes1b, dt1b),
-                             ("batch 4", codes4, dt4)):
+                             (f"batch {batch}", codesn, dtn)):
         frames = sum(c.shape[1] for c in codes)
         steps = max(c.shape[1] for c in codes) + 8
-        print(f"[main] {label}: {frames} frames in {dt:.2f} s = {frames / dt:.1f} tokens/s "
+        print(f"{tag} {label}: {frames} frames in {dt:.2f} s = {frames / dt:.1f} tokens/s "
               f"(frames of 9 codebooks), {dt * 1e3 / steps:.2f} ms per decode step, "
               f"real-time factor {frames / FRAMES_PER_S / dt:.2f} (generate only; {card})",
               flush=True)
     audio_s = codes1[0].shape[1] / FRAMES_PER_S
-    print(f"[main] DAC decode of {audio_s:.2f} s of audio in {dt_dac:.3f} s; wavs at 44100 Hz, "
+    print(f"{tag} DAC decode of {audio_s:.2f} s of audio in {dt_dac:.3f} s; wavs at 44100 Hz, "
           f"finite, nonzero RMS ({card})", flush=True)
-    return counts, model, prefix1
+    return counts, prefix1
 
 
 # kernel-name fragments -> category, for the profile summary
 _CATEGORIES = (
     ("port kernels", ("flash_split", "flash_combine", "single_pass", "fused_sample",
-                      "snake_conv1d")),
+                      "snake_conv1d", "ssd_chunked", "state_step")),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")),
 )
 
 
-def phase_profile(model, prefix, card: str, new_tokens: int = 64) -> None:
+def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 64) -> None:
     """Where a batch-1 decode step's time goes: one short generate under
     torch.profiler for the device's kernel time, one without it for the
-    wall time.  Prints the device busy share and the top kernels."""
+    wall time.  Prints the device busy share and the top kernels.  Only the
+    device's activity is traced: the host's op events cost more to collect
+    than the run they describe."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -353,26 +503,27 @@ def phase_profile(model, prefix, card: str, new_tokens: int = 64) -> None:
     run()
     wall = run()
     steps = new_tokens + 8  # decode steps after the prefill (the delay adds 8)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
+    tag = f"[profile {kind}]"
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
-        print("[profile] device busy time not measured (the profiler saw no kernels)", flush=True)
+        print(f"{tag} device busy time not measured (the profiler saw no kernels)", flush=True)
         return
     by_cat: dict[str, float] = {}
     for e in kernels:
         cat = next((c for c, keys in _CATEGORIES if any(k in e.key for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
-    print(f"[profile] batch-1 generate, {new_tokens} new tokens ({steps} decode steps + prefill): "
+    print(f"{tag} batch-1 generate, {new_tokens} new tokens ({steps} decode steps + prefill): "
           f"wall {wall * 1e3 / steps:.2f} ms/step, device busy {busy_ms / steps:.2f} ms/step "
           f"= {100 * busy_ms / (wall * 1e3):.1f}% busy, {100 - 100 * busy_ms / (wall * 1e3):.1f}% idle "
           f"({card})", flush=True)
-    print("[profile] device ms/step by category: " + ", ".join(
+    print(f"{tag} device ms/step by category: " + ", ".join(
         f"{c} {v / steps:.3f}" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1])), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
+        print(f"{tag}   {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
               f"x{e.count / steps:.1f}/step  {e.key[:90]}", flush=True)
 
 
@@ -397,7 +548,69 @@ def _times(kernel, plain) -> dict:
     return {"ms": ms, "kernel_ms": ms, "host_ms": host_ms, "plain_ms": device_ms(plain)[0]}
 
 
-def phase_timings(gen, counts: dict, errs: dict) -> list[dict]:
+def _launches(name: str, counts: dict) -> dict:
+    """``launches`` (the sum over the main paths) and ``launches_by_path``."""
+    by_path = {kind: c[name] for kind, c in counts.items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def ssd_chunked_cost(Bsz: int, L: int, H: int, G: int, P: int, N: int,
+                     init_state: bool) -> tuple[float, float]:
+    """(flops, bytes) K6's function needs at least: the recurrent form's 4
+    flops per state element per step (y = C.h and h' = h dA + dt x B^T, as
+    K7 counts them), below the chunked form's work at any chunk length; one
+    read of x/dt/B/C/A/D and the init state, and one write of y and the
+    final state, in fp32."""
+    flops = 4.0 * Bsz * L * H * P * N
+    states = Bsz * H * P * N * (2 if init_state else 1)
+    nbytes = 4.0 * (Bsz * L * (2 * H * P + H + 2 * G * N) + states + 2 * H)
+    return flops, nbytes
+
+
+def fused_state_step_cost(BH: int, P: int, N: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) K7's function needs: 4 flops per state element; the state
+    read and written once in its storage type, C, B, dA, xdt read and y
+    written once in fp32."""
+    return 4.0 * BH * P * N, 2.0 * BH * P * N * itemsize + 4.0 * BH * (2 * N + 1 + 2 * P)
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    ops_s, bytes_s = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def time_ssd_chunked(gen, L: int) -> dict:
+    """K6 at batch 1 with CFG (2 rows), flagship widths, from the zero state
+    as the prefill runs it."""
+    from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
+
+    args = ssd_inputs(gen, 2, L)[:6]
+    return {"shape": f"x [2,{L},{SSM_H},{SSM_P}], B/C [2,{L},1,{SSM_N}], no init state, fp32",
+            **_times(lambda: ssd_chunked(*args), lambda: ssd_chunked_plain(*args)),
+            **_bound(*ssd_chunked_cost(2, L, SSM_H, 1, SSM_P, SSM_N, init_state=False))}
+
+
+def time_fused_state_step(gen, BH: int, dtype) -> dict:
+    """K7 at ``BH`` rows x heads, cycling over enough states to exceed the
+    50 MB L2 (a layer's state is read after the other layers' weights)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssm_state import fused_state_step, fused_state_step_plain
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_sets = 2 + int(64e6 // (BH * SSM_P * SSM_N * itemsize))
+    sets = [state_step_inputs(gen, BH, dtype) for _ in range(n_sets)]
+    cycle = itertools.cycle(sets)
+    return {"shape": f"state [{BH},{SSM_P},{SSM_N}] {str(dtype).split('.')[-1]}, L2 cold",
+            **_times(lambda: fused_state_step(*next(cycle)),
+                     lambda: fused_state_step_plain(*next(cycle))),
+            **_bound(*fused_state_step_cost(BH, SSM_P, SSM_N, itemsize))}
+
+
+def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
+    """``counts`` maps each main path to its launch counts; ``prefill_len`` is
+    the hybrid batch-1 prefill's length (K6's main-path shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -447,7 +660,7 @@ def phase_timings(gen, counts: dict, errs: dict) -> list[dict]:
             "source": "zonos_tpu_torch/csrc/decode_attention.cu",
             "replaces": ("zonos_tpu/ops/pallas_kernels.py:147" if key == "K1"
                          else "zonos_tpu/ops/pallas_kernels.py:58"),
-            "launches": counts[name],
+            **_launches(name, counts),
             "max_abs_err": errs[name],
             "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] bf16, length {length}",
             **_times(lambda: fn(*next(cycle), length),
@@ -467,7 +680,7 @@ def phase_timings(gen, counts: dict, errs: dict) -> list[dict]:
         "name": "fused_sample", "id": "K3", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/sampling.cu",
         "replaces": "zonos_tpu/ops/pallas_kernels.py:232",
-        "launches": counts["fused_sample"],
+        **_launches("fused_sample", counts),
         "max_abs_err": errs["fused_sample"],
         "shape": f"logits/noise [{Bs},{K},{V}] fp32",
         **_times(lambda: fused_sample(logits, noise, **kw),
@@ -502,7 +715,7 @@ def phase_timings(gen, counts: dict, errs: dict) -> list[dict]:
         "name": "snake_conv1d", "id": "K5", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/snake_conv.cu",
         "replaces": "zonos_tpu/ops/pallas_dac.py:47",
-        "launches": counts["snake_conv1d"],
+        **_launches("snake_conv1d", counts),
         "max_abs_err": errs["snake_conv1d"],
         "shape": f"all 12 DAC decoder residual units (24 launches) for {frames} frames, batch 1, fp32",
         "ms": ms,
@@ -512,6 +725,32 @@ def phase_timings(gen, counts: dict, errs: dict) -> list[dict]:
         "bound_ms": bound * 1e3,
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": None,
+    })
+
+    main_shape = time_ssd_chunked(gen, prefill_len)
+    out.append({
+        "name": "ssd_chunked", "id": "K6", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/ssd_chunked.cu",
+        "replaces": "zonos_tpu/ops/pallas_ssm.py:167",
+        **_launches("ssd_chunked", counts),
+        "max_abs_err": errs["ssd_chunked"],
+        **main_shape,
+        "library_ms": None,
+        "more": [time_ssd_chunked(gen, 1024)],
+    })
+    main_shape = time_fused_state_step(gen, 128, torch.float32)
+    out.append({
+        "name": "fused_state_step", "id": "K7", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/ssm_state.cu",
+        "replaces": "zonos_tpu/ops/pallas_state.py:49",
+        **_launches("fused_state_step", counts),
+        "max_abs_err": errs["fused_state_step"],
+        **main_shape,
+        "library_ms": None,
+        "more": [time_fused_state_step(gen, BH, dtype)
+                 for BH, dtype in ((128, torch.bfloat16), (128, torch.float8_e4m3fn),
+                                   (1024, torch.float32), (1024, torch.bfloat16),
+                                   (1024, torch.float8_e4m3fn))],
     })
     return out
 
@@ -529,10 +768,26 @@ def main() -> int:
     errs = dict(check_decode_attention(gen))
     errs["fused_sample"] = check_fused_sample(gen)
     errs["snake_conv1d"] = check_snake_conv(gen)
-    counts, model, prefix = phase_main_path(card)
-    phase_profile(model, prefix, card)
-    del model
-    kernels = phase_timings(gen, counts, errs)
+    errs["ssd_chunked"] = check_ssd_chunked(gen)
+    errs["fused_state_step"] = check_fused_state_step(gen)
+
+    from zonos_tpu_torch import DACAutoencoder
+
+    dac = DACAutoencoder(seed=0)
+    print(f"[time] kernel checks done {time.perf_counter() - t0:.1f} s after the device check",
+          flush=True)
+    counts = {}
+    for kind, batch, expect, new_tokens in (
+            ("transformer", 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS),
+            ("hybrid", 8, HYBRID_KERNELS, MAX_NEW_TOKENS)):
+        model = load_model(kind)
+        counts[kind], prefix = phase_main_path(card, kind, model, dac, batch, expect, new_tokens)
+        print(f"[time] {kind} path done {time.perf_counter() - t0:.1f} s", flush=True)
+        phase_profile(kind, model, prefix, card)
+        print(f"[time] {kind} profile done {time.perf_counter() - t0:.1f} s", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1)
     for entry in kernels:  # one JSON line per kernel, each with the card it ran on
         print(json.dumps({**entry, "card": card}), flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check", flush=True)

@@ -19,6 +19,12 @@ from zonos_tpu_torch.kernels.decode_attention import (
 )
 from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
 from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
+from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
+from zonos_tpu_torch.kernels.ssm_state import (
+    fused_state_step,
+    fused_state_step_plain,
+    storage_ulp,
+)
 from zonos_tpu_torch.ops.sampling import gumbel_noise
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +81,55 @@ def test_snake_conv_kernel_matches_plain(gen, k, dilation):
         torch.backends.cudnn.allow_tf32 = tf32
     got = snake_conv1d(x, alpha, w, b, dilation)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _ssd_inputs(gen, B, L, H, G, P, N):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (rnd(B, L, H, P), rnd(B, L, H).abs() * 0.5, -rnd(H).abs(), rnd(B, L, G, N),
+            rnd(B, L, G, N), rnd(H), rnd(B, H, P, N))
+
+
+@pytest.mark.parametrize("L,G,P,N", [(37, 1, 64, 128), (150, 1, 64, 128), (70, 2, 16, 16)])
+def test_ssd_chunked_kernel_matches_plain(gen, L, G, P, N):
+    x, dt, A, Bm, Cm, D, init = _ssd_inputs(gen, 2, L, 4, G, P, N)
+    before = launch_counts["ssd_chunked"]
+    for state in (init, None):
+        ref_y, ref_s = ssd_chunked_plain(x, dt, A, Bm, Cm, D, state)
+        y, s = ssd_chunked(x, dt, A, Bm, Cm, D, state)
+        assert (y - ref_y).abs().max() <= 1e-4 * ref_y.abs().max()
+        assert (s - ref_s).abs().max() <= 1e-4 * ref_s.abs().max()
+    assert launch_counts["ssd_chunked"] == before + 2
+
+
+def test_ssd_chunked_kernel_rejects_bf16(gen):
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(gen, 1, 64, 4, 1, 64, 128)
+    with pytest.raises(TypeError):
+        ssd_chunked(x.bfloat16(), dt, A, Bm, Cm, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+def test_fused_state_step_kernel_matches_plain(gen, dtype):
+    BH, P, N = 24, 64, 128
+    state = (torch.randn((BH, P, N), generator=gen, device="cuda") * 4).to(dtype)
+    C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
+    dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+    xdt = torch.randn((BH, P), generator=gen, device="cuda")
+    xdt[0, 0] = 1e4  # leaves the f8 range: stored as +-448
+    ref_state = state.clone()
+    ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
+    y, out = fused_state_step(state, C, B, dA, xdt)
+    assert out is state
+    assert (y - ref_y).abs().max() <= 1e-5 * ref_y.abs().max()
+    assert torch.isfinite(state.float()).all()
+    # at most one storage ulp where the fp32 products round differently
+    assert ((state.float() - ref_state.float()).abs() <= storage_ulp(ref_state)).all()
+
+
+def test_fused_state_step_kernel_rejects_fp16(gen):
+    state = torch.zeros((4, 64, 128), dtype=torch.float16, device="cuda")
+    C = torch.zeros((4, 128), device="cuda")
+    with pytest.raises(TypeError):
+        fused_state_step(state, C, C, torch.ones((4, 1), device="cuda"),
+                         torch.zeros((4, 64), device="cuda"))

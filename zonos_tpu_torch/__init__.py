@@ -8,7 +8,7 @@ hand-written CUDA C++ under ``csrc/``, each beside a plain PyTorch version
 ``device="cpu"``::
 
     from zonos_tpu_torch import DACAutoencoder, Zonos, ZonosConfig, make_cond_dict
-    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
+    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT  # or HYBRID_CONFIG_DICT
     model = Zonos(ZonosConfig.from_dict(TRANSFORMER_CONFIG_DICT))
     codes = model.generate(model.prepare_conditioning(make_cond_dict(text="Hello!")))
     DACAutoencoder().save_codes(["out.wav"], codes)

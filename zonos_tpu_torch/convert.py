@@ -39,15 +39,22 @@ def _tree(x, fn, path=()):
     return fn(x, path)
 
 
+_FP32_SSM_LEAVES = ("A_log", "D", "dt_bias")  # added in fp32 by the Mamba2 mixer
+
+
 def convert_zonos_params(params: dict, device="cpu", dtype: torch.dtype | None = None) -> dict:
-    """JAX ``Zonos.params`` (numpy leaves) -> the port's ``Zonos`` params.
-    ``dtype`` recasts the floating leaves, except the Fourier conditioners'
-    random features, which stay fp32 as in the JAX init."""
+    """JAX ``Zonos.params`` (numpy leaves) -> the port's ``Zonos`` params, for
+    the transformer and the hybrid (whose ``layers_list`` of per-layer dicts
+    is carried across as a list).  ``dtype`` recasts the floating leaves,
+    except those the JAX init keeps fp32: the Fourier conditioners' random
+    features and the hybrid's ``A_log``, ``D`` and ``dt_bias``."""
 
     def leaf(a, path):
         t = to_tensor(a, device)
         fourier = path[0] == "prefix_conditioner" and path[-1] == "weight"
-        return t.to(dtype) if dtype is not None and t.is_floating_point() and not fourier else t
+        ssm = path[0] == "backbone" and path[-1] in _FP32_SSM_LEAVES
+        keep = fourier or ssm or not t.is_floating_point()
+        return t.to(dtype) if dtype is not None and not keep else t
 
     return _tree(params, leaf)
 

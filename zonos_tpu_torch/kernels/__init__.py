@@ -12,6 +12,8 @@ launch_counts: dict[str, int] = {
     "decode_attention_single": 0,
     "fused_sample": 0,
     "snake_conv1d": 0,
+    "ssd_chunked": 0,
+    "fused_state_step": 0,
 }
 
 

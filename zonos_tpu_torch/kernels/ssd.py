@@ -1,0 +1,119 @@
+"""K6 chunked-SSD prefill (csrc/ssd_chunked.cu) and its plain version.
+
+Replaces ``ssd_chunked_pallas`` (zonos_tpu/ops/pallas_ssm.py:167) and its
+XLA twin ``ssd_chunked`` (zonos_tpu/ops/ssm.py:74-135): the Mamba2
+selective scan over a whole sequence as 64-step chunks, from an optional
+initial state.  The kernel takes any ``ngroups`` and any batch, so no
+configuration and no batch size dispatches away from it.
+
+Bound and design: see the source note.  One CTA per (row, head) loops over
+the chunks with the fp32 ``[P, N]`` state in shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels._build import check, library
+
+CHUNK = 64  # compiled into the kernel
+MAX_HEADDIM, MAX_D_STATE = 64, 128  # the kernel's shared-memory layout
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"zt_ssd_chunked": [_P] * 9 + [_I] * 6 + [_P]}
+
+
+def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                      Cm: torch.Tensor, D: torch.Tensor, init_state: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, L, H, P], dt [B, L, H] (softplus'd), A [H] (negative), B/C
+    [B, L, G, N], D [H], init_state [B, H, P, N] -> (y [B, L, H, P], final
+    state [B, H, P, N]); fp32, the chunked formulation of the JAX package."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    pad = (-L) % CHUNK
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    Lp = L + pad
+    nc = Lp // CHUNK
+
+    def chunks(t):  # [B, Lp, ...] -> [B, nc, Q, ...]
+        return t.reshape(Bsz, nc, CHUNK, *t.shape[2:])
+
+    xc, dtc = chunks(x), chunks(dt)
+    Bc = chunks(Bm.repeat_interleave(H // G, dim=2))  # [B, nc, Q, H, N]
+    Cc = chunks(Cm.repeat_interleave(H // G, dim=2))
+    s = torch.cumsum(dtc * A, dim=2)  # [B, nc, Q, H] cumulative log-decay
+
+    # intra-chunk: y_i = sum_{j<=i} (C_i . B_j) exp(s_i - s_j) dt_j x_j; the
+    # exponent is masked before exp (the upper triangle would overflow)
+    causal = torch.ones((CHUNK, CHUNK), dtype=torch.bool, device=x.device).tril()
+    diff = s[:, :, :, None, :] - s[:, :, None, :, :]  # [B, nc, Q(i), Q(j), H]
+    decay = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
+    cb = torch.einsum("bnihs,bnjhs->bnijh", Cc, Bc)
+    w = cb * decay * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", w, xc)
+
+    # chunk summary state and the sequential carry between chunks
+    tail = torch.exp(s[:, :, -1:, :] - s)
+    contrib = xc * (dtc * tail)[..., None]
+    s_chunk = torch.einsum("bnqhp,bnqhs->bnhps", contrib, Bc)  # [B, nc, H, P, N]
+    chunk_decay = torch.exp(s[:, :, -1, :])  # [B, nc, H]
+    h = (torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device)
+         if init_state is None else init_state.to(x.dtype))
+    befores = []
+    for n in range(nc):
+        befores.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + s_chunk[:, n]
+    h_before = torch.stack(befores, dim=1)  # state before each chunk
+
+    y_inter = torch.einsum("bnqhs,bnhps->bnqhp", Cc * torch.exp(s)[..., None], h_before)
+    y = (y_intra + y_inter).reshape(Bsz, Lp, H, P)[:, :L]
+    return y + x[:, :L] * D[None, None, :, None], h
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, D: torch.Tensor, init_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 for CUDA tensors (any ngroups, any batch); CPU tensors take the plain
+    version.  Shapes and dtypes as :func:`ssd_chunked_plain`."""
+    if not x.is_cuda:
+        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, init_state)
+    tensors = [x, dt, A, Bm, Cm, D] + ([init_state] if init_state is not None else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("ssd_chunked operands must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("ssd_chunked takes fp32 operands")
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"bad shapes x {tuple(x.shape)} B {tuple(Bm.shape)}")
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (dt.shape != (Bsz, L, H) or A.shape != (H,) or D.shape != (H,)
+            or Bm.shape != (Bsz, L, G, N) or Cm.shape != Bm.shape or H % G
+            or (init_state is not None and init_state.shape != (Bsz, H, P, N))):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A {tuple(A.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} D {tuple(D.shape)}")
+    if P % 4 or P > MAX_HEADDIM or N % 4 or N > MAX_D_STATE or L < 1:
+        raise ValueError(f"the kernel takes headdim <= {MAX_HEADDIM} and d_state <= "
+                         f"{MAX_D_STATE}, multiples of 4, and L >= 1; got P={P} N={N} L={L}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("ssd_chunked takes contiguous, 16-byte-aligned tensors")
+    y = torch.empty_like(x)
+    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    lib = library("ssd_chunked", _SIGNATURES)
+    rc = lib.zt_ssd_chunked(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        init_state.data_ptr() if init_state is not None else None, y.data_ptr(),
+        final.data_ptr(), Bsz, L, H, G, P, N, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(rc, "ssd_chunked")
+    launch_counts["ssd_chunked"] += 1
+    return y, final
+

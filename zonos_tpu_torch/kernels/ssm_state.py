@@ -1,0 +1,91 @@
+"""K7 decode-state step (csrc/ssm_state.cu) and its plain version.
+
+Replaces ``fused_state_step`` (zonos_tpu/ops/pallas_state.py:49), the fused
+form of the state half of ``ssd_decode_step`` (zonos_tpu/ops/ssm.py:218-226):
+over the stored ``[BH, P, N]`` state, ``y = sum_n s * C`` from the old state
+and ``s' = s * dA + xdt (x) B``, with ``s'`` written back **in place** in the
+storage dtype (fp32, bf16, or float8 e4m3 saturated to +-448).  The kernel
+reads the state once and writes it once; bound and design: see the source
+note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels._build import check, library
+
+F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
+STATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"zt_ssm_state_step": [_P] * 6 + [_I] * 4 + [_P]}
+
+
+def store_state(dst: torch.Tensor, new: torch.Tensor) -> None:
+    """Write the fp32 state ``new`` into ``dst`` in its storage dtype (f8
+    clipped to +-448 first, as the JAX package stores it)."""
+    if dst.dtype == torch.float8_e4m3fn:
+        new = new.clamp(-F8_MAX, F8_MAX)
+    dst.copy_(new)
+
+
+def storage_ulp(state: torch.Tensor) -> torch.Tensor:
+    """One ulp of ``state``'s storage dtype at each stored value (fp32): the
+    unit in which a kernel's stored state is held to the plain version's."""
+    mant, min_exp = {torch.float32: (23, -126), torch.bfloat16: (7, -126),
+                     torch.float8_e4m3fn: (3, -6)}[state.dtype]
+    mag = state.float().abs().clamp_min(2.0 ** min_exp)
+    return torch.exp2(torch.floor(torch.log2(mag)) - mant)
+
+
+def fused_state_step_plain(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+                           dA: torch.Tensor, xdt: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """state [BH, P, N] (storage dtype, updated in place), C/B [BH, N], dA
+    [BH, 1], xdt [BH, P] fp32 -> (y [BH, P] fp32, state)."""
+    s = state.float()
+    y = torch.einsum("bpn,bn->bp", s, C)
+    store_state(state, s * dA[:, :, None] + xdt[:, :, None] * B[:, None, :])
+    return y, state
+
+
+def fused_state_step(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor, dA: torch.Tensor,
+                     xdt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 for CUDA tensors; CPU tensors take the plain version.  Shapes and
+    the in-place contract as :func:`fused_state_step_plain`."""
+    if not state.is_cuda:
+        return fused_state_step_plain(state, C, B, dA, xdt)
+    inputs = (C, B, dA, xdt)
+    if any(t.device != state.device for t in inputs):
+        raise ValueError("fused_state_step operands must lie on one CUDA device")
+    if state.dtype not in STATE_DTYPES:
+        raise TypeError(f"fused_state_step stores fp32, bf16 or float8_e4m3fn, not {state.dtype}")
+    if any(t.dtype != torch.float32 for t in inputs):
+        raise TypeError("fused_state_step takes fp32 C, B, dA and xdt")
+    if state.dim() != 3:
+        raise ValueError(f"bad state shape {tuple(state.shape)}")
+    BH, P, N = state.shape
+    if C.shape != (BH, N) or B.shape != (BH, N) or dA.shape != (BH, 1) or xdt.shape != (BH, P):
+        raise ValueError(f"bad shapes state {tuple(state.shape)} C {tuple(C.shape)} "
+                         f"B {tuple(B.shape)} dA {tuple(dA.shape)} xdt {tuple(xdt.shape)}")
+    lanes = N * state.element_size() // 16  # 16-byte slices per state row
+    if (N * state.element_size()) % 16 or not 1 <= lanes <= 32 or lanes & (lanes - 1):
+        raise ValueError(f"d_state {N} in {state.dtype} is not 16-byte slices of a power of "
+                         "two up to 32")
+    if not (state.is_contiguous() and state.data_ptr() % 16 == 0
+            and all(t.is_contiguous() for t in inputs)):
+        raise ValueError("fused_state_step takes contiguous tensors and a 16-byte-aligned state")
+    y = torch.empty((BH, P), dtype=torch.float32, device=state.device)
+    lib = library("ssm_state", _SIGNATURES)
+    rc = lib.zt_ssm_state_step(
+        state.data_ptr(), C.data_ptr(), B.data_ptr(), dA.data_ptr(), xdt.data_ptr(), y.data_ptr(),
+        BH, P, N, STATE_DTYPES[state.dtype], torch.cuda.current_stream(state.device).cuda_stream,
+    )
+    check(rc, "fused_state_step")
+    launch_counts["fused_state_step"] += 1
+    return y, state
+

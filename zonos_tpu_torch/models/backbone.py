@@ -14,7 +14,6 @@ step writes its row at ``pos`` and then attends with ``length = pos + 1``.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -23,7 +22,7 @@ import torch.nn.functional as F
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.ops.attention import decode_attention, fresh_prefill_attention
 from zonos_tpu_torch.ops.norms import layer_norm
-from zonos_tpu_torch.ops.rope import apply_rope, rope_table
+from zonos_tpu_torch.ops.rope import apply_rope, cached_rope_table
 
 
 @dataclass
@@ -72,11 +71,6 @@ def init_transformer_params(cfg: BackboneConfig, generator: torch.Generator,
     }
 
 
-@functools.lru_cache(maxsize=8)
-def _rope(head_dim: int, base: float, device: torch.device):
-    return rope_table(head_dim, base=base, device=device)
-
-
 def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin,
            cache: KVCache, pos: int, prefill: bool) -> torch.Tensor:
     lp = {name: w[li] for name, w in params["layers"].items()}
@@ -102,7 +96,7 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
 
 def _run_layers(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: KVCache,
                 pos: int, prefill: bool) -> torch.Tensor:
-    cos_t, sin_t = _rope(cfg.head_dim, cfg.rope_base, x.device)
+    cos_t, sin_t = cached_rope_table(cfg.head_dim, cfg.rope_base, x.device)
     S = x.shape[1]
     cos, sin = cos_t[pos:pos + S], sin_t[pos:pos + S]
     for li in range(cfg.n_layer):

@@ -1,0 +1,265 @@
+"""Mamba2-hybrid backbone (counterpart of zonos_tpu/models/hybrid.py:38-365):
+pre-norm residual blocks where layer ``i`` has a GQA attention mixer if
+``i in attn_layer_idx`` and a Mamba2 (SSD) mixer otherwise, an optional
+SwiGLU MLP after either, RMSNorm, and under ``residual_in_fp32`` a residual
+stream kept in fp32 while every matmul runs in the compute dtype.
+
+Parameters keep the JAX package's layout: ``layers_list`` holds one dict per
+layer, matmul weights ``[in, out]`` applied as ``x @ w``; ``A_log``, ``D`` and
+``dt_bias`` are fp32 whatever the compute dtype.
+
+The cache is a list with one dict per layer, updated in place:
+
+- attention layer: ``{"k", "v"}`` ``[B, H_kv, S_max, head_dim]``, allocated
+  once at the generation's length; prefill writes rows [0, S), a decode step
+  writes row ``pos`` and attends over ``pos + 1`` rows (K1/K2 on the card);
+- Mamba2 layer: ``{"conv"}`` ``[B, K-1, conv_dim]`` in the compute dtype and
+  ``{"ssm"}`` ``[B, H, P, N]`` in the storage dtype of the SSM-state mode
+  (fp32, bf16 or float8 e4m3); prefill replaces both (K6 on the card), a
+  decode step rewrites them (K7 writes the SSM state in place).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from zonos_tpu_torch.config import BackboneConfig
+from zonos_tpu_torch.kernels.ssm_state import store_state
+from zonos_tpu_torch.ops.attention import decode_attention, fresh_prefill_attention
+from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
+from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
+from zonos_tpu_torch.ops.ssm import (
+    causal_conv1d_prefill,
+    causal_conv1d_step,
+    ssd_chunked,
+    ssd_decode_step,
+)
+
+SSM_STATE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "f8": torch.float8_e4m3fn}
+F8_STATE_FROM_ROWS = 16  # the batch-aware default: f8 from 16 CFG-doubled rows up
+
+
+def _dims(cfg: BackboneConfig):
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    H = d_inner // cfg.ssm_headdim
+    G, N, K = cfg.ssm_ngroups, cfg.ssm_d_state, cfg.ssm_d_conv
+    return d, d_inner, H, G, N, K, d_inner + 2 * G * N
+
+
+def _attn_dims(cfg: BackboneConfig):
+    H, Hkv = cfg.num_heads, cfg.num_heads_kv
+    hd = int(cfg.attn_cfg.get("head_dim", cfg.d_model // H))
+    rot = int(cfg.attn_cfg.get("rotary_emb_dim", hd // 2))
+    return H, Hkv, hd, rot
+
+
+def is_attn_layer(cfg: BackboneConfig, i: int) -> bool:
+    return i in set(cfg.attn_layer_idx)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_hybrid_params(cfg: BackboneConfig, generator: torch.Generator,
+                       dtype=torch.bfloat16, device="cpu") -> dict:
+    """Random-init parameters as the JAX init draws them (N(0, 1/fan_in)
+    matmuls, N(0, 0.2^2) conv taps, A_log 0, D 1, dt_bias 0 in fp32, unit
+    norms).  ``generator`` lives on ``device``."""
+    d, d_inner, H, G, N, K, conv_dim = _dims(cfg)
+    aH, aHkv, ahd, _ = _attn_dims(cfg)
+
+    def randn(shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+    def dense(shape):
+        return (randn(shape) / shape[-2] ** 0.5).to(dtype)
+
+    def const(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    layers = []
+    for i in range(cfg.n_layer):
+        lp = {"norm_scale": const((d,), 1.0)}
+        if not cfg.rms_norm:
+            lp["norm_bias"] = const((d,), 0.0)
+        if is_attn_layer(cfg, i):
+            lp["wqkv"] = dense((d, (aH + 2 * aHkv) * ahd))
+            lp["wo"] = dense((aH * ahd, d))
+            mlp_dim = cfg.attn_mlp_d_intermediate
+        else:
+            lp["in_proj"] = dense((d, 2 * d_inner + 2 * G * N + H))
+            lp["conv_w"] = (randn((K, conv_dim)) * 0.2).to(dtype)
+            lp["conv_b"] = const((conv_dim,), 0.0)
+            lp["A_log"] = const((H,), 0.0, torch.float32)
+            lp["D"] = const((H,), 1.0, torch.float32)
+            lp["dt_bias"] = const((H,), 0.0, torch.float32)
+            lp["mixer_norm"] = const((d_inner,), 1.0)
+            lp["out_proj"] = dense((d_inner, d))
+            mlp_dim = cfg.d_intermediate
+        if mlp_dim:
+            lp["norm2_scale"] = const((d,), 1.0)
+            if not cfg.rms_norm:
+                lp["norm2_bias"] = const((d,), 0.0)
+            lp["w1"] = dense((d, 2 * mlp_dim))
+            lp["w2"] = dense((mlp_dim, d))
+        layers.append(lp)
+    p = {"layers_list": layers, "normf_scale": const((d,), 1.0)}
+    if not cfg.rms_norm:
+        p["normf_bias"] = const((d,), 0.0)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Cache and SSM-state storage
+# ---------------------------------------------------------------------------
+
+
+def ssm_state_mode(rows: int | None = None, mode: str | None = None) -> str:
+    """The SSM decode-state storage mode: ``mode`` when given, else the JAX
+    package's batch-aware default, f8 from 16 cache rows (CFG-doubled) up and
+    fp32 below (zonos_tpu/models/hybrid.py:108-143, without its environment
+    variables)."""
+    if mode is None:
+        mode = "f8" if rows is not None and rows >= F8_STATE_FROM_ROWS else "fp32"
+    if mode in ("int8", "int4"):
+        raise NotImplementedError(
+            f"the {mode} SSM state is not ported yet (ROADMAP.md: int8/int4 SSM-state modes)")
+    if mode not in SSM_STATE_DTYPES:
+        raise ValueError(f"SSM state mode {mode!r}: want fp32|bf16|f8")
+    return mode
+
+
+def create_hybrid_cache(cfg: BackboneConfig, batch: int, max_seqlen: int,
+                        dtype=torch.bfloat16, device="cpu", ssm_state: str | None = None
+                        ) -> list[dict]:
+    """Zeroed per-layer states for ``batch`` rows (2B with CFG).  A bf16
+    compute dtype stores the SSM state by ``ssm_state_mode(batch, ssm_state)``;
+    any other compute dtype stores it in fp32 unless ``ssm_state`` says
+    otherwise, as the JAX package does."""
+    _, _, H, _, N, K, conv_dim = _dims(cfg)
+    _, aHkv, ahd, _ = _attn_dims(cfg)
+    if ssm_state is None and dtype != torch.bfloat16:
+        ssm_state = "fp32"
+    ssm_dtype = SSM_STATE_DTYPES[ssm_state_mode(batch, ssm_state)]
+    cache = []
+    for i in range(cfg.n_layer):
+        if is_attn_layer(cfg, i):
+            shape = (batch, aHkv, max_seqlen, ahd)
+            cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)})
+        else:
+            cache.append({
+                "conv": torch.zeros((batch, K - 1, conv_dim), dtype=dtype, device=device),
+                "ssm": torch.zeros((batch, H, cfg.ssm_headdim, N), dtype=ssm_dtype, device=device),
+            })
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg: BackboneConfig, x, scale, bias):
+    if cfg.rms_norm:
+        return rms_norm(x, scale, cfg.norm_epsilon, bias=bias)
+    return layer_norm(x, scale, bias, cfg.norm_epsilon)
+
+
+def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
+                 prefill: bool) -> torch.Tensor:
+    """x [B, S, d] in the compute dtype -> [B, S, d]; rewrites ``st``."""
+    _, d_inner, H, G, N, _, conv_dim = _dims(cfg)
+    P = cfg.ssm_headdim
+    B, S, _ = x.shape
+    z, xBC, dt_raw = torch.split(x @ lp["in_proj"], [d_inner, conv_dim, H], dim=-1)
+    w, b = lp["conv_w"].to(xBC.dtype), lp["conv_b"].to(xBC.dtype)
+    if prefill:
+        xBC, conv_state = causal_conv1d_prefill(xBC, w, b)
+    else:
+        y1, conv_state = causal_conv1d_step(xBC[:, 0], st["conv"].to(xBC.dtype), w, b)
+        xBC = y1[:, None, :]
+    st["conv"].copy_(conv_state)
+    xBC = F.silu(xBC)
+
+    xs = xBC[..., :d_inner].reshape(B, S, H, P).float().contiguous()
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(B, S, G, N).float().contiguous()
+    Cm = xBC[..., d_inner + G * N:].reshape(B, S, G, N).float().contiguous()
+    dt = F.softplus(dt_raw.float() + lp["dt_bias"])  # [B, S, H]
+    A = -torch.exp(lp["A_log"])
+    if prefill:
+        # prefill starts from the zero state, as the conv above does: the JAX
+        # package passes its fresh cache's zeros, which K6 reads as no state
+        y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, lp["D"])
+        store_state(st["ssm"], final)
+    else:
+        y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], lp["D"], st["ssm"])
+        y = y[:, None]
+
+    # y is cast to the compute dtype before the gate; the mixer norm follows it
+    gated = y.reshape(B, S, d_inner).to(x.dtype) * F.silu(z)
+    return rms_norm(gated, lp["mixer_norm"], cfg.norm_epsilon) @ lp["out_proj"]
+
+
+def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict, pos: int,
+                prefill: bool) -> torch.Tensor:
+    H, Hkv, hd, rot = _attn_dims(cfg)
+    B, S, _ = x.shape
+    q, k, v = torch.split(x @ lp["wqkv"], [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
+    if rot > 0:  # rotate-halves over the first `rot` dims; the rest pass through
+        cos_t, sin_t = cached_rope_table(rot, cfg.rope_base, x.device)
+        cos, sin = cos_t[pos:pos + S], sin_t[pos:pos + S]
+        q = torch.cat([apply_rope_neox(q[..., :rot], cos, sin), q[..., rot:]], dim=-1)
+        k = torch.cat([apply_rope_neox(k[..., :rot], cos, sin), k[..., rot:]], dim=-1)
+    st["k"][:, :, pos:pos + S] = k.transpose(1, 2).to(st["k"].dtype)
+    st["v"][:, :, pos:pos + S] = v.transpose(1, 2).to(st["v"].dtype)
+    if prefill:
+        y = fresh_prefill_attention(q, k, v)
+    else:
+        y = decode_attention(q, st["k"], st["v"], length=pos + 1)
+    return y.reshape(B, S, H * hd) @ lp["wo"]
+
+
+def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict, pos: int,
+           prefill: bool, compute_dtype: torch.dtype) -> torch.Tensor:
+    h = _norm(cfg, x, lp["norm_scale"], lp.get("norm_bias")).to(compute_dtype)
+    if is_attn_layer(cfg, i):
+        y = _attn_mixer(cfg, lp, h, st, pos, prefill)
+    else:
+        y = _mamba_mixer(cfg, lp, h, st, prefill)
+    x = x + y.to(x.dtype)
+    if "w1" in lp:
+        h = _norm(cfg, x, lp["norm2_scale"], lp.get("norm2_bias")).to(compute_dtype)
+        u, gate = torch.chunk(h @ lp["w1"], 2, dim=-1)
+        x = x + ((u * F.silu(gate)) @ lp["w2"]).to(x.dtype)
+    return x
+
+
+def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict], pos: int,
+         prefill: bool) -> torch.Tensor:
+    compute_dtype = x.dtype
+    if cfg.residual_in_fp32:
+        x = x.float()
+    for i, (lp, st) in enumerate(zip(params["layers_list"], cache)):
+        x = _block(cfg, i, lp, x, st, pos, prefill, compute_dtype)
+    x = _norm(cfg, x, params["normf_scale"], params.get("normf_bias"))
+    return x.to(compute_dtype)
+
+
+def hybrid_prefill(cfg: BackboneConfig, params: dict, x: torch.Tensor,
+                   cache: list[dict]) -> tuple[torch.Tensor, list[dict]]:
+    """Run the prompt ``x [B, S, d]`` from position 0 and zero conv and SSM
+    states; returns the final-norm hidden states ``[B, S, d]`` and the cache,
+    filled in place (its earlier contents are not read)."""
+    return _run(cfg, params, x, cache, 0, prefill=True), cache
+
+
+def hybrid_decode_step(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict],
+                       pos: int) -> tuple[torch.Tensor, list[dict]]:
+    """One decode step: ``x [B, 1, d]`` at position ``pos`` (a host int)."""
+    return _run(cfg, params, x, cache, pos, prefill=False), cache

@@ -1,0 +1,60 @@
+"""Backbone registry (counterpart of zonos_tpu/models/registry.py:13-65): the
+seam through which ``Zonos`` initialises, caches, prefills and steps a
+backbone without naming one.
+
+- ``init(cfg, generator, dtype, device) -> params``
+- ``make_cache(cfg, rows, max_seqlen, dtype, device) -> cache``
+- ``prefill(cfg, params, x, cache) -> (hidden, cache)``
+- ``decode_step(cfg, params, x, cache, pos) -> (hidden, cache)``
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from zonos_tpu_torch.config import BackboneConfig
+
+
+@dataclass(frozen=True)
+class BackboneOps:
+    init: Callable
+    make_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+
+
+def _transformer_ops() -> BackboneOps:
+    from zonos_tpu_torch.models.backbone import (
+        KVCache,
+        init_transformer_params,
+        transformer_decode_step,
+        transformer_prefill,
+    )
+
+    return BackboneOps(init=init_transformer_params, make_cache=KVCache.create,
+                       prefill=transformer_prefill, decode_step=transformer_decode_step)
+
+
+def _hybrid_ops() -> BackboneOps:
+    from zonos_tpu_torch.models.hybrid import (
+        create_hybrid_cache,
+        hybrid_decode_step,
+        hybrid_prefill,
+        init_hybrid_params,
+    )
+
+    return BackboneOps(init=init_hybrid_params, make_cache=create_hybrid_cache,
+                       prefill=hybrid_prefill, decode_step=hybrid_decode_step)
+
+
+BACKBONES: dict[str, Callable[[], BackboneOps]] = {
+    "transformer": _transformer_ops,
+    "hybrid": _hybrid_ops,
+}
+
+
+def backbone_ops(cfg: BackboneConfig) -> BackboneOps:
+    """The ops of the architecture ``cfg`` describes (an empty ``ssm_cfg`` is
+    the transformer, anything else the Mamba2 hybrid)."""
+    return BACKBONES["transformer" if cfg.is_transformer else "hybrid"]()

@@ -31,12 +31,7 @@ from zonos_tpu_torch.conditioning import (
     required_keys,
 )
 from zonos_tpu_torch.config import ZonosConfig, find_multiple
-from zonos_tpu_torch.models.backbone import (
-    KVCache,
-    init_transformer_params,
-    transformer_decode_step,
-    transformer_prefill,
-)
+from zonos_tpu_torch.models.registry import backbone_ops
 from zonos_tpu_torch.ops.delay import apply_delay_pattern, revert_delay_pattern
 from zonos_tpu_torch.ops.eos import EosState, eos_logit_mask, eos_update
 from zonos_tpu_torch.ops.sampling import SamplingParams, gumbel_noise, sample_from_logits
@@ -108,6 +103,8 @@ def _compute_step_logits(params, cfg, hidden, cfg_scale, use_cfg):
 class Zonos:
     """User-facing model: ``prepare_conditioning`` then ``generate``.
 
+    ``config`` describes the transformer or the Mamba2 hybrid; the backbone's
+    init, cache, prefill and decode step come from ``models/registry.py``.
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     ``device="cpu"`` runs the plain versions of the kernels.  ``params``
     (for example from :mod:`zonos_tpu_torch.convert`) or a random init from
@@ -116,9 +113,8 @@ class Zonos:
 
     def __init__(self, config: ZonosConfig, params: dict | None = None, seed: int = 0,
                  device: str | torch.device = "cuda", dtype=torch.bfloat16):
-        if not config.backbone.is_transformer:
-            raise NotImplementedError("the port runs the transformer backbone only")
         self.config = config
+        self.backbone = backbone_ops(config.backbone)
         self.device = resolve_device(device)
         self.specs = build_specs(config.prefix_conditioner, config.backbone.d_model)
         self.eos_token_id = config.eos_token_id
@@ -132,7 +128,7 @@ class Zonos:
         cfg = self.config
         d = cfg.backbone.d_model
         p = {
-            "backbone": init_transformer_params(cfg.backbone, gen, dtype, self.device),
+            "backbone": self.backbone.init(cfg.backbone, gen, dtype, self.device),
             "prefix_conditioner": init_prefix_conditioner_params(
                 gen, cfg.prefix_conditioner, d, dtype, self.device),
         }
@@ -216,7 +212,9 @@ class Zonos:
         total_seq = find_multiple(cond_len + audio_len + K, 64)
         window = max(sampling.repetition_penalty_window, 1)
         prefill_len = 1
-        cache = KVCache.create(cfg.backbone, prefix.shape[0], total_seq, self.compute_dtype, dev)
+        # one cache row per backbone row: 2B with CFG, B without
+        cache = self.backbone.make_cache(cfg.backbone, prefix.shape[0], total_seq,
+                                         self.compute_dtype, dev)
         gens = self._row_generators(seed, B)
         sampled = sampling.temperature > 0
 
@@ -228,7 +226,7 @@ class Zonos:
         if use_cfg:
             audio_embeds = audio_embeds.repeat(2, 1, 1)
         x = torch.cat([prefix, audio_embeds.to(prefix.dtype)], dim=1)
-        hidden, cache = transformer_prefill(cfg.backbone, bp, x, cache)
+        hidden, cache = self.backbone.prefill(cfg.backbone, bp, x, cache)
         logits = _compute_step_logits(params, cfg, hidden[:, -1], cfg_scale, use_cfg)
         if sampling.ban_eos:
             logits[:, :, eos_id] = float("-inf")
@@ -262,7 +260,7 @@ class Zonos:
             h = embed_codes(params, delayed[..., off - 1:off].clamp_min(0))
             if use_cfg:
                 h = h.repeat(2, 1, 1)
-            hidden, cache = transformer_decode_step(cfg.backbone, bp, h, cache, pos0 + step)
+            hidden, cache = self.backbone.decode_step(cfg.backbone, bp, h, cache, pos0 + step)
             logits = _compute_step_logits(params, cfg, hidden[:, -1], cfg_scale, use_cfg) + bias
 
             # per-sample repetition penalty, 1.0 in EOS mode

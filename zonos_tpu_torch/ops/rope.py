@@ -1,7 +1,10 @@
-"""Rotary position embeddings: interleaved (real, imag) pairs along the head
-dim, base-10000 frequencies, fp32 rotation (zonos_tpu/ops/rope.py:17-40)."""
+"""Rotary position embeddings, base-10000 frequencies, fp32 rotation
+(zonos_tpu/ops/rope.py:17-61): interleaved (real, imag) pairs for the
+transformer, rotate-halves (GPT-NeoX) for the hybrid's attention layers."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,6 +21,11 @@ def rope_table(head_dim: int, max_pos: int = MAX_ROPE_POSITIONS, base: float = 1
     return torch.cos(angles), torch.sin(angles)
 
 
+@functools.lru_cache(maxsize=8)
+def cached_rope_table(head_dim: int, base: float, device: torch.device):
+    return rope_table(head_dim, base=base, device=device)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate ``x`` ``[B, S, H, D]`` by per-position cos/sin ``[S, D/2]``;
     (x[..., 0], x[..., 1]) is the first complex pair."""
@@ -27,4 +35,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos[:, None, :]  # broadcast over heads
     sin = sin[:, None, :]
     out = torch.stack([xr * cos - xi * sin, xi * cos + xr * sin], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+def apply_rope_neox(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate ``x`` ``[B, S, H, D]`` by cos/sin ``[S, D/2]``, pairing dim ``i``
+    with dim ``i + D/2`` (mamba_ssm MHA's non-interleaved rotary)."""
+    D = x.shape[-1]
+    xf = x.float()
+    x1, x2 = xf[..., : D // 2], xf[..., D // 2:]
+    cos = cos[:, None, :]
+    sin = sin[:, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -1,0 +1,65 @@
+"""Mamba2 selective state-space (SSD) ops (counterpart of
+zonos_tpu/ops/ssm.py:31-254).
+
+- :func:`ssd_chunked`: the prefill over a whole sequence, dispatched by the
+  device alone: K6 (``kernels/ssd.py``) for CUDA tensors at every batch and
+  ngroups, the plain chunked formulation for CPU tensors.
+- :func:`ssd_decode_step`: one recurrence step with JAX's algebra, the
+  output from the OLD state, ``y = dA (C.s) + (B.C) dt x + D x``; K7
+  (``kernels/ssm_state.py``) supplies ``C.s`` and writes the new state in
+  place in its storage dtype.
+- :func:`causal_conv1d_prefill` / :func:`causal_conv1d_step`: the depthwise
+  causal conv and its streaming state (the tail of the padded pre-activation
+  input), as plain tensor code.
+
+Shapes: x ``[B, L, H, P]``, dt ``[B, L, H]``, A ``[H]`` (negative), B/C
+``[B, L, G, N]``, D ``[H]``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from zonos_tpu_torch.kernels.ssd import ssd_chunked
+from zonos_tpu_torch.kernels.ssm_state import fused_state_step
+
+__all__ = ["causal_conv1d_prefill", "causal_conv1d_step", "ssd_chunked", "ssd_decode_step"]
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, D: torch.Tensor, state: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, H, P], dt [B, H], A [H], B/C [B, G, N], D [H] fp32; state
+    [B, H, P, N] in its storage dtype, updated in place.  Returns
+    (y [B, H, P] fp32, state)."""
+    Bsz, H, P = x.shape
+    N = state.shape[-1]
+    Bh = Bm.repeat_interleave(H // Bm.shape[1], dim=1)  # [B, H, N]
+    Ch = Cm.repeat_interleave(H // Cm.shape[1], dim=1)
+    dA = torch.exp(dt * A[None, :])  # [B, H]
+    xdt = x * dt[..., None]  # [B, H, P]
+    y_state, _ = fused_state_step(state.view(Bsz * H, P, N), Ch.reshape(Bsz * H, N),
+                                  Bh.reshape(Bsz * H, N), dA.reshape(Bsz * H, 1),
+                                  xdt.reshape(Bsz * H, P))
+    bc = torch.einsum("bhn,bhn->bh", Bh, Ch)  # B.C, one scalar per head
+    y = dA[..., None] * y_state.view(Bsz, H, P) + bc[..., None] * xdt + x * D[None, :, None]
+    return y, state
+
+
+def causal_conv1d_prefill(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over x [B, L, C] with kernel w [K, C] -> (y [B, L, C],
+    conv state [B, K-1, C], the last K-1 rows of the left-padded input)."""
+    K, C = w.shape
+    xp = F.pad(x, (0, 0, K - 1, 0))  # [B, L + K - 1, C]
+    y = F.conv1d(xp.transpose(1, 2), w.t()[:, None, :], b, groups=C).transpose(1, 2)
+    return y, xp[:, xp.shape[1] - (K - 1):, :]
+
+
+def causal_conv1d_step(x: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One streaming step: x [B, C], conv state [B, K-1, C] -> (y [B, C], new state)."""
+    window = torch.cat([conv_state, x[:, None, :]], dim=1)  # [B, K, C]
+    y = torch.einsum("bkc,kc->bc", window, w) + b
+    return y, window[:, 1:, :]
