@@ -8,24 +8,36 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles every kernel under zonos_tpu_torch/csrc/ (one nvcc per
    source, in parallel) and prints the build time.
-3. kernels: holds each kernel (K1, K2, K3, K5, K6, K7) against its plain
-   PyTorch version on the same inputs at flagship shapes, with the tolerance
-   stated beside each check.
+3. kernels: holds each kernel (K1-K8, and K1/K2 over f8 and int8 caches)
+   against its plain PyTorch version on the same inputs at flagship shapes,
+   with the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
    after, and each failing if a kernel of that path did not launch:
    - transformer: text -> codes -> 44.1 kHz wav on the full-width flagship
      transformer (random bf16 weights from a seed) and the full DAC (random
      fp32), at batch 1 (twice, same seed: identical codes) and at batch 4,
      260 frames each; K1, K2, K3, K5;
+   - transformer int8: the same model after ``quantize_int8()``, batch 1
+     twice (bf16 KV cache) and batch 4 with the int8 KV cache; K1, K2 and
+     their int8 variants, K3, K4, K5;
+   - transformer int4: a fresh seed-0 model after ``quantize_int4()``, batch 1
+     twice (bf16 KV) and batch 4 with the f8 KV cache; K1, K2 and their f8
+     variants, K3, K5, K8, and not K4;
    - hybrid: the same on the full-width, full-depth flagship Mamba2 hybrid at
      batch 1 (twice, identical codes; fp32 SSM state) and at batch 8 (16 CFG
-     rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7.
-   Each is followed by a profile of its batch-1 decode step (device busy
-   and idle share, top kernels).
+     rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7;
+   - hybrid int4: that model after ``quantize_int4()``, one batch-1 generate
+     of 130 frames; K6, K7, K8.
+   The bf16 and quantized transformer paths and the bf16 hybrid path are
+   each followed by a profile of their batch-1 decode step (device busy and
+   idle share, top kernels, the port's kernels' ms per step).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
    with further shapes under ``"more"``.
+
+``python3 chip_smoke.py --sweep`` runs phases 1-2 and then times K8 and K4
+over their contraction splits instead (how their defaults were chosen).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -45,6 +57,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 MAX_NEW_TOKENS = 430  # ~5 s of audio at 86.13 frames/s
 # The transformer path runs fewer frames to keep the script near 6 minutes;
 # its cache still passes 256 rows, so K1 as well as K2 runs on it.
@@ -64,6 +77,18 @@ TEXTS = [
 TRANSFORMER_KERNELS = ("flash_decode_attention", "decode_attention_single", "fused_sample",
                        "snake_conv1d")
 HYBRID_KERNELS = TRANSFORMER_KERNELS + ("ssd_chunked", "fused_state_step")
+INT8_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_int8",
+                                      "decode_attention_single_int8", "fused_layer_tail")
+INT4_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_f8", "decode_attention_single_f8",
+                                      "int4_matmul")
+HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul")
+HYBRID_INT4_NEW_TOKENS = 130
+# the flagship transformer's matmul weights [din, dout] (the heads: 9 x 1152 columns)
+FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384),
+                    "w2": (8192, 2048), "heads": (2048, 10368)}
+# the flagship hybrid's Mamba2 projections (its attention layers and heads have
+# the transformer's shapes); in_proj's 8512 columns end in a part-filled tile
+HYBRID_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
 
 
 def fail(msg: str) -> None:
@@ -354,6 +379,154 @@ def check_fused_state_step(gen) -> float:
     return worst
 
 
+def quantized_cache(gen, storage: str, B: int, Hkv: int = 4, S: int = 2048) -> tuple:
+    """k, v [B, Hkv, S, 128] in ``storage`` ("f8" or "int8") and, for int8,
+    their fp32 row scales (else None), from normal rows of scale 2."""
+    import torch
+
+    from zonos_tpu_torch.models.backbone import quantize_kv_rows
+
+    rows = [torch.randn((B, Hkv, S, 128), generator=gen, device="cuda") * 2 for _ in range(2)]
+    if storage == "int8":
+        (k, ks), (v, vs) = (quantize_kv_rows(r) for r in rows)
+        return k, v, ks, vs
+    return rows[0].to(torch.float8_e4m3fn), rows[1].to(torch.float8_e4m3fn), None, None
+
+
+def held_out_inputs(gen, B: int, H: int = 16, Hkv: int = 4) -> tuple:
+    """q [B,1,H,128] and the held-out k_new/v_new [B,1,Hkv,128], bf16."""
+    import torch
+
+    return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                 for shape in ((B, 1, H, 128), (B, 1, Hkv, 128), (B, 1, Hkv, 128)))
+
+
+def check_decode_attention_quantized(gen) -> dict:
+    """K1/K2 over f8 and int8 caches with the current row held out, against
+    the plain split version (JAX's decode_attention_split math) fed fp32 q and
+    held-out rows, at B in (2, 8) and lengths 1, 255, 256, 257, 2000 (pos =
+    length - 1 cache rows plus the held-out one).  Tolerance: 4 bf16 ulps of
+    max|ref| for f8 (the plain version reads an f8 cache's softmax weights and
+    values in bf16, as JAX does, where the kernels keep fp32), 2 for int8
+    (fp32 throughout; the kernels round their output once)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.decode_attention import (
+        decode_attention_single_held_out,
+        decode_attention_split_plain,
+        flash_decode_attention_held_out,
+    )
+
+    worst = {}
+    for storage in ("f8", "int8"):
+        for B in (2, 8):
+            k, v, ks, vs = quantized_cache(gen, storage, B)
+            q, k_new, v_new = held_out_inputs(gen, B)
+            for length in (1, 255, 256, 257, 2000):
+                pos = length - 1
+                ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(),
+                                                   pos, ks, vs)
+                tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
+                for name, fn in (("flash_decode_attention", flash_decode_attention_held_out),
+                                 ("decode_attention_single", decode_attention_single_held_out)):
+                    got = fn(q, k, v, k_new, v_new, pos, ks, vs)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - ref).abs().max())
+                    if not err <= tol:
+                        fail(f"{name}_{storage} B={B} length={length}: max abs err {err} > {tol}")
+                    key = f"{name}_{storage}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    print(f"[kernels] K1/K2 over f8 and int8 caches, held-out row, ok at B in (2, 8), lengths "
+          f"(1, 255, 256, 257, 2000): max abs err {worst} (tolerance 4 bf16 ulps for f8, 2 for "
+          f"int8)", flush=True)
+    return worst
+
+
+def int4_weight(gen, din: int, dout: int) -> dict:
+    """A random N(0, 1/din) weight quantized to int4, groups of 128 rows."""
+    import torch
+
+    from zonos_tpu_torch.ops.quant import quantize_weight_int4
+
+    return quantize_weight_int4(torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5)
+
+
+def check_int4_matmul(gen) -> float:
+    """K8 vs the plain version (the same bf16 products q * s; fp32 sums, TF32
+    off) at M in (1, 2, 8, 64) for every weight it takes on the main paths:
+    the flagship transformer's four layer weights and the heads, and the
+    hybrid's in_proj and out_proj; groups of 128; tolerance 1e-5 x max|ref|
+    (only the fp32 summation order differs).  Returns the largest absolute
+    error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+
+    worst, by_weight = 0.0, {}
+    for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
+        w = int4_weight(gen, din, dout)
+        for M in (1, 2, 8, 64):
+            x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+            ref = int4_matmul_plain(x, w["q4"], w["s4"])
+            got = int4_matmul(x, w["q4"], w["s4"])
+            torch.cuda.synchronize()
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            if not err <= 1e-5 * top:
+                fail(f"int4_matmul {name} [{din},{dout}] M={M}: max abs err {err} > 1e-5 x {top}")
+            worst = max(worst, err)
+            by_weight[name] = max(by_weight.get(name, 0.0), err / top)
+    print(f"[kernels] K8 ok at M in (1, 2, 8, 64), gs 128: max abs err {worst:.3g}; "
+          f"worst / max|ref| by weight " + ", ".join(
+              f"{n} {r:.3g}" for n, r in by_weight.items()) + " (tolerance 1e-5)", flush=True)
+    return worst
+
+
+def layer_tail_args(gen, B2: int, d: int = 2048, inter: int = 8192) -> tuple:
+    """K4's operands at the flagship widths: bf16 attention output and
+    residual, int8 wo/w1/w2 quantized from N(0, 1/fan_in), LayerNorm scale
+    near 1 and bias near 0."""
+    import torch
+
+    from zonos_tpu_torch.ops.quant import quantize_weight_int8
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    wo = quantize_weight_int8(rnd(d, d, scale=d ** -0.5))
+    w1 = quantize_weight_int8(rnd(d, 2 * inter, scale=d ** -0.5))
+    w2 = quantize_weight_int8(rnd(inter, d, scale=inter ** -0.5))
+    return (rnd(B2, d).bfloat16(), rnd(B2, d).bfloat16(), wo["q"], wo["s"],
+            (1 + rnd(d, scale=0.1)).bfloat16(), rnd(d, scale=0.1).bfloat16(),
+            w1["q"], w1["s"], w2["q"], w2["s"])
+
+
+def check_layer_tail(gen) -> float:
+    """K4 vs the plain version at B2 in (2, 8, 128), flagship widths.
+    Tolerance 1e-2 x max|ref|, half the JAX test's fused-vs-unfused bound
+    (tests/test_pallas_decode.py:46): the fp32 sums run in another order, which
+    can move the bf16 roundings of h, the activation and the output by an
+    ulp.  Returns the largest absolute error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
+
+    worst = worst_rel = 0.0
+    for B2 in (2, 8, 128):
+        args = layer_tail_args(gen, B2)
+        ref = fused_layer_tail_plain(*args).float()
+        got = fused_layer_tail(*args).float()
+        torch.cuda.synchronize()
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        if not err <= 1e-2 * top or not bool(torch.isfinite(got).all()):
+            fail(f"fused_layer_tail B2={B2}: max abs err {err} > 1e-2 x {top}")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / top)
+        print(f"[kernels] K4 ok at B2={B2}: max abs err {err:.3g}, "
+              f"{int((got == ref).sum())}/{ref.numel()} outputs equal to the plain version's",
+              flush=True)
+    print(f"[kernels] K4 worst / max|ref| {worst_rel:.3g} (tolerance 1e-2)", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: main path
 # ---------------------------------------------------------------------------
@@ -378,11 +551,25 @@ def load_model(kind: str):
     return model
 
 
+def quantize_model(kind: str, model, mode: str) -> None:
+    """``model.quantize_int8()`` or ``quantize_int4()`` in place, timed."""
+    import torch
+
+    t0 = time.perf_counter()
+    getattr(model, f"quantize_{mode}")()
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(model.params))
+    print(f"[main {kind} {mode}] quantized in {time.perf_counter() - t0:.1f} s: "
+          f"{nbytes / 1e9:.3f} GB of parameters", flush=True)
+
+
 def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
-                    new_tokens: int = MAX_NEW_TOKENS):
-    """Batch 1 twice (same seed: identical codes) and batch ``batch`` once, the
-    DAC decode and the wav saves, with the launch counts zeroed just before and
-    read just after; every kernel in ``expect`` must have launched."""
+                    new_tokens: int = MAX_NEW_TOKENS, batch_kv: str | None = None,
+                    forbid: tuple = ()):
+    """Batch 1 twice (same seed: identical codes) and batch ``batch`` once
+    (with the KV cache in ``batch_kv`` storage), the DAC decode and the wav
+    saves, with the launch counts zeroed just before and read just after;
+    every kernel in ``expect`` must have launched, none in ``forbid``."""
     import numpy as np
     import torch
     from scipy.io import wavfile
@@ -408,14 +595,17 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
             if c.min() < 0 or c.max() >= 1024:
                 fail(f"codes outside [0, 1024): {c.min()}..{c.max()}")
 
-    # record the SSM-state storage of every cache the path makes (hybrid only)
-    ssm_dtypes = {}
+    # record the SSM-state storage (hybrid) or KV storage (transformer) of every
+    # cache the path makes
+    ssm_dtypes, kv_dtypes = {}, {}
     make_cache = model.backbone.make_cache
 
-    def recording_make_cache(cfg, rows, *args):
-        cache = make_cache(cfg, rows, *args)
+    def recording_make_cache(cfg, rows, *args, **kwargs):
+        cache = make_cache(cfg, rows, *args, **kwargs)
         if isinstance(cache, list):
             ssm_dtypes[rows] = {st["ssm"].dtype for st in cache if "ssm" in st}
+        else:
+            kv_dtypes[rows] = cache.k.dtype
         return cache
 
     model.backbone = dataclasses.replace(model.backbone, make_cache=recording_make_cache)
@@ -428,7 +618,9 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
     if codes1[0].shape != codes1b[0].shape or not np.array_equal(codes1[0], codes1b[0]):
         fail(f"{kind}: batch-1 generate with the same seed gave different codes")
     prefixn = model.prepare_conditioning(make_cond_dict(text=TEXTS[:batch], speaker=None))
+    model.set_storage(kv=batch_kv)
     codesn, dtn = generate(prefixn, batch, [11 + i for i in range(batch)])
+    model.set_storage()
     check_codes(codesn, batch)
 
     torch.cuda.synchronize()
@@ -451,10 +643,21 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
                 fail(f"{os.path.basename(path)}: sr {sr}, rms {rms}")
     counts = dict(launch_counts)
     model.backbone = dataclasses.replace(model.backbone, make_cache=make_cache)
+    label_n = f"batch {batch}" + (f", {batch_kv} KV cache" if batch_kv else "")
     print(f"{tag} launches on this path: {counts}", flush=True)
     for name in expect:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {kind} path")
+    for name in forbid:
+        if counts[name] != 0:
+            fail(f"kernel {name} was launched {counts[name]} times on the {kind} path")
+    if kv_dtypes:
+        print(f"{tag} KV cache storage by cache rows: "
+              f"{ {rows: str(dt) for rows, dt in kv_dtypes.items()} }", flush=True)
+        want = {None: torch.bfloat16, "f8": torch.float8_e4m3fn, "int8": torch.int8}[batch_kv]
+        if kv_dtypes.get(2 * batch) != want or kv_dtypes.get(2) != torch.bfloat16:
+            fail(f"{kind}: KV caches {kv_dtypes}, expected bf16 at batch 1 and {want} at "
+                 f"batch {batch}")
     if ssm_dtypes:
         print(f"{tag} SSM state storage by cache rows: "
               f"{ {rows: sorted(str(d) for d in ds) for rows, ds in ssm_dtypes.items()} }",
@@ -463,7 +666,7 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
             fail(f"{kind}: batch {batch} ({2 * batch} rows) did not store the SSM state in f8")
 
     for label, codes, dt in (("batch 1", codes1, dt1), ("batch 1 again", codes1b, dt1b),
-                             (f"batch {batch}", codesn, dtn)):
+                             (label_n, codesn, dtn)):
         frames = sum(c.shape[1] for c in codes)
         steps = max(c.shape[1] for c in codes) + 8
         print(f"{tag} {label}: {frames} frames in {dt:.2f} s = {frames / dt:.1f} tokens/s "
@@ -476,15 +679,50 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
     return counts, prefix1
 
 
+def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
+                           new_tokens: int = HYBRID_INT4_NEW_TOKENS) -> dict:
+    """One batch-1 generate of the quantized hybrid with the launch counts
+    zeroed just before and read just after; every kernel in ``expect`` must
+    have launched."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = "[main hybrid int4]"
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=1, seed=7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = dict(launch_counts)
+    c = codes[0]
+    if len(codes) != 1 or c.shape[0] != 9 or not 1 <= c.shape[1] <= new_tokens or \
+            c.min() < 0 or c.max() >= 1024:
+        fail(f"hybrid int4: codes of shape {c.shape}, range {c.min()}..{c.max()}")
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in expect:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the hybrid int4 path")
+    steps = c.shape[1] + 8
+    print(f"{tag} batch 1: {c.shape[1]} frames in {dt:.2f} s, {dt * 1e3 / steps:.2f} ms per "
+          f"decode step, real-time factor {c.shape[1] / FRAMES_PER_S / dt:.2f} ({card})",
+          flush=True)
+    return counts
+
+
+# kernel-name fragments -> the port's kernel, for the profile's per-kernel line
+_PORT_KERNELS = (("flash_split", "K1"), ("flash_combine", "K1"), ("single_pass", "K2"),
+                 ("fused_sample", "K3"), ("tail_pass", "K4"), ("snake_conv1d", "K5"),
+                 ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"))
 # kernel-name fragments -> category, for the profile summary
 _CATEGORIES = (
-    ("port kernels", ("flash_split", "flash_combine", "single_pass", "fused_sample",
-                      "snake_conv1d", "ssd_chunked", "state_step")),
+    ("port kernels", tuple(frag for frag, _ in _PORT_KERNELS)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")),
 )
 
 
-def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 64) -> None:
+def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32) -> None:
     """Where a batch-1 decode step's time goes: one short generate under
     torch.profiler for the device's kernel time, one without it for the
     wall time.  Prints the device busy share and the top kernels.  Only the
@@ -525,6 +763,15 @@ def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 64) -> 
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"{tag}   {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
               f"x{e.count / steps:.1f}/step  {e.key[:90]}", flush=True)
+    per_kernel: dict[str, list[float]] = {}
+    for e in kernels:
+        label = next((k for frag, k in _PORT_KERNELS if frag in e.key), None)
+        if label is not None:
+            ms_n = per_kernel.setdefault(label, [0.0, 0.0])
+            ms_n[0] += e.self_device_time_total / 1e3 / steps
+            ms_n[1] += e.count / steps
+    print(f"{tag} port kernels, device ms/step (launches/step): " + ", ".join(
+        f"{k} {v[0]:.4f} (x{v[1]:.1f})" for k, v in sorted(per_kernel.items())), flush=True)
 
 
 def _leaves(tree):
@@ -574,8 +821,8 @@ def fused_state_step_cost(BH: int, P: int, N: int, itemsize: int) -> tuple[float
     return 4.0 * BH * P * N, 2.0 * BH * P * N * itemsize + 4.0 * BH * (2 * N + 1 + 2 * P)
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    ops_s, bytes_s = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def _bound(flops: float, nbytes: float, flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
+    ops_s, bytes_s = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
@@ -606,6 +853,102 @@ def time_fused_state_step(gen, BH: int, dtype) -> dict:
             **_times(lambda: fused_state_step(*next(cycle)),
                      lambda: fused_state_step_plain(*next(cycle))),
             **_bound(*fused_state_step_cost(BH, SSM_P, SSM_N, itemsize))}
+
+
+def time_decode_attention_quantized(gen, name: str, storage: str, length: int,
+                                    counts: dict) -> dict:
+    """K1 or K2 (``name``) over an f8 or int8 cache at batch 1 with CFG, the
+    current row held out, cycling over 8 caches for a cold L2 as the bf16
+    timing does.  The plain version is the split math; no single PyTorch call
+    reads these caches."""
+    from zonos_tpu_torch.kernels.decode_attention import (
+        decode_attention_single_held_out,
+        decode_attention_split_plain,
+        flash_decode_attention_held_out,
+    )
+
+    B, H, Hkv, D, S = 2, 16, 4, 128, 2048
+    fn = flash_decode_attention_held_out if name == "flash_decode_attention" else \
+        decode_attention_single_held_out
+    sets = [quantized_cache(gen, storage, B) + held_out_inputs(gen, B) for _ in range(8)]
+    cycle = itertools.cycle(sets)
+    pos = length - 1
+
+    def call(f):
+        k, v, ks, vs, q, k_new, v_new = next(cycle)
+        return f(q, k, v, k_new, v_new, pos, ks, vs)
+
+    nbytes = (2 * B * Hkv * pos * D * (1 + (4 / D if storage == "int8" else 0))
+              + 2 * (2 * B * H * D + 2 * B * Hkv * D))
+    flops = 4 * B * H * length * D
+    return {"name": f"{name}_{storage}", **_launches(f"{name}_{storage}", counts),
+            "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] {storage}, length {length} "
+                     f"(pos {pos} + the held-out row), L2 cold",
+            **_times(lambda: call(fn), lambda: call(decode_attention_split_plain)),
+            **_bound(flops, nbytes), "library_ms": None}
+
+
+def time_int4_matmul(gen, label: str, din: int, dout: int, M: int,
+                     n_split: int | None = None) -> dict:
+    """K8 on one flagship weight at M rows (``n_split``: the kernel's split
+    of the packed rows, None for its default), cycling over enough weights to
+    exceed the 50 MB L2.  The library yardstick is one torch.matmul of x by
+    the pre-dequantized bf16 weight: the same product, reading 4x the weight
+    bytes."""
+    import torch
+
+    from zonos_tpu_torch.kernels.int4_matmul import (
+        int4_matmul,
+        int4_matmul_plain,
+        unpack_int4,
+    )
+
+    packed = din * dout // 2
+    n_sets = 2 + int(64e6 // packed)
+    sets = []
+    for _ in range(n_sets):
+        w = int4_weight(gen, din, dout)
+        x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+        wb = (unpack_int4(w["q4"]).bfloat16().reshape(din // 128, 128, dout)
+              * w["s4"][:, None, :]).reshape(din, dout)
+        sets.append((x, w["q4"], w["s4"], wb))
+    cycle = itertools.cycle(sets)
+
+    def call(f, **kw):
+        x, q, s, _ = next(cycle)
+        return f(x, q, s, **kw)
+
+    def library_call():
+        x, _, _, wb = next(cycle)
+        return torch.matmul(x, wb)
+
+    G = din // 128
+    nbytes = packed + 2 * G * dout + 2 * M * din + 4 * M * dout
+    return {"shape": f"{label}: x [{M},{din}] bf16 @ int4 [{din},{dout}] (q [{din // 2},{dout}], "
+                     f"s [{G},{dout}]), L2 cold",
+            **_times(lambda: call(int4_matmul, n_split=n_split),
+                     lambda: call(int4_matmul_plain)),
+            **_bound(2.0 * M * din * dout, nbytes, BF16_FLOPS_PER_S),
+            "library_ms": device_ms(library_call)[0],
+            "library": "torch.matmul of x by the pre-dequantized bf16 weight (4x the weight bytes)"}
+
+
+def time_layer_tail(gen, B2: int, target_ctas: int | None = None) -> dict:
+    """K4 at ``B2`` rows and the flagship widths (``target_ctas``: the CTAs
+    its passes aim for, None for its default), alternating two weight sets
+    (2 x 54.6 MB, over the 50 MB L2).  The plain version is the unfused torch
+    tail; no single PyTorch call computes it."""
+    from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
+
+    d, I = 2048, 8192
+    cycle = itertools.cycle([layer_tail_args(gen, B2) for _ in range(2)])
+    weights = d * d + d * 2 * I + I * d
+    nbytes = weights + 2 * (d + 2 * I + d) + 2 * (2 * d) + 2 * B2 * (2 * d) + 2 * B2 * d
+    return {"shape": f"attn/resid [{B2},{d}] bf16, int8 wo [{d},{d}], w1 [{d},{2 * I}], "
+                     f"w2 [{I},{d}], L2 cold",
+            **_times(lambda: fused_layer_tail(*next(cycle), target_ctas=target_ctas),
+                     lambda: fused_layer_tail_plain(*next(cycle))),
+            **_bound(2.0 * B2 * weights, nbytes, BF16_FLOPS_PER_S)}
 
 
 def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
@@ -668,6 +1011,8 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
             "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations",
             "library_ms": device_ms(library_call)[0],
+            "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
+                     for storage in ("f8", "int8")],
         })
 
     Bs, K, V = 1, 9, 1152  # batch 1: sampling runs on the CFG-blended logits
@@ -752,10 +1097,62 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
                                    (1024, torch.float32), (1024, torch.bfloat16),
                                    (1024, torch.float8_e4m3fn))],
     })
+    out.append({
+        "name": "fused_layer_tail", "id": "K4", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/layer_tail.cu",
+        "replaces": "zonos_tpu/ops/pallas_decode.py:94",
+        **_launches("fused_layer_tail", counts),
+        "max_abs_err": errs["fused_layer_tail"],
+        **time_layer_tail(gen, 2),
+        "library_ms": None,
+        "more": [time_layer_tail(gen, B2) for B2 in (8, 128)],
+    })
+    out.append({
+        "name": "int4_matmul", "id": "K8", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "zonos_tpu/ops/pallas_kernels.py:294",
+        **_launches("int4_matmul", counts),
+        "max_abs_err": errs["int4_matmul"],
+        **time_int4_matmul(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 2),
+        "more": [time_int4_matmul(gen, name, din, dout, 2)
+                 for name, (din, dout) in FLAGSHIP_WEIGHTS.items() if name != "w1"]
+                + [time_int4_matmul(gen, "w1", 2048, 16384, M) for M in (8, 64)],
+    })
     return out
 
 
-def main() -> int:
+def phase_sweep(gen, card: str) -> None:
+    """``python3 chip_smoke.py --sweep``: how K8's and K4's default splits
+    were chosen.  K8 on each weight at M = 2 for 4 to 64 splits of the packed
+    rows (one wave of CTAs ends where splits x column tiles pass the SM
+    count); K4 at B2 = 2 and 8 for a target of half, one and two CTAs per SM.
+    Device times per call, L2 cold."""
+    from zonos_tpu_torch.kernels._build import sm_count
+    from zonos_tpu_torch.kernels.int4_matmul import split_count
+
+    sms = sm_count(0)
+    for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
+        row, r = {}, {}
+        for n in (4, 5, 6, 7, 8, 16, 32, 64):
+            n = split_count(din, dout, sms, n)  # as the kernel would run it
+            if n not in row:
+                r = time_int4_matmul(gen, name, din, dout, 2, n_split=n)
+                row[n] = r["ms"] * 1e3
+        print(f"[sweep] K8 {name} M=2, us by splits: "
+              + ", ".join(f"{n}: {us:.1f}" for n, us in row.items())
+              + f" (default {split_count(din, dout, sms)}; bound {r['bound_ms'] * 1e3:.2f} us, "
+              f"bf16 torch.matmul {r['library_ms'] * 1e3:.1f} us; {card})", flush=True)
+    for B2 in (2, 8):
+        row = {t: time_layer_tail(gen, B2, target_ctas=t)["ms"] * 1e3
+               for t in (sms // 2, sms, 2 * sms)}
+        print(f"[sweep] K4 B2={B2}, us by target CTAs: "
+              + ", ".join(f"{t}: {us:.1f}" for t, us in row.items())
+              + f" (default {sms}, the SM count; {card})", flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--sweep"]):
+        fail(f"usage: chip_smoke.py [--sweep], not {argv}")
     card = phase_device()
     import torch
 
@@ -765,11 +1162,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    if argv:
+        phase_sweep(gen, card)
+        return 0
     errs = dict(check_decode_attention(gen))
     errs["fused_sample"] = check_fused_sample(gen)
     errs["snake_conv1d"] = check_snake_conv(gen)
     errs["ssd_chunked"] = check_ssd_chunked(gen)
     errs["fused_state_step"] = check_fused_state_step(gen)
+    errs.update(check_decode_attention_quantized(gen))
+    errs["fused_layer_tail"] = check_layer_tail(gen)
+    errs["int4_matmul"] = check_int4_matmul(gen)
 
     from zonos_tpu_torch import DACAutoencoder
 
@@ -777,16 +1180,34 @@ def main() -> int:
     print(f"[time] kernel checks done {time.perf_counter() - t0:.1f} s after the device check",
           flush=True)
     counts = {}
-    for kind, batch, expect, new_tokens in (
-            ("transformer", 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS),
-            ("hybrid", 8, HYBRID_KERNELS, MAX_NEW_TOKENS)):
-        model = load_model(kind)
-        counts[kind], prefix = phase_main_path(card, kind, model, dac, batch, expect, new_tokens)
+
+    def path(kind, model, batch, expect, new_tokens, **kw):
+        counts[kind], prefix = phase_main_path(card, kind, model, dac, batch, expect, new_tokens,
+                                               **kw)
         print(f"[time] {kind} path done {time.perf_counter() - t0:.1f} s", flush=True)
         phase_profile(kind, model, prefix, card)
         print(f"[time] {kind} profile done {time.perf_counter() - t0:.1f} s", flush=True)
-        del model
-        torch.cuda.empty_cache()
+        return prefix
+
+    model = load_model("transformer")
+    path("transformer", model, 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS)
+    quantize_model("transformer", model, "int8")  # the bf16 model, quantized in place
+    path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
+    del model
+    torch.cuda.empty_cache()
+    model = load_model("transformer")  # a fresh seed-0 model
+    quantize_model("transformer", model, "int4")
+    path("transformer int4", model, 4, INT4_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="f8",
+         forbid=("fused_layer_tail",))
+    del model
+    torch.cuda.empty_cache()
+    model = load_model("hybrid")
+    prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
+    quantize_model("hybrid", model, "int4")
+    counts["hybrid int4"] = phase_hybrid_quantized(card, model, prefix, HYBRID_INT4_KERNELS)
+    print(f"[time] hybrid int4 path done {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
     kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1)
     for entry in kernels:  # one JSON line per kernel, each with the card it ran on
         print(json.dumps({**entry, "card": card}), flush=True)
@@ -800,4 +1221,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

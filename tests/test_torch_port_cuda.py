@@ -15,8 +15,13 @@ from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels.decode_attention import (
     decode_attention_plain,
     decode_attention_single,
+    decode_attention_single_held_out,
+    decode_attention_split_plain,
     flash_decode_attention,
+    flash_decode_attention_held_out,
 )
+from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
 from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
 from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
 from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
@@ -25,6 +30,8 @@ from zonos_tpu_torch.kernels.ssm_state import (
     fused_state_step_plain,
     storage_ulp,
 )
+from zonos_tpu_torch.models.backbone import quantize_kv_rows
+from zonos_tpu_torch.ops.quant import quantize_weight_int4, quantize_weight_int8
 from zonos_tpu_torch.ops.sampling import gumbel_noise
 
 pytestmark = pytest.mark.cuda
@@ -133,3 +140,121 @@ def test_fused_state_step_kernel_rejects_fp16(gen):
     with pytest.raises(TypeError):
         fused_state_step(state, C, C, torch.ones((4, 1), device="cuda"),
                          torch.zeros((4, 64), device="cuda"))
+
+
+def _bf16_ulps(ref: torch.Tensor, n: int) -> float:
+    return n * 2.0 ** (int(torch.floor(torch.log2(ref.abs().max()))) - 7)
+
+
+def _quantized_cache(gen, storage, B=2, Hkv=4, S=640, D=128):
+    rows = [torch.randn((B, Hkv, S, D), generator=gen, device="cuda") * 2 for _ in range(2)]
+    if storage == "int8":
+        (k, ks), (v, vs) = (quantize_kv_rows(r) for r in rows)
+        return k, v, ks, vs
+    return (*(r.to(torch.float8_e4m3fn) for r in rows), None, None)
+
+
+@pytest.mark.parametrize("storage", ["f8", "int8"])
+@pytest.mark.parametrize("pos", [0, 255, 300, 639])
+def test_decode_attention_held_out_kernels_match_plain(gen, storage, pos):
+    """Tolerance: 4 bf16 ulps of max|ref| for f8 (the plain version reads an
+    f8 cache's weights and values in bf16, as JAX does; the kernels keep
+    fp32), 2 for int8 (fp32 throughout; the kernels round once)."""
+    k, v, ks, vs = _quantized_cache(gen, storage)
+    q = torch.randn((2, 1, 16, 128), generator=gen, device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((2, 1, 4, 128), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(), pos, ks, vs)
+    tol = _bf16_ulps(ref, 4 if storage == "f8" else 2)
+    before = dict(launch_counts)
+    for fn in (flash_decode_attention_held_out, decode_attention_single_held_out):
+        got = fn(q, k, v, k_new, v_new, pos, ks, vs)
+        assert (got.float() - ref).abs().max() <= tol
+    for name in ("flash_decode_attention", "decode_attention_single"):
+        assert launch_counts[f"{name}_{storage}"] == before[f"{name}_{storage}"] + 1
+
+
+def test_decode_attention_held_out_rejects_bf16_cache(gen):
+    q = torch.randn((1, 1, 16, 128), generator=gen, device="cuda").bfloat16()
+    k = torch.zeros((1, 4, 64, 128), dtype=torch.bfloat16, device="cuda")
+    new = torch.zeros((1, 1, 4, 128), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):
+        decode_attention_single_held_out(q, k, k, new, new, 10)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("din,dout", [(2048, 2048), (2048, 8512), (4096, 2048), (8192, 2048)])
+def test_int4_matmul_kernel_matches_plain(gen, M, din, dout):
+    """Same bf16 products as the plain version, other fp32 summation order:
+    1e-5 x max|ref|."""
+    w = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+    qw = quantize_weight_int4(w, 128)
+    x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+    ref = int4_matmul_plain(x, qw["q4"], qw["s4"])
+    before = launch_counts["int4_matmul"]
+    got = int4_matmul(x, qw["q4"], qw["s4"])
+    assert launch_counts["int4_matmul"] == before + 1
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_split_kernels_on_two_streams_match_plain(gen):
+    """K8 and K4 calls queued on two streams at once: each call's split
+    counters are its own, so both results match their plain versions."""
+    qw = quantize_weight_int4(torch.randn((2048, 2048), generator=gen, device="cuda") / 45.0, 128)
+    xs = [torch.randn((2, 2048), generator=gen, device="cuda").bfloat16() for _ in range(2)]
+    tails = [_tail_args(gen, 2) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append((int4_matmul(xs[i], qw["q4"], qw["s4"]),
+                                fused_layer_tail(*tails[i])))
+    torch.cuda.synchronize()
+    for i in range(2):
+        ref = int4_matmul_plain(xs[i], qw["q4"], qw["s4"])
+        ref_tail = fused_layer_tail_plain(*tails[i]).float()
+        for got, got_tail in outs[i]:
+            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+            assert (got_tail.float() - ref_tail).abs().max() <= 1e-2 * ref_tail.abs().max()
+
+
+def test_int4_matmul_kernel_rejects_what_it_does_not_take(gen):
+    qw = quantize_weight_int4(torch.randn((256, 256), generator=gen, device="cuda"), 128)
+    with pytest.raises(ValueError):  # more rows than a decode step has
+        int4_matmul(torch.zeros((65, 256), dtype=torch.bfloat16, device="cuda"), qw["q4"], qw["s4"])
+    with pytest.raises(TypeError):
+        int4_matmul(torch.zeros((2, 256), device="cuda"), qw["q4"], qw["s4"])
+
+
+def _tail_args(gen, B2, d=2048, inter=8192):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    wo = quantize_weight_int8(rnd(d, d, scale=d ** -0.5))
+    w1 = quantize_weight_int8(rnd(d, 2 * inter, scale=d ** -0.5))
+    w2 = quantize_weight_int8(rnd(inter, d, scale=inter ** -0.5))
+    return (rnd(B2, d).bfloat16(), rnd(B2, d).bfloat16(), wo["q"], wo["s"],
+            (1 + rnd(d, scale=0.1)).bfloat16(), rnd(d, scale=0.1).bfloat16(),
+            w1["q"], w1["s"], w2["q"], w2["s"])
+
+
+@pytest.mark.parametrize("B2", [2, 8, 13])
+def test_fused_layer_tail_kernel_matches_plain(gen, B2):
+    """Other fp32 summation orders, which can move the bf16 roundings of h,
+    the activation and the output: 1e-2 x max|ref|, half the JAX test's
+    fused-vs-unfused bound."""
+    args = _tail_args(gen, B2)
+    ref = fused_layer_tail_plain(*args).float()
+    before = launch_counts["fused_layer_tail"]
+    got = fused_layer_tail(*args).float()
+    assert launch_counts["fused_layer_tail"] == before + 1
+    assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+def test_fused_layer_tail_kernel_rejects_bf16_weights(gen):
+    args = list(_tail_args(gen, 2, d=256, inter=256))
+    args[2] = args[2].bfloat16()  # a bf16 wo
+    with pytest.raises(TypeError):
+        fused_layer_tail(*args)

@@ -2,9 +2,9 @@
 
 Both functions take the JAX package's parameter tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and return the port's parameters as
-tensors on ``device``.  float32 arrays and ``ml_dtypes`` bfloat16 arrays are
-accepted; bfloat16 bytes are reinterpreted through ``uint16`` because
-``torch.from_numpy`` rejects that dtype.
+tensors on ``device``.  float32 arrays and ``ml_dtypes`` bfloat16 and
+float8_e4m3fn arrays are accepted; their bytes are reinterpreted through
+``uint16``/``uint8`` because ``torch.from_numpy`` rejects those dtypes.
 
 Layouts:
 - Zonos: the port keeps the JAX layout, so the tree maps one to one:
@@ -26,6 +26,8 @@ def to_tensor(a, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8).copy()).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
     return t.to(device=device, dtype=dtype or t.dtype)
@@ -40,6 +42,7 @@ def _tree(x, fn, path=()):
 
 
 _FP32_SSM_LEAVES = ("A_log", "D", "dt_bias")  # added in fp32 by the Mamba2 mixer
+_QUANT_SCALES = ("s", "s4")  # bf16 scales of int8/int4 weights (models/backbone.py)
 
 
 def convert_zonos_params(params: dict, device="cpu", dtype: torch.dtype | None = None) -> dict:
@@ -47,13 +50,15 @@ def convert_zonos_params(params: dict, device="cpu", dtype: torch.dtype | None =
     the transformer and the hybrid (whose ``layers_list`` of per-layer dicts
     is carried across as a list).  ``dtype`` recasts the floating leaves,
     except those the JAX init keeps fp32: the Fourier conditioners' random
-    features and the hybrid's ``A_log``, ``D`` and ``dt_bias``."""
+    features and the hybrid's ``A_log``, ``D`` and ``dt_bias``.  Quantized
+    weights keep their types: ``q``/``q4`` int8, the scales ``s``/``s4`` bf16."""
 
     def leaf(a, path):
         t = to_tensor(a, device)
         fourier = path[0] == "prefix_conditioner" and path[-1] == "weight"
         ssm = path[0] == "backbone" and path[-1] in _FP32_SSM_LEAVES
-        keep = fourier or ssm or not t.is_floating_point()
+        scale = path[-1] in _QUANT_SCALES
+        keep = fourier or ssm or scale or not t.is_floating_point()
         return t.to(dtype) if dtype is not None and not keep else t
 
     return _tree(params, leaf)

@@ -1,15 +1,20 @@
-// K1 + K2: one-token GQA decode attention over a bf16 KV cache, for Hopper (sm_90a).
+// K1 + K2: one-token GQA decode attention over a bf16, f8 (e4m3) or int8 KV cache, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in zonos_tpu/ops/pallas_kernels.py:
 //   K1 flash_decode_attention_pallas (:147; body _flash_decode_kernel :100)
 //   K2 decode_attention_pallas       (:58;  body _decode_attn_kernel :37)
+// and, for the quantized caches, the XLA read of decode_attention_split
+// (zonos_tpu/ops/attention.py:119): the Pallas kernels read an f8 cache by a cast; the
+// int8 cache with one fp32 scale per (row, kv head) is read only in XLA there.
 //
 // What bounds it on an H100: each (batch row, kv head) owns G = H/H_kv query rows (4 on
 // the flagship) that read the same cache rows, so every cache byte feeds ~G FLOPs, far
 // below the card's ~295 FLOP/byte bf16 ridge.  The floor is reading the valid part of the
-// K and V cache from HBM (3.35 TB/s): 2 * B * H_kv * length * D * 2 bytes.  At batch 1 that
-// is ~2 MB at length 2000, a few microseconds, so in practice a CTA's memory latency and
-// the number of loads it keeps in flight decide the time.
+// K and V cache from HBM (3.35 TB/s): 2 * B * H_kv * length * D bytes per element size
+// (2 for bf16, 1 for f8 and int8, plus 4 bytes of scale per row and kv head for int8).  At
+// batch 1 that is ~2 MB at length 2000 in bf16, a few microseconds, so in practice a CTA's
+// memory latency and the number of loads it keeps in flight decide the time.
 //
 // Design:
 // - The TPU kernel walks the cache blocks in order on one core and carries (m, l, acc) in
@@ -22,28 +27,39 @@
 // - K2 is the same block routine run over all valid blocks inside one CTA per (batch row,
 //   kv head): one launch and no combine pass.  The port's dispatcher uses it while the
 //   cache holds at most one block (length <= 256), where K1 would launch a single split.
-// - A CTA (256 threads) stages its whole 256-row block, K and V (2 x 64 KB), into shared
-//   memory with cp.async before it computes anything: every byte it needs is in flight at
-//   once, so a block costs one HBM round trip, and the V copy lands while the scores are
-//   computed.  Rows at or past `length` are zero-filled, not read.  (Earlier versions
-//   loaded rows into registers, 64 rows at a time, and waited for about eight round trips
-//   per block: on a cold L2 that was the kernel's time, PERF.md.)
-// - From shared memory, 16 lanes cover one 128-wide row with one 16-byte load each, so a
-//   warp reads two neighbouring rows (512 contiguous bytes, no bank conflicts).  Scores are
-//   reduced over the 16 lanes with 4 shuffles.  Softmax statistics are one row per thread.
-//   The value product uses the same layout (each thread accumulates 8 output columns over
-//   its rows) and the 16 row groups are summed at the end in a fixed order.
-// - Scores, softmax weights and the accumulators are fp32; q, k, v are read as bf16 and
-//   widened in registers; the output is rounded to bf16 once.  Rows at or past `length`
-//   are neither read nor computed, so garbage there (even inf/nan) cannot leak in.  All
-//   sums run in a fixed order: the result does not change from run to run.
+// - A CTA (256 threads) stages its whole 256-row block, K and V (2 x 64 KB in bf16, 2 x 32
+//   KB in f8 or int8), into shared memory with cp.async before it computes anything: every
+//   byte it needs is in flight at once, so a block costs one HBM round trip, and the V copy
+//   lands while the scores are computed.  Rows at or past `length` are zero-filled, not
+//   read.  (Earlier versions loaded rows into registers, 64 rows at a time, and waited for
+//   about eight round trips per block: on a cold L2 that was the kernel's time, PERF.md.)
+// - From shared memory, 16 lanes cover one 128-wide row with one 16-byte (bf16) or 8-byte
+//   (f8, int8) load each, so a warp reads two neighbouring rows.  Scores are reduced over
+//   the 16 lanes with 4 shuffles.  Softmax statistics are one row per thread.  The value
+//   product uses the same layout (each thread accumulates 8 output columns over its rows)
+//   and the 16 row groups are summed at the end in a fixed order.
+// - Scores, softmax weights and the accumulators are fp32; q, k, v are widened in
+//   registers (an f8 or int8 value is exact in fp32); the output is rounded to bf16 once.
+//   Rows at or past `length` are neither read nor computed, so garbage there (even inf/nan)
+//   cannot leak in.  All sums run in a fixed order: the result does not change from run to
+//   run.
+// - Quantized caches (f8, int8): the current token's k and v are held out in bf16 and
+//   never read back from the cache, as in decode_attention_split: the kernels attend over
+//   cache rows [0, pos) plus that one row, and the caller writes the row afterwards.  K2
+//   starts each CTA's online softmax from the held-out row (m = its score, l = 1, acc = its
+//   v); K1's combine pass adds it beside the splits.  For int8 the row scale multiplies the
+//   score after the 1/sqrt(D) scale and the softmax weight before the value product,
+//   where decode_attention_split folds them; the scales of a block are staged beside it.
 //
 // C interface (ctypes): every entry point returns cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -51,12 +67,24 @@ constexpr int kD = 128;
 constexpr int kBlockS = 256;
 constexpr int kThreads = 256;  // one softmax row per thread: kThreads == kBlockS
 constexpr int kWarps = kThreads / 32;
-constexpr int kLanesPerRow = 16;  // 16 lanes x 8 bf16 = one 128-wide row
+constexpr int kLanesPerRow = 16;  // 16 lanes x 8 values = one 128-wide row
 constexpr int kRowsPerPass = kThreads / kLanesPerRow;
-// dynamic shared memory: the staged K and V blocks, [kBlockS][kD] bf16 each
-constexpr int kStageBytes = 2 * kBlockS * kD * 2;
+constexpr int kMaxG = 8;
 static_assert(kThreads == kBlockS, "softmax statistics take one row per thread");
-static_assert(kD == kLanesPerRow * 8, "a row is 16 lanes of 8 bf16");
+static_assert(kD == kLanesPerRow * 8, "a row is 16 lanes of 8 values");
+
+using bf16 = __nv_bfloat16;
+using f8 = __nv_fp8_e4m3;
+
+template <typename T>
+constexpr bool kQuantized = !std::is_same<T, bf16>::value;  // held-out current row
+template <typename T>
+constexpr bool kScaled = std::is_same<T, int8_t>::value;  // per-row fp32 scales
+// dynamic shared memory: the staged K and V blocks, [kBlockS][kD] of T each
+template <typename T>
+constexpr int kStageBytes = 2 * kBlockS * kD * (int)sizeof(T);
+static_assert(kWarps * kMaxG * kD * sizeof(float) <= kStageBytes<int8_t>,
+              "the partial sums fit the smallest stage");
 
 __device__ __forceinline__ void widen8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -65,6 +93,27 @@ __device__ __forceinline__ void widen8(const uint4& raw, float (&f)[8]) {
     const float2 t = __bfloat1622float2(h[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
+  }
+}
+
+// Widens the 8 values of T at p (16-byte aligned for bf16, 8-byte aligned otherwise).
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    widen8(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const unsigned char* b = reinterpret_cast<const unsigned char*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (std::is_same<T, f8>::value) {
+        f8 v;
+        v.__x = b[i];
+        f[i] = static_cast<float>(v);
+      } else {
+        f[i] = static_cast<float>(static_cast<int8_t>(b[i]));
+      }
+    }
   }
 }
 
@@ -105,16 +154,18 @@ __device__ __forceinline__ void block_reduce(float (&v)[G], float (*red)[G]) {
 // Starts the asynchronous copy of cache rows [0, kBlockS) of `src` into `dst` as one
 // cp.async group; rows at or past nrows are zero-filled without reading global memory.
 // Consecutive threads copy consecutive 16-byte pieces, so the reads are coalesced.
-__device__ __forceinline__ void stage_block(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            int nrows) {
+template <typename T>
+__device__ __forceinline__ void stage_block(T* dst, const T* src, int nrows) {
+  constexpr int kChunksPerRow = kD * (int)sizeof(T) / 16;
+  const char* s = reinterpret_cast<const char*>(src);
+  char* d = reinterpret_cast<char*>(dst);
 #pragma unroll
-  for (int i = 0; i < kBlockS * kLanesPerRow / kThreads; ++i) {
+  for (int i = 0; i < kBlockS * kChunksPerRow / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
-    const int r = c / kLanesPerRow, off = r * kD + (c % kLanesPerRow) * 8;
-    const bool in = r < nrows;
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + off));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(in ? src + off : src), "r"(in ? 16 : 0));
+    const bool in = c / kChunksPerRow < nrows;
+    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(d + c * 16));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                 "l"(in ? s + c * 16 : s), "r"(in ? 16 : 0));
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -127,20 +178,32 @@ __device__ __forceinline__ void wait_staged() {
   __syncthreads();
 }
 
-// Online softmax over cache blocks [blk0, blk1) of one (batch row, kv head).
-// q: [G, D]; k, v: [S, D] (bf16).  On return every thread holds the running max m and sum
-// l of each query row, and threads t < D hold out[g] = sum_r p_r * v[r][t].
-template <int G>
-__device__ __forceinline__ void attend_blocks(const __nv_bfloat16* __restrict__ q,
-                                              const __nv_bfloat16* __restrict__ k,
-                                              const __nv_bfloat16* __restrict__ v,
+// The cache rows of one (batch row, kv head) and, for a quantized cache, what comes with
+// them: ks/vs [S] fp32 row scales (int8) and the held-out current row k_new/v_new [D] bf16.
+template <typename T>
+struct Rows {
+  const T* k;
+  const T* v;
+  const float* ks;
+  const float* vs;
+  const bf16* k_new;
+  const bf16* v_new;
+};
+
+// Online softmax over cache blocks [blk0, blk1) of one (batch row, kv head), started from
+// the held-out row when kHeldOut.  q: [G, D] bf16; the cache rows [S, D] of T.  On return
+// every thread holds the running max m and sum l of each query row, and threads t < D hold
+// out[g] = sum_r p_r * v[r][t].
+template <int G, typename T, bool kHeldOut>
+__device__ __forceinline__ void attend_blocks(const bf16* __restrict__ q, const Rows<T>& rows,
                                               int length, int blk0, int blk1, float scale,
                                               float (&m)[G], float (&l)[G], float (&out)[G]) {
-  extern __shared__ __align__(16) unsigned char stage[];  // kStageBytes
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(stage);
-  __nv_bfloat16* vs = ks + kBlockS * kD;
+  extern __shared__ __align__(16) unsigned char stage[];  // kStageBytes<T>
+  T* ks = reinterpret_cast<T*>(stage);
+  T* vs = ks + kBlockS * kD;
   __shared__ float s[G][kBlockS];
   __shared__ float red[kWarps][G];
+  __shared__ float kscale[kBlockS], vscale[kBlockS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = tid % kLanesPerRow;  // columns [sub * 8, sub * 8 + 8)
   const int row_in_pass = tid / kLanesPerRow;
@@ -154,18 +217,42 @@ __device__ __forceinline__ void attend_blocks(const __nv_bfloat16* __restrict__ 
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
+  if constexpr (kHeldOut) {
+    float kn[8], vn[8];
+    widen8(*reinterpret_cast<const uint4*>(rows.k_new + sub * 8), kn);
+    widen8(*reinterpret_cast<const uint4*>(rows.v_new + sub * 8), vn);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dot = fmaf(qf[g][i], kn[i], dot);
+#pragma unroll
+      for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      m[g] = dot * scale;
+      l[g] = 1.f;
+      if (row_in_pass == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[g][i] = vn[i];
+      }
+    }
+  }
 
   for (int blk = blk0; blk < blk1; ++blk) {
     const int row0 = blk * kBlockS;
     const int nrows = min(kBlockS, length - row0);
-    stage_block(ks, k + (size_t)row0 * kD, nrows);
-    stage_block(vs, v + (size_t)row0 * kD, nrows);
+    stage_block(ks, rows.k + (size_t)row0 * kD, nrows);
+    stage_block(vs, rows.v + (size_t)row0 * kD, nrows);
+    if constexpr (kScaled<T>) {
+      kscale[tid] = tid < nrows ? rows.ks[row0 + tid] : 0.f;
+      vscale[tid] = tid < nrows ? rows.vs[row0 + tid] : 0.f;
+    }
     wait_staged<1>();  // K has landed; V is still in flight
 
-    // scores s[g][r] = scale * q[g] . k[row0 + r]
+    // scores s[g][r] = scale * q[g] . k[row0 + r] (times the row's scale for int8)
     for (int r = row_in_pass; r - row_in_pass < nrows; r += kRowsPerPass) {
       float kf[8];
-      widen8(*reinterpret_cast<const uint4*>(ks + r * kD + sub * 8), kf);
+      load8(ks + r * kD + sub * 8, kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
@@ -174,7 +261,11 @@ __device__ __forceinline__ void attend_blocks(const __nv_bfloat16* __restrict__ 
 #pragma unroll
         for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);  // stays inside the 16 lanes
-        if (sub == 0 && r < nrows) s[g][r] = dot * scale;
+        if (sub == 0 && r < nrows) {
+          float sc = dot * scale;
+          if constexpr (kScaled<T>) sc *= kscale[r];
+          s[g][r] = sc;
+        }
       }
     }
     __syncthreads();
@@ -209,21 +300,21 @@ __device__ __forceinline__ void attend_blocks(const __nv_bfloat16* __restrict__ 
     wait_staged<0>();
     for (int r = row_in_pass; r - row_in_pass < nrows; r += kRowsPerPass) {
       float vf[8];
-      widen8(*reinterpret_cast<const uint4*>(vs + r * kD + sub * 8), vf);
+      load8(vs + r * kD + sub * 8, vf);
+      const float row_scale = kScaled<T> ? vscale[r] : 1.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = s[g][r];
+        const float p = kScaled<T> ? s[g][r] * row_scale : s[g][r];
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
       }
     }
-    __syncthreads();  // s and the staged blocks are rewritten by the next block
+    __syncthreads();  // s, the scales and the staged blocks are rewritten by the next block
   }
 
   // sum the 16 row groups: two per warp (lanes xor 16), then the warps in order; the
   // partial sums [kWarps][G][kD] fp32 reuse the staging buffer, free after the last block
   float(*part)[G][kD] = reinterpret_cast<float(*)[G][kD]>(stage);
-  static_assert(kWarps * 8 * kD * sizeof(float) <= kStageBytes, "partial sums fit the stage");
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -246,17 +337,37 @@ __device__ __forceinline__ void attend_blocks(const __nv_bfloat16* __restrict__ 
   }
 }
 
-// K1, pass 1: grid (n_split, B * H_kv).
-template <int G>
+// Pointers of one call; a bf16 cache has no scales and no held-out row.
+template <typename T>
+struct Call {
+  const bf16* q;  // [B*H_kv, G, D]
+  const T* k;     // [B*H_kv, S, D]
+  const T* v;
+  const float* ks;  // [B*H_kv, S] (int8)
+  const float* vs;
+  const bf16* k_new;  // [B*H_kv, D] (quantized caches)
+  const bf16* v_new;
+  bf16* out;  // [B*H_kv, G, D]
+  int S, length;
+  float scale;
+
+  __device__ Rows<T> rows(int bh) const {
+    return {k + (size_t)bh * S * kD, v + (size_t)bh * S * kD,
+            kScaled<T> ? ks + (size_t)bh * S : nullptr, kScaled<T> ? vs + (size_t)bh * S : nullptr,
+            kQuantized<T> ? k_new + (size_t)bh * kD : nullptr,
+            kQuantized<T> ? v_new + (size_t)bh * kD : nullptr};
+  }
+};
+
+// K1, pass 1: grid (n_split, B * H_kv).  The held-out row is left to the combine pass.
+template <int G, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, float* __restrict__ m_part,
-                   float* __restrict__ l_part, float* __restrict__ acc_part, int S, int length,
-                   int n_split, float scale) {
+flash_split_kernel(Call<T> c, float* __restrict__ m_part, float* __restrict__ l_part,
+                   float* __restrict__ acc_part, int n_split) {
   const int split = blockIdx.x, bh = blockIdx.y;
   float m[G], l[G], acc[G];
-  attend_blocks<G>(q + (size_t)bh * G * kD, k + (size_t)bh * S * kD, v + (size_t)bh * S * kD,
-                   length, split, split + 1, scale, m, l, acc);
+  attend_blocks<G, T, false>(c.q + (size_t)bh * G * kD, c.rows(bh), c.length, split, split + 1,
+                             c.scale, m, l, acc);
   const size_t base = ((size_t)bh * n_split + split) * G;
   if (threadIdx.x < kD) {
 #pragma unroll
@@ -270,80 +381,132 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-// K1, pass 2: grid (B * H_kv), kD threads; merges the splits of each query row.
-template <int G>
+// K1, pass 2: grid (B * H_kv), kD threads; merges the splits of each query row and, for a
+// quantized cache, the held-out row.
+template <int G, typename T>
 __global__ void __launch_bounds__(kD)
-flash_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                     const float* __restrict__ acc_part, __nv_bfloat16* __restrict__ out,
+flash_combine_kernel(Call<T> c, const float* __restrict__ m_part,
+                     const float* __restrict__ l_part, const float* __restrict__ acc_part,
                      int n_split) {
   const int bh = blockIdx.x, d = threadIdx.x;
+  float s_new[G] = {}, v_new = 0.f;
+  if constexpr (kQuantized<T>) {
+    __shared__ float red[kD / 32][G];
+    const float kn = __bfloat162float(c.k_new[(size_t)bh * kD + d]);
+    v_new = __bfloat162float(c.v_new[(size_t)bh * kD + d]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float t = warp_sum(__bfloat162float(c.q[((size_t)bh * G + g) * kD + d]) * kn);
+      if ((d & 31) == 0) red[d >> 5][g] = t;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float t = red[0][g];
+#pragma unroll
+      for (int w = 1; w < kD / 32; ++w) t += red[w][g];
+      s_new[g] = t * c.scale;
+    }
+  }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float mx = -INFINITY;
+    float mx = kQuantized<T> ? s_new[g] : -INFINITY;
     for (int i = 0; i < n_split; ++i) mx = fmaxf(mx, m_part[((size_t)bh * n_split + i) * G + g]);
     float l = 0.f, o = 0.f;
+    if constexpr (kQuantized<T>) {
+      const float w = expf(s_new[g] - mx);
+      l = w;
+      o = v_new * w;
+    }
     for (int i = 0; i < n_split; ++i) {
       const size_t idx = ((size_t)bh * n_split + i) * G + g;
       const float w = expf(m_part[idx] - mx);
       l += l_part[idx] * w;
       o += acc_part[idx * kD + d] * w;
     }
-    out[((size_t)bh * G + g) * kD + d] = __float2bfloat16(o / l);
+    c.out[((size_t)bh * G + g) * kD + d] = __float2bfloat16(o / l);
   }
 }
 
 // K2: grid (B * H_kv); one CTA walks every valid block of its (batch row, kv head).
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-single_pass_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S,
-                   int length, float scale) {
+template <int G, typename T>
+__global__ void __launch_bounds__(kThreads) single_pass_kernel(Call<T> c) {
   const int bh = blockIdx.x;
-  const int n_blocks = (length + kBlockS - 1) / kBlockS;
+  const int n_blocks = (c.length + kBlockS - 1) / kBlockS;
   float m[G], l[G], acc[G];
-  attend_blocks<G>(q + (size_t)bh * G * kD, k + (size_t)bh * S * kD, v + (size_t)bh * S * kD,
-                   length, 0, n_blocks, scale, m, l, acc);
+  attend_blocks<G, T, kQuantized<T>>(c.q + (size_t)bh * G * kD, c.rows(bh), c.length, 0,
+                                     n_blocks, c.scale, m, l, acc);
   if (threadIdx.x < kD) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      out[((size_t)bh * G + g) * kD + threadIdx.x] = __float2bfloat16(acc[g] / l[g]);
+      c.out[((size_t)bh * G + g) * kD + threadIdx.x] = __float2bfloat16(acc[g] / l[g]);
   }
 }
 
-// Lets `kernel` take the kStageBytes (128 KB) of dynamic shared memory, above the 48 KB
-// default; set once per kernel (a function-local static is initialised once).
+// Lets `kernel` take its staging buffer (up to 128 KB) of dynamic shared memory, above the
+// 48 KB default; set once per kernel (a function-local static is initialised once).
 template <typename Kernel>
-cudaError_t allow_stage(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
+cudaError_t allow_stage(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int G>
-int launch_flash(const void* q, const void* k, const void* v, void* out, void* m_part,
-                 void* l_part, void* acc_part, int BH, int S, int length, int n_split,
-                 float scale, cudaStream_t stream) {
-  static const cudaError_t attr = allow_stage(flash_split_kernel<G>);
+template <int G, typename T>
+int launch_flash(const Call<T>& c, void* m_part, void* l_part, void* acc_part, int BH,
+                 int n_split, cudaStream_t stream) {
+  static const cudaError_t attr = allow_stage(flash_split_kernel<G, T>, kStageBytes<T>);
   if (attr != cudaSuccess) return attr;
-  flash_split_kernel<G><<<dim3(n_split, BH), kThreads, kStageBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part), S, length, n_split, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_combine_kernel<G><<<BH, kD, 0, stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<__nv_bfloat16*>(out), n_split);
+  if (n_split > 0) {  // a quantized cache at pos 0 has no cache rows: only the held-out row
+    flash_split_kernel<G, T><<<dim3(n_split, BH), kThreads, kStageBytes<T>, stream>>>(
+        c, static_cast<float*>(m_part), static_cast<float*>(l_part),
+        static_cast<float*>(acc_part), n_split);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_combine_kernel<G, T><<<BH, kD, 0, stream>>>(
+      c, static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+      static_cast<const float*>(acc_part), n_split);
   return cudaGetLastError();
 }
 
-template <int G>
-int launch_single(const void* q, const void* k, const void* v, void* out, int BH, int S,
-                  int length, float scale, cudaStream_t stream) {
-  static const cudaError_t attr = allow_stage(single_pass_kernel<G>);
+template <int G, typename T>
+int launch_single(const Call<T>& c, int BH, cudaStream_t stream) {
+  static const cudaError_t attr = allow_stage(single_pass_kernel<G, T>, kStageBytes<T>);
   if (attr != cudaSuccess) return attr;
-  single_pass_kernel<G><<<BH, kThreads, kStageBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, length, scale);
+  single_pass_kernel<G, T><<<BH, kThreads, kStageBytes<T>, stream>>>(c);
   return cudaGetLastError();
+}
+
+template <typename T>
+int flash_by_group(const Call<T>& c, void* m_part, void* l_part, void* acc_part, int BH, int G,
+                   int n_split, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_flash<1, T>(c, m_part, l_part, acc_part, BH, n_split, st);
+    case 2: return launch_flash<2, T>(c, m_part, l_part, acc_part, BH, n_split, st);
+    case 4: return launch_flash<4, T>(c, m_part, l_part, acc_part, BH, n_split, st);
+    case 8: return launch_flash<8, T>(c, m_part, l_part, acc_part, BH, n_split, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int single_by_group(const Call<T>& c, int BH, int G, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_single<1, T>(c, BH, st);
+    case 2: return launch_single<2, T>(c, BH, st);
+    case 4: return launch_single<4, T>(c, BH, st);
+    case 8: return launch_single<8, T>(c, BH, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+Call<T> make_call(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                  const void* k_new, const void* v_new, void* out, int S, int length,
+                  float scale) {
+  return {static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const float*>(ks), static_cast<const float*>(vs),
+          static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
+          static_cast<bf16*>(out), S, length, scale};
 }
 
 }  // namespace
@@ -354,27 +517,56 @@ extern "C" int zt_flash_decode_attention(const void* q, const void* k, const voi
                                          void* m_part, void* l_part, void* acc_part, int B,
                                          int Hkv, int G, int S, int length, int n_split,
                                          float scale, void* stream) {
-  const int BH = B * Hkv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return launch_flash<1>(q, k, v, out, m_part, l_part, acc_part, BH, S, length, n_split, scale, st);
-    case 2: return launch_flash<2>(q, k, v, out, m_part, l_part, acc_part, BH, S, length, n_split, scale, st);
-    case 4: return launch_flash<4>(q, k, v, out, m_part, l_part, acc_part, BH, S, length, n_split, scale, st);
-    case 8: return launch_flash<8>(q, k, v, out, m_part, l_part, acc_part, BH, S, length, n_split, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  const Call<bf16> c = make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, S,
+                                       length, scale);
+  return flash_by_group(c, m_part, l_part, acc_part, B * Hkv, G, n_split,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int zt_decode_attention_single(const void* q, const void* k, const void* v, void* out,
                                           int B, int Hkv, int G, int S, int length, float scale,
                                           void* stream) {
-  const int BH = B * Hkv;
+  const Call<bf16> c = make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, S,
+                                       length, scale);
+  return single_by_group(c, B * Hkv, G, static_cast<cudaStream_t>(stream));
+}
+
+// Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
+// k/v [B, H_kv, S, D] of that type; k_new/v_new [B, 1, H_kv, D] bf16, the current token's,
+// held out; cache rows [0, pos) are attended (pos may be 0).  Scratch as above, n_split =
+// ceil(pos / 256).
+extern "C" int zt_flash_decode_attention_q(int storage, const void* q, const void* k,
+                                           const void* v, const void* k_scale,
+                                           const void* v_scale, const void* k_new,
+                                           const void* v_new, void* out, void* m_part,
+                                           void* l_part, void* acc_part, int B, int Hkv, int G,
+                                           int S, int pos, int n_split, float scale,
+                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return launch_single<1>(q, k, v, out, BH, S, length, scale, st);
-    case 2: return launch_single<2>(q, k, v, out, BH, S, length, scale, st);
-    case 4: return launch_single<4>(q, k, v, out, BH, S, length, scale, st);
-    case 8: return launch_single<8>(q, k, v, out, BH, S, length, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (storage == 1)
+    return flash_by_group(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S, pos,
+                                        scale),
+                          m_part, l_part, acc_part, B * Hkv, G, n_split, st);
+  if (storage == 2)
+    return flash_by_group(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new, out, S,
+                                            pos, scale),
+                          m_part, l_part, acc_part, B * Hkv, G, n_split, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int zt_decode_attention_single_q(int storage, const void* q, const void* k,
+                                            const void* v, const void* k_scale,
+                                            const void* v_scale, const void* k_new,
+                                            const void* v_new, void* out, int B, int Hkv, int G,
+                                            int S, int pos, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (storage == 1)
+    return single_by_group(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S, pos,
+                                         scale),
+                           B * Hkv, G, st);
+  if (storage == 2)
+    return single_by_group(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new, out, S,
+                                             pos, scale),
+                           B * Hkv, G, st);
+  return cudaErrorInvalidValue;
 }

@@ -10,10 +10,16 @@ kernel is launched, never on the CPU path.
 launch_counts: dict[str, int] = {
     "flash_decode_attention": 0,
     "decode_attention_single": 0,
+    "flash_decode_attention_f8": 0,
+    "flash_decode_attention_int8": 0,
+    "decode_attention_single_f8": 0,
+    "decode_attention_single_int8": 0,
     "fused_sample": 0,
     "snake_conv1d": 0,
     "ssd_chunked": 0,
     "fused_state_step": 0,
+    "fused_layer_tail": 0,
+    "int4_matmul": 0,
 }
 
 

@@ -12,6 +12,7 @@ per source, all at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zonos_tpu_torch"
-SOURCES = ("decode_attention", "sampling", "snake_conv", "ssd_chunked", "ssm_state")
+SOURCES = ("decode_attention", "sampling", "snake_conv", "ssd_chunked", "ssm_state",
+           "layer_tail", "int4_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,3 +95,12 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on an H100
+    SXM): the kernels with a split contraction size their grids to one wave."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

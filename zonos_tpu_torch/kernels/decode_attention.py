@@ -1,9 +1,15 @@
-"""K1/K2 decode attention (csrc/decode_attention.cu) and its plain version.
+"""K1/K2 decode attention (csrc/decode_attention.cu) and its plain versions.
 
 Replaces ``flash_decode_attention_pallas`` and ``decode_attention_pallas``
 (zonos_tpu/ops/pallas_kernels.py:147, :58): one query token per row against
 a KV cache masked to its first ``length`` rows.  ``length`` is a host int,
 so a decode step never reads anything back from the card.
+
+Over a quantized cache (f8 e4m3, or int8 with one fp32 scale per row and kv
+head) the current token's k/v are held out in the compute dtype, as in
+``decode_attention_split`` (zonos_tpu/ops/attention.py:119): the kernels
+attend over cache rows ``[0, pos)`` plus that row, and the caller writes the
+row into the cache afterwards.
 """
 
 from __future__ import annotations
@@ -24,7 +30,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "zt_flash_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "zt_decode_attention_single": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "zt_flash_decode_attention_q": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
+    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
 }
+# quantized cache storage: the kernels' storage code and the launch-count suffix
+STORAGE = {torch.float8_e4m3fn: (1, "f8"), torch.int8: (2, "int8")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,3 +127,134 @@ def decode_attention_single(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
     launch_counts["decode_attention_single"] += 1
     return out
 
+
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q [B, 1, H, D] against cache rows [0, pos) of ``k_cache``/``v_cache``
+    [B, H_kv, S, D] plus the held-out current row ``k_new``/``v_new``
+    [B, 1, H_kv, D]; ``k_scale``/``v_scale`` [B, H_kv, S] are an int8 cache's
+    row scales.  The arithmetic and dtype points of decode_attention_split
+    (zonos_tpu/ops/attention.py:141-170): fp32 scores, the int8 scales folded
+    into the scores and into the softmax weights before the cast to q's dtype,
+    an f8 cache's values and weights read in bf16."""
+    B, _, H, D = q.shape
+    H_kv, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // H_kv
+    scale = attention_scale(D)
+    qh = q.transpose(1, 2).reshape(B, H_kv, G, 1, D).float()
+    k_read = k_cache if k_cache.dtype == q.dtype else k_cache.to(q.dtype)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qh, k_read.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, None, :]
+    valid = torch.arange(S, device=q.device) < pos
+    scores = scores.masked_fill(~valid, float("-inf"))
+    s_new = torch.einsum("bhgqd,bhkd->bhgqk", qh, k_new.transpose(1, 2).float()) * scale
+    weights = torch.softmax(torch.cat([scores, s_new], dim=-1), dim=-1)
+    w_cache, w_new = weights[..., :S], weights[..., S:]
+    if v_scale is not None:
+        w_cache = w_cache * v_scale[:, :, None, None, :]
+        out = gqa_output(w_cache.to(q.dtype), v_cache.to(q.dtype), q.dtype)
+    else:
+        out = gqa_output(w_cache, v_cache, q.dtype)
+    return out + gqa_output(w_new, v_new.transpose(1, 2), q.dtype)
+
+
+def gqa_output(weights: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tensor:
+    """weights [B, H_kv, G, Sq, Sk] x v [B, H_kv, Sk, D] -> [B, Sq, H, D]: the
+    weights are cast to v's dtype before the product, and an f8 ``v`` is read
+    in bf16 (zonos_tpu/ops/attention.py:71-78)."""
+    B, H_kv, G, Sq, _ = weights.shape
+    if v.element_size() < 2:
+        v = v.to(torch.bfloat16)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", weights.to(v.dtype), v)
+    return out.reshape(B, H_kv * G, Sq, v.shape[-1]).transpose(1, 2).to(out_dtype)
+
+
+def _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale) -> tuple:
+    if k_cache.dtype not in STORAGE or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"quantized decode attention takes an f8 or int8 cache, got "
+                        f"{k_cache.dtype}/{v_cache.dtype}")
+    if not all(t.is_cuda and t.device == q.device for t in (k_cache, v_cache, k_new, v_new)):
+        raise ValueError("q, the cache and the held-out row must lie on the same CUDA device")
+    if not (q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16):
+        raise TypeError(f"q and the held-out row must be bf16, got {q.dtype}/{k_new.dtype}")
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
+    B, _, H, D = q.shape
+    Bk, H_kv, S, Dk = k_cache.shape
+    if Bk != B or Dk != D or D != HEAD_DIM or H % H_kv or H // H_kv not in GROUPS:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
+    if k_new.shape != (B, 1, H_kv, D) or v_new.shape != k_new.shape:
+        raise ValueError(f"held-out rows {tuple(k_new.shape)}, expected {(B, 1, H_kv, D)}")
+    scaled = k_cache.dtype == torch.int8
+    if scaled != (k_scale is not None) or scaled != (v_scale is not None):
+        raise ValueError("an int8 cache comes with k_scale and v_scale, an f8 cache without")
+    if scaled:
+        for t in (k_scale, v_scale):
+            if (t.dtype != torch.float32 or t.shape != (B, H_kv, S) or t.device != q.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"row scales must be contiguous fp32 {(B, H_kv, S)} on the card")
+    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("decode attention kernel takes a contiguous q and cache")
+    if not 0 <= pos < S:
+        raise ValueError(f"pos {pos} outside [0, {S})")
+    return B, H_kv, H // H_kv, S
+
+
+def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
+    return (0, 0) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
+
+
+def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
+                                    k_scale=None, v_scale=None) -> torch.Tensor:
+    """K1 over an f8 or int8 cache with the current row held out: one CTA per
+    (256-row block of [0, pos), row, kv head), and the combine pass adds the
+    held-out row.  CPU tensors take the plain version."""
+    pos = int(pos)
+    if not q.is_cuda:
+        return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
+                                            k_scale, v_scale)
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
+    code, suffix = STORAGE[k_cache.dtype]
+    n_split = -(-pos // BLOCK_S)
+    n = B * H_kv * n_split * G
+    scratch = torch.empty(max(n, 1) * (2 + HEAD_DIM), dtype=torch.float32, device=q.device)
+    m_ptr = scratch.data_ptr()
+    out = torch.empty_like(q)
+    lib = library("decode_attention", _SIGNATURES)
+    rc = lib.zt_flash_decode_attention_q(
+        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), m_ptr, m_ptr + 4 * n, m_ptr + 8 * n,
+        B, H_kv, G, S, pos, n_split, attention_scale(HEAD_DIM),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(rc, f"flash_decode_attention_{suffix}")
+    launch_counts[f"flash_decode_attention_{suffix}"] += 1
+    return out
+
+
+def decode_attention_single_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
+                                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """K2 over an f8 or int8 cache with the current row held out: one CTA per
+    (row, kv head) starts its online softmax from the held-out row and walks
+    the blocks of [0, pos).  CPU tensors take the plain version."""
+    pos = int(pos)
+    if not q.is_cuda:
+        return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
+                                            k_scale, v_scale)
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
+    code, suffix = STORAGE[k_cache.dtype]
+    out = torch.empty_like(q)
+    lib = library("decode_attention", _SIGNATURES)
+    rc = lib.zt_decode_attention_single_q(
+        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos,
+        attention_scale(HEAD_DIM), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(rc, f"decode_attention_single_{suffix}")
+    launch_counts[f"decode_attention_single_{suffix}"] += 1
+    return out

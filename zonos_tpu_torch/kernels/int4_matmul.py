@@ -1,0 +1,110 @@
+"""K8 int4 matmul (csrc/int4_matmul.cu) and its plain version.
+
+Replaces ``int4_matmul_pallas`` (zonos_tpu/ops/pallas_kernels.py:294):
+``x [M, din] @ dequant(q [din/2, dout], s [G, dout]) -> fp32 [M, dout]`` for
+the few rows of a decode step.  ``q`` holds two 4-bit weights per byte in the
+"halves" layout of ``quantize_weight_int4``: rows ``[0, din/2)`` in the low
+nibble, rows ``[din/2, din)`` in the high one; ``s`` holds one bf16 scale per
+``din / G`` rows and column.
+
+What bounds it on an H100: at M <= 64 each weight feeds at most 64 FMAs, far
+below the card's ridge, so the floor is reading the packed weights and their
+scales once (``din * dout / 2 + 2 * G * dout`` bytes) from HBM.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels._build import check, library, sm_count
+
+MAX_ROWS = 64  # the most rows the kernel takes (a decode step's batch with CFG)
+COL_ALIGN = 16  # a lane reads 16 packed bytes (16 columns) per row
+TILE = 512  # columns per CTA; compiled into the kernel
+ROW_TILE = 4  # rows of x a CTA takes at most; compiled into the kernel
+MAX_ROWS_PER_SPLIT = 1024  # packed rows of one split (its x slice in shared memory)
+MIN_ROWS_PER_SPLIT = 64  # eight packed rows a warp at least
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "zt_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+
+def unpack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Nibble-packed ``[..., din/2, dout]`` int8 -> ``[..., din, dout]`` int32
+    in [-8, 7]: the sign-extended low nibbles (rows [0, din/2)) above the
+    high nibbles (rows [din/2, din))."""
+    q32 = q.to(torch.int32)
+    lo = ((q32 & 0xF) ^ 0x8) - 0x8
+    hi = q32 >> 4  # arithmetic shift of the sign-extended byte
+    return torch.cat([lo, hi], dim=-2)
+
+
+def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The Pallas body's arithmetic: the weights are dequantized as a bf16
+    product ``q.bf16 * s``, then ``x.bf16 @ w`` with fp32 accumulation."""
+    din, dout = x.shape[-1], q.shape[-1]
+    G = s.shape[-2]
+    w = unpack_int4(q).to(torch.bfloat16).reshape(G, din // G, dout) * s[:, None, :]
+    # bf16 values multiply exactly in fp32; only the sums round
+    return x.to(torch.bfloat16).float() @ w.reshape(din, dout).float()
+
+
+def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int, int, int]:
+    if not (x.is_cuda and q.device == x.device and s.device == x.device):
+        raise ValueError("x, q and s must lie on the same CUDA device")
+    if x.dtype != torch.bfloat16 or q.dtype != torch.int8 or s.dtype != torch.bfloat16:
+        raise TypeError(f"int4 matmul takes bf16 x, int8 q, bf16 s; "
+                        f"got {x.dtype}/{q.dtype}/{s.dtype}")
+    if x.dim() != 2 or q.dim() != 2 or s.dim() != 2:
+        raise ValueError(f"bad ranks x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)}")
+    M, din = x.shape
+    dout, G = q.shape[1], s.shape[0]
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"int4 matmul takes 1..{MAX_ROWS} rows, got {M}")
+    if din % G or din % (2 * (din // G)) or q.shape[0] * 2 != din or s.shape[1] != dout:
+        raise ValueError(f"shapes x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)} "
+                         "are not a halves-packed [din/2, dout] weight with an even group count")
+    if dout % COL_ALIGN:
+        raise ValueError(f"dout {dout} must be a multiple of {COL_ALIGN}")
+    if not (x.is_contiguous() and q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("int4 matmul takes contiguous tensors")
+    return M, din, dout, din // G
+
+
+def split_count(din: int, dout: int, sms: int, n: int | None = None) -> int:
+    """Splits of the packed rows: ``n`` if given, else as many as one wave of
+    CTAs holds on ``sms`` SMs (one CTA per SM; a second, partial wave measured
+    slower: ``chip_smoke.py --sweep``), each split at least MIN_ROWS_PER_SPLIT
+    and at most MAX_ROWS_PER_SPLIT packed rows, none empty."""
+    half = din // 2
+    if n is None:
+        n = max(sms // -(-dout // TILE), -(-half // MAX_ROWS_PER_SPLIT))
+    n = max(1, min(n, half // MIN_ROWS_PER_SPLIT), -(-half // MAX_ROWS_PER_SPLIT))
+    return -(-half // -(-half // n))  # drop splits that rounding would leave empty
+
+
+def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                n_split: int | None = None) -> torch.Tensor:
+    """K8 on CUDA tensors; CPU tensors take the plain version.  ``n_split``
+    overrides the default split of the packed rows (for a sweep)."""
+    if not x.is_cuda:
+        return int4_matmul_plain(x, q, s)
+    M, din, dout, gs = _check(x, q, s)
+    n_split = split_count(din, dout, sm_count(x.device.index), n_split)
+    out = torch.empty((M, dout), dtype=torch.float32, device=x.device)
+    part = (torch.empty((n_split, M, dout), dtype=torch.float32, device=x.device)
+            if n_split > 1 else out)
+    row_tiles = -(-M // (M if M <= 2 else ROW_TILE))  # the kernel's MT: 1, 2 or 4
+    counters = torch.empty(-(-dout // TILE) * row_tiles, dtype=torch.int32, device=x.device)
+    lib = library("int4_matmul", _SIGNATURES)
+    rc = lib.zt_int4_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                            part.data_ptr(), counters.data_ptr(), M, din, dout, gs, n_split,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "int4_matmul")
+    launch_counts["int4_matmul"] += 1
+    return out

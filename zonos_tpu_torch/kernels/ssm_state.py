@@ -17,20 +17,11 @@ import torch
 
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library
-
-F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
+from zonos_tpu_torch.ops.quant import store_cast
 STATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"zt_ssm_state_step": [_P] * 6 + [_I] * 4 + [_P]}
-
-
-def store_state(dst: torch.Tensor, new: torch.Tensor) -> None:
-    """Write the fp32 state ``new`` into ``dst`` in its storage dtype (f8
-    clipped to +-448 first, as the JAX package stores it)."""
-    if dst.dtype == torch.float8_e4m3fn:
-        new = new.clamp(-F8_MAX, F8_MAX)
-    dst.copy_(new)
 
 
 def storage_ulp(state: torch.Tensor) -> torch.Tensor:
@@ -49,7 +40,7 @@ def fused_state_step_plain(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor
     [BH, 1], xdt [BH, P] fp32 -> (y [BH, P] fp32, state)."""
     s = state.float()
     y = torch.einsum("bpn,bn->bp", s, C)
-    store_state(state, s * dA[:, :, None] + xdt[:, :, None] * B[:, None, :])
+    store_cast(state, s * dA[:, :, None] + xdt[:, :, None] * B[:, None, :])
     return y, state
 
 

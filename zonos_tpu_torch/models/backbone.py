@@ -5,11 +5,16 @@ query attention against a KV cache, SwiGLU MLP, final LayerNorm.
 
 Parameters keep the JAX package's layout: layers stacked on a leading axis,
 matmul weights ``[in, out]`` applied as ``x @ w``, ``w1`` holding the up and
-gate halves in that order.
+gate halves in that order.  A matmul weight may also be int8-quantized
+(``{"q", "s"}``) or int4-quantized (``{"q4", "s4"}``), applied through
+``ops.quant.matmul_w``.
 
 The KV cache ``[L, B, H_kv, S, hd]`` is allocated once for the whole
-generation and written in place: prefill writes rows [0, S), each decode
-step writes its row at ``pos`` and then attends with ``length = pos + 1``.
+generation and written in place.  A bf16 (or fp32) cache: prefill writes rows
+[0, S), each decode step writes its row at ``pos`` and then attends with
+``length = pos + 1``.  An f8 or int8 cache: each step attends over rows
+[0, pos) with its own k/v held out in the compute dtype, then writes its row
+(int8: quantized per row and kv head, with an fp32 scale).
 """
 
 from __future__ import annotations
@@ -20,24 +25,73 @@ import torch
 import torch.nn.functional as F
 
 from zonos_tpu_torch.config import BackboneConfig
-from zonos_tpu_torch.ops.attention import decode_attention, fresh_prefill_attention
+from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
+from zonos_tpu_torch.ops.attention import (
+    decode_attention,
+    decode_attention_held_out,
+    fresh_prefill_attention,
+)
 from zonos_tpu_torch.ops.norms import layer_norm
+from zonos_tpu_torch.ops.quant import matmul_w, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope, cached_rope_table
+
+KV_STORAGE = {"f8": torch.float8_e4m3fn, "int8": torch.int8}
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., S, D] -> (int8 rows, fp32 per-row scales [..., S])."""
+    rf = rows.float()
+    scale = rf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(rf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 @dataclass
 class KVCache:
-    """Stacked per-layer caches: k/v ``[L, B, H_kv, S_max, head_dim]``."""
+    """Stacked per-layer caches: k/v ``[L, B, H_kv, S_max, head_dim]`` in the
+    compute dtype, in float8 e4m3 (no scales) or in int8 with fp32 row scales
+    ``k_scale``/``v_scale`` ``[L, B, H_kv, S_max]``."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def create(cls, cfg: BackboneConfig, batch: int, max_seqlen: int,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+               dtype=torch.bfloat16, device="cpu", kv: str | None = None) -> "KVCache":
+        """``kv``: None (the compute dtype), ``"f8"`` or ``"int8"``."""
         shape = (cfg.n_layer, batch, cfg.num_heads_kv, max_seqlen, cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        if kv is not None and kv not in KV_STORAGE:
+            raise ValueError(f"KV cache storage {kv!r}: want None|f8|int8")
+        store = KV_STORAGE.get(kv, dtype)
+        scales = ()
+        if kv == "int8":
+            scales = tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                           for _ in range(2))
+        return cls(torch.zeros(shape, dtype=store, device=device),
+                   torch.zeros(shape, dtype=store, device=device), *scales)
+
+    @property
+    def held_out(self) -> bool:
+        """f8 and int8 caches are attended with the current row held out."""
+        return self.k.dtype in KV_STORAGE.values()
+
+    def write(self, li: int, pos: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Store rows ``k, v [B, S, H_kv, hd]`` at [pos, pos + S) of layer ``li``:
+        cast (f8 clipped to ±448 first, where JAX's cast gives NaN past ~464),
+        or quantized per row for int8."""
+        S = k.shape[1]
+        for rows, store, scales in ((k, self.k, self.k_scale), (v, self.v, self.v_scale)):
+            rows = rows.transpose(1, 2)
+            if store.dtype == torch.int8:
+                rows, scales[li, :, :, pos:pos + S] = quantize_kv_rows(rows)
+            store_cast(store[li, :, :, pos:pos + S], rows)
 
 
 def init_transformer_params(cfg: BackboneConfig, generator: torch.Generator,
@@ -71,27 +125,49 @@ def init_transformer_params(cfg: BackboneConfig, generator: torch.Generator,
     }
 
 
+def _layer_params(params: dict, li: int) -> dict:
+    """Layer ``li`` of the stacked parameters (a quantized weight's parts too)."""
+    return {name: ({k: t[li] for k, t in w.items()} if isinstance(w, dict) else w[li])
+            for name, w in params["layers"].items()}
+
+
+def _use_fused_tail(lp: dict, x: torch.Tensor, prefill: bool) -> bool:
+    """K4 on a CUDA int8 decode step (zonos_tpu/models/backbone.py:235-250,
+    without its TPU opt-in); the CPU runs the unfused tail, as JAX does off
+    the TPU."""
+    return (not prefill and x.is_cuda and x.shape[1] == 1
+            and all(isinstance(lp[n], dict) and "q" in lp[n] for n in ("wo", "w1", "w2")))
+
+
 def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin,
            cache: KVCache, pos: int, prefill: bool) -> torch.Tensor:
-    lp = {name: w[li] for name, w in params["layers"].items()}
+    lp = _layer_params(params, li)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
     h = layer_norm(x, lp["norm1_scale"], lp["norm1_bias"], cfg.norm_epsilon)
-    q, k, v = torch.split(h @ lp["wqkv"], [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q, k, v = torch.split(matmul_w(h, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, Hkv, hd), cos, sin)
     v = v.reshape(B, S, Hkv, hd)
-    # rows [pos, pos+S) of this layer's cache
-    cache.k[li, :, :, pos:pos + S] = k.transpose(1, 2).to(cache.k.dtype)
-    cache.v[li, :, :, pos:pos + S] = v.transpose(1, 2).to(cache.v.dtype)
     if prefill:
         y = fresh_prefill_attention(q, k, v)
+        cache.write(li, pos, k, v)
+    elif cache.held_out:
+        scales = (None, None) if cache.k_scale is None else (cache.k_scale[li], cache.v_scale[li])
+        y = decode_attention_held_out(q, cache.k[li], cache.v[li], k, v, pos, *scales)
+        cache.write(li, pos, k, v)  # after attention: the row was attended in the compute dtype
     else:
+        cache.write(li, pos, k, v)
         y = decode_attention(q, cache.k[li], cache.v[li], length=pos + 1)
-    x = x + y.reshape(B, S, H * hd) @ lp["wo"]
+    if _use_fused_tail(lp, x, prefill):
+        return fused_layer_tail(
+            y.reshape(B, H * hd), x[:, 0], lp["wo"]["q"], lp["wo"]["s"],
+            lp["norm2_scale"], lp["norm2_bias"], lp["w1"]["q"], lp["w1"]["s"],
+            lp["w2"]["q"], lp["w2"]["s"], eps=cfg.norm_epsilon)[:, None]
+    x = x + matmul_w(y.reshape(B, S, H * hd), lp["wo"])
     h = layer_norm(x, lp["norm2_scale"], lp["norm2_bias"], cfg.norm_epsilon)
-    u, gate = torch.chunk(h @ lp["w1"], 2, dim=-1)
-    return x + (u * F.silu(gate)) @ lp["w2"]
+    u, gate = torch.chunk(matmul_w(h, lp["w1"]), 2, dim=-1)
+    return x + matmul_w(u * F.silu(gate), lp["w2"])
 
 
 def _run_layers(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: KVCache,

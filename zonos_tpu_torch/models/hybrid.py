@@ -5,7 +5,8 @@ SwiGLU MLP after either, RMSNorm, and under ``residual_in_fp32`` a residual
 stream kept in fp32 while every matmul runs in the compute dtype.
 
 Parameters keep the JAX package's layout: ``layers_list`` holds one dict per
-layer, matmul weights ``[in, out]`` applied as ``x @ w``; ``A_log``, ``D`` and
+layer, matmul weights ``[in, out]`` applied as ``x @ w`` (or int8/int4
+dicts, through ``matmul_w``); ``A_log``, ``D`` and
 ``dt_bias`` are fp32 whatever the compute dtype.
 
 The cache is a list with one dict per layer, updated in place:
@@ -25,9 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from zonos_tpu_torch.config import BackboneConfig
-from zonos_tpu_torch.kernels.ssm_state import store_state
 from zonos_tpu_torch.ops.attention import decode_attention, fresh_prefill_attention
 from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
+from zonos_tpu_torch.ops.quant import matmul_w, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
 from zonos_tpu_torch.ops.ssm import (
     causal_conv1d_prefill,
@@ -176,7 +177,7 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
     _, d_inner, H, G, N, _, conv_dim = _dims(cfg)
     P = cfg.ssm_headdim
     B, S, _ = x.shape
-    z, xBC, dt_raw = torch.split(x @ lp["in_proj"], [d_inner, conv_dim, H], dim=-1)
+    z, xBC, dt_raw = torch.split(matmul_w(x, lp["in_proj"]), [d_inner, conv_dim, H], dim=-1)
     w, b = lp["conv_w"].to(xBC.dtype), lp["conv_b"].to(xBC.dtype)
     if prefill:
         xBC, conv_state = causal_conv1d_prefill(xBC, w, b)
@@ -195,21 +196,21 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
         # prefill starts from the zero state, as the conv above does: the JAX
         # package passes its fresh cache's zeros, which K6 reads as no state
         y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, lp["D"])
-        store_state(st["ssm"], final)
+        store_cast(st["ssm"], final)
     else:
         y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], lp["D"], st["ssm"])
         y = y[:, None]
 
     # y is cast to the compute dtype before the gate; the mixer norm follows it
     gated = y.reshape(B, S, d_inner).to(x.dtype) * F.silu(z)
-    return rms_norm(gated, lp["mixer_norm"], cfg.norm_epsilon) @ lp["out_proj"]
+    return matmul_w(rms_norm(gated, lp["mixer_norm"], cfg.norm_epsilon), lp["out_proj"])
 
 
 def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict, pos: int,
                 prefill: bool) -> torch.Tensor:
     H, Hkv, hd, rot = _attn_dims(cfg)
     B, S, _ = x.shape
-    q, k, v = torch.split(x @ lp["wqkv"], [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q, k, v = torch.split(matmul_w(x, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
     if rot > 0:  # rotate-halves over the first `rot` dims; the rest pass through
         cos_t, sin_t = cached_rope_table(rot, cfg.rope_base, x.device)
@@ -222,7 +223,7 @@ def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict, pos: i
         y = fresh_prefill_attention(q, k, v)
     else:
         y = decode_attention(q, st["k"], st["v"], length=pos + 1)
-    return y.reshape(B, S, H * hd) @ lp["wo"]
+    return matmul_w(y.reshape(B, S, H * hd), lp["wo"])
 
 
 def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict, pos: int,
@@ -235,8 +236,8 @@ def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict, pos
     x = x + y.to(x.dtype)
     if "w1" in lp:
         h = _norm(cfg, x, lp["norm2_scale"], lp.get("norm2_bias")).to(compute_dtype)
-        u, gate = torch.chunk(h @ lp["w1"], 2, dim=-1)
-        x = x + ((u * F.silu(gate)) @ lp["w2"]).to(x.dtype)
+        u, gate = torch.chunk(matmul_w(h, lp["w1"]), 2, dim=-1)
+        x = x + matmul_w(u * F.silu(gate), lp["w2"]).to(x.dtype)
     return x
 
 

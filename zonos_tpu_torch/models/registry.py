@@ -3,7 +3,11 @@ seam through which ``Zonos`` initialises, caches, prefills and steps a
 backbone without naming one.
 
 - ``init(cfg, generator, dtype, device) -> params``
-- ``make_cache(cfg, rows, max_seqlen, dtype, device) -> cache``
+- ``make_cache(cfg, rows, max_seqlen, dtype, device, kv=None, ssm=None) -> cache``:
+  ``kv`` is the transformer's KV-cache storage (None, "f8", "int8"), ``ssm``
+  the hybrid's SSM-state storage; each backbone reads the one it has (the
+  hybrid's attention layers keep their cache in the compute dtype, as in
+  zonos_tpu/models/hybrid.py:209)
 - ``prefill(cfg, params, x, cache) -> (hidden, cache)``
 - ``decode_step(cfg, params, x, cache, pos) -> (hidden, cache)``
 """
@@ -32,7 +36,10 @@ def _transformer_ops() -> BackboneOps:
         transformer_prefill,
     )
 
-    return BackboneOps(init=init_transformer_params, make_cache=KVCache.create,
+    def make_cache(cfg, rows, max_seqlen, dtype, device, kv=None, ssm=None):
+        return KVCache.create(cfg, rows, max_seqlen, dtype, device, kv=kv)
+
+    return BackboneOps(init=init_transformer_params, make_cache=make_cache,
                        prefill=transformer_prefill, decode_step=transformer_decode_step)
 
 
@@ -44,7 +51,10 @@ def _hybrid_ops() -> BackboneOps:
         init_hybrid_params,
     )
 
-    return BackboneOps(init=init_hybrid_params, make_cache=create_hybrid_cache,
+    def make_cache(cfg, rows, max_seqlen, dtype, device, kv=None, ssm=None):
+        return create_hybrid_cache(cfg, rows, max_seqlen, dtype, device, ssm_state=ssm)
+
+    return BackboneOps(init=init_hybrid_params, make_cache=make_cache,
                        prefill=hybrid_prefill, decode_step=hybrid_decode_step)
 
 

@@ -31,9 +31,12 @@ from zonos_tpu_torch.conditioning import (
     required_keys,
 )
 from zonos_tpu_torch.config import ZonosConfig, find_multiple
+from zonos_tpu_torch.models.backbone import KV_STORAGE
+from zonos_tpu_torch.models.hybrid import ssm_state_mode
 from zonos_tpu_torch.models.registry import backbone_ops
 from zonos_tpu_torch.ops.delay import apply_delay_pattern, revert_delay_pattern
 from zonos_tpu_torch.ops.eos import EosState, eos_logit_mask, eos_update
+from zonos_tpu_torch.ops.quant import matmul_w, quantize_weight_int4, quantize_weight_int8
 from zonos_tpu_torch.ops.sampling import SamplingParams, gumbel_noise, sample_from_logits
 from zonos_tpu_torch.utils.device import resolve_device
 
@@ -69,8 +72,9 @@ def embed_codes(params: dict, codes: torch.Tensor) -> torch.Tensor:
 
 
 def apply_heads(params: dict, cfg: ZonosConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden [B, d] -> fp32 logits [B, K, V_pad] via one fused [d, K*V_pad] matmul."""
-    logits = hidden @ params["heads"]
+    """hidden [B, d] -> fp32 logits [B, K, V_pad] via one fused [d, K*V_pad]
+    matmul (a plain, int8 or int4 weight)."""
+    logits = matmul_w(hidden, params["heads"])
     return logits.reshape(hidden.shape[0], cfg.num_codebooks, cfg.padded_vocab_size).float()
 
 
@@ -109,6 +113,11 @@ class Zonos:
     ``device="cpu"`` runs the plain versions of the kernels.  ``params``
     (for example from :mod:`zonos_tpu_torch.convert`) or a random init from
     ``seed``; the compute dtype is the embeddings' dtype.
+
+    Serving modes: :meth:`quantize_int8` / :meth:`quantize_int4` quantize the
+    backbone's projections and the heads in place; :meth:`set_storage` picks
+    the KV-cache storage (transformer) and the SSM-state storage (hybrid) of
+    later ``generate`` calls.
     """
 
     def __init__(self, config: ZonosConfig, params: dict | None = None, seed: int = 0,
@@ -122,6 +131,7 @@ class Zonos:
         if params is None:
             params = self.init_params(seed, dtype)
         self.params = params
+        self.storage = {"kv": None, "ssm": None}
 
     def init_params(self, seed: int, dtype=torch.bfloat16) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -138,6 +148,59 @@ class Zonos:
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.params["embeddings"].dtype
+
+    # -- serving modes ---------------------------------------------------
+    def quantize_int8(self) -> "Zonos":
+        """Per-output-channel int8 weights for the backbone's projections and
+        the heads (zonos_tpu/models/tts.py:407); embeddings, norms and the
+        conditioner stay as they are."""
+        return self._quantize(quantize_weight_int8)
+
+    def quantize_int4(self, group_size: int = 128) -> "Zonos":
+        """Group-wise int4 weights (two per byte, one bf16 scale per
+        ``group_size`` rows and column) for the same weights as int8; a
+        weight whose in-dim the groups do not divide stays as it is."""
+        return self._quantize(lambda w: quantize_weight_int4(w, group_size))
+
+    def _quantize(self, qfn) -> "Zonos":
+        def q_or_keep(w):
+            try:
+                return qfn(w)
+            except ValueError:  # e.g. int4 group_size does not divide this dim
+                return w
+
+        bp = self.params["backbone"]
+        if self.config.backbone.is_transformer:
+            layers = dict(bp["layers"])
+            for name in ("wqkv", "wo", "w1", "w2"):
+                layers[name] = q_or_keep(layers[name])
+            backbone = {**bp, "layers": layers}
+        else:  # hybrid: per-layer dicts; every dense projection
+            layers_list = []
+            for lp in bp["layers_list"]:
+                lp = dict(lp)
+                for name in ("in_proj", "out_proj", "wqkv", "wo", "w1", "w2"):
+                    if name in lp:
+                        lp[name] = q_or_keep(lp[name])
+                layers_list.append(lp)
+            backbone = {**bp, "layers_list": layers_list}
+        self.params = {**self.params, "backbone": backbone,
+                       "heads": q_or_keep(self.params["heads"])}
+        return self
+
+    def set_storage(self, kv: str | None = None, ssm: str | None = None) -> "Zonos":
+        """Cache storage of later ``generate`` calls, the counterpart of
+        zonos_tpu/utils/quant_env.py ``set_storage_env``: ``kv`` None (the
+        compute dtype), ``"f8"`` or ``"int8"`` for the transformer's KV cache;
+        ``ssm`` None (the batch-aware default), ``"fp32"``, ``"bf16"`` or
+        ``"f8"`` for the hybrid's SSM state.  The hybrid's attention layers
+        keep their KV cache in the compute dtype whatever ``kv`` says."""
+        if kv is not None and kv not in KV_STORAGE:
+            raise ValueError(f"KV cache storage {kv!r}: want None|f8|int8")
+        if ssm is not None:
+            ssm_state_mode(mode=ssm)  # raises on a mode the port does not have
+        self.storage = {"kv": kv, "ssm": ssm}
+        return self
 
     # -- conditioning ----------------------------------------------------
     def prepare_conditioning(self, cond_dict: dict, uncond_dict: dict | None = None,
@@ -214,7 +277,7 @@ class Zonos:
         prefill_len = 1
         # one cache row per backbone row: 2B with CFG, B without
         cache = self.backbone.make_cache(cfg.backbone, prefix.shape[0], total_seq,
-                                         self.compute_dtype, dev)
+                                         self.compute_dtype, dev, **self.storage)
         gens = self._row_generators(seed, B)
         sampled = sampling.temperature > 0
 

@@ -8,6 +8,10 @@
   device: a CUDA tensor goes to the hand-written kernels (K2 while the cache
   holds at most one 256-row block, K1 beyond), a CPU tensor to the plain
   version.
+- :func:`decode_attention_held_out`: the same over an f8 or int8 cache, with
+  the current token's k/v held out in the compute dtype
+  (``decode_attention_split``, zonos_tpu/ops/attention.py:119); K2/K1's
+  quantized-storage variants on the card.
 
 KV cache layout: ``[B, H_kv, S_max, head_dim]``.
 """
@@ -21,7 +25,11 @@ from zonos_tpu_torch.kernels.decode_attention import (
     attention_scale,
     decode_attention_plain,
     decode_attention_single,
+    decode_attention_single_held_out,
+    decode_attention_split_plain,
     flash_decode_attention,
+    flash_decode_attention_held_out,
+    gqa_output,
 )
 
 
@@ -31,14 +39,6 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     H_kv = k.shape[1]
     qh = q.transpose(1, 2).reshape(B, H_kv, H // H_kv, Sq, D)
     return torch.einsum("bhgqd,bhkd->bhgqk", qh.float(), k.float())
-
-
-def _gqa_output(weights: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tensor:
-    """weights [B, H_kv, G, Sq, Sk] x v [B, H_kv, Sk, D] -> [B, Sq, H, D]."""
-    B, H_kv, G, Sq, _ = weights.shape
-    D = v.shape[-1]
-    out = torch.einsum("bhgqk,bhkd->bhgqd", weights.to(v.dtype), v)
-    return out.reshape(B, H_kv * G, Sq, D).transpose(1, 2).to(out_dtype)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,7 +51,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal = torch.arange(seq_len, device=q.device)[None, :] <= torch.arange(S, device=q.device)[:, None]
     scores = scores.masked_fill(~causal, float("-inf"))
     weights = torch.softmax(scores, dim=-1)
-    return _gqa_output(weights, v[:, :, :seq_len], q.dtype)
+    return gqa_output(weights, v[:, :, :seq_len], q.dtype)
 
 
 def fresh_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -68,3 +68,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if length <= BLOCK_S:
         return decode_attention_single(q, k_cache, v_cache, length)
     return flash_decode_attention(q, k_cache, v_cache, length)
+
+
+def decode_attention_held_out(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                              k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q [B, 1, H, D] against cache rows [0, pos) plus the held-out current
+    row ``k_new``/``v_new`` [B, 1, H_kv, D] (``pos + 1`` rows in all)."""
+    args = (q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
+    if not q.is_cuda:
+        return decode_attention_split_plain(*args)
+    if pos + 1 <= BLOCK_S:
+        return decode_attention_single_held_out(*args)
+    return flash_decode_attention_held_out(*args)

@@ -1,0 +1,77 @@
+"""Quantized weights and low-precision stores, shared by both backbones, the
+heads and the SSM state (zonos_tpu/models/backbone.py:46-128).
+
+A matmul weight ``[in, out]`` is a plain matrix, an int8 ``{"q", "s"}`` (one
+bf16 scale per output column) or a group-wise int4 ``{"q4", "s4"}`` (two
+weights per byte, one bf16 scale per group of input rows and column);
+:func:`matmul_w` takes all three.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zonos_tpu_torch.kernels.int4_matmul import MAX_ROWS as INT4_KERNEL_MAX_ROWS
+from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, unpack_int4
+
+F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
+
+
+def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a plain matrix, an int8 ``{"q": [in, out], "s": bf16 [out]}``
+    or a group-wise int4 ``{"q4": [in/2, out] nibble-packed, "s4": bf16 [G, out]}``
+    weight (zonos_tpu/models/backbone.py:46-79).  int4 on a CUDA tensor with at
+    most 64 rows goes to K8; any other int4 input is unpacked here."""
+    if isinstance(w, dict) and "q4" in w:
+        q, s = w["q4"], w["s4"]
+        dout, G, din = q.shape[-1], s.shape[-2], x.shape[-1]
+        gs = din // G
+        rows = x.numel() // din
+        if x.is_cuda and rows <= INT4_KERNEL_MAX_ROWS and din % (2 * gs) == 0:
+            y = int4_matmul(x.reshape(rows, din).contiguous(), q, s)
+            return y.reshape(*x.shape[:-1], dout).to(x.dtype)
+        qfull = unpack_int4(q).to(x.dtype)
+        xg = x.reshape(*x.shape[:-1], G, gs)
+        y = torch.einsum("...gi,gio->...go", xg, qfull.reshape(G, gs, dout))
+        return (y * s.to(x.dtype)).sum(dim=-2)
+    if isinstance(w, dict) and "q" in w:
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w
+
+
+def quantize_weight_int8(w: torch.Tensor) -> dict:
+    """Symmetric per-output-channel int8 quantization of ``[.., in, out]``:
+    ``w / s`` rounded with the fp32 scale, ``s`` stored in bf16."""
+    wf = w.float()
+    scale = (wf.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-8)
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return {"q": q, "s": scale[..., 0, :].to(torch.bfloat16)}
+
+
+def quantize_weight_int4(w: torch.Tensor, group_size: int = 128) -> dict:
+    """Symmetric group-wise int4 quantization of ``[.., in, out]`` on the ±7
+    grid, one bf16 scale per ``group_size`` rows and column, packed two per
+    byte: rows ``[0, in/2)`` in the low nibble, ``[in/2, in)`` in the high."""
+    *lead, din, dout = w.shape
+    if din % group_size or group_size % 2:
+        raise ValueError(f"in-dim {din} must divide into even group_size {group_size}")
+    G = din // group_size
+    if (din // 2) % group_size:
+        raise ValueError("din/2 must be a multiple of group_size (even group count)")
+    wg = w.float().reshape(*lead, G, group_size, dout)
+    # times the fp32 reciprocal of 7: the JAX package's division runs under
+    # jit, where XLA turns a division by a constant into this product
+    scale = (wg.abs().amax(dim=-2, keepdim=True) * (1.0 / 7.0)).clamp_min(1e-8)
+    q = torch.round(wg / scale).clamp(-7, 7).to(torch.int8).reshape(*lead, din, dout)
+    lo, hi = q[..., : din // 2, :], q[..., din // 2:, :]
+    packed = (hi << 4) | (lo & 0xF)
+    return {"q4": packed, "s4": scale[..., 0, :].to(torch.bfloat16)}
+
+
+def store_cast(dst: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new`` into ``dst`` in its storage dtype, f8 clipped to ±448
+    first (an SSM state or a KV cache row; the JAX package clips the SSM
+    state, and its KV cast gives NaN past ~464)."""
+    if dst.dtype == torch.float8_e4m3fn:
+        new = new.clamp(-F8_MAX, F8_MAX)
+    dst.copy_(new)
