@@ -36,7 +36,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
    with further shapes under ``"more"``.
 
-``python3 chip_smoke.py --sweep`` runs phases 1-2 and then times K8 and K4
+``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
+device time down (kernel, memset, timing floor), and then times K8 and K4
 over their contraction splits instead (how their defaults were chosen).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
@@ -89,6 +90,7 @@ FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384
 # the flagship hybrid's Mamba2 projections (its attention layers and heads have
 # the transformer's shapes); in_proj's 8512 columns end in a part-filled tile
 HYBRID_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
+INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
 
 
 def fail(msg: str) -> None:
@@ -453,11 +455,12 @@ def int4_weight(gen, din: int, dout: int) -> dict:
 
 def check_int4_matmul(gen) -> float:
     """K8 vs the plain version (the same bf16 products q * s; fp32 sums, TF32
-    off) at M in (1, 2, 8, 64) for every weight it takes on the main paths:
-    the flagship transformer's four layer weights and the heads, and the
-    hybrid's in_proj and out_proj; groups of 128; tolerance 1e-5 x max|ref|
-    (only the fp32 summation order differs).  Returns the largest absolute
-    error."""
+    off) at M in (1, 2, 8, 16, 32, 64) (each of the kernel's n-tile counts and
+    their edges) for every weight it takes on the main paths: the flagship
+    transformer's four layer weights and the heads, and the hybrid's in_proj
+    and out_proj; groups of 128; tolerance 1e-5 x max|ref| (only the fp32
+    summation order differs: the tensor cores' sums of 16 products, then
+    fp32 adds).  Returns the largest absolute error."""
     import torch
 
     from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
@@ -465,7 +468,7 @@ def check_int4_matmul(gen) -> float:
     worst, by_weight = 0.0, {}
     for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
         w = int4_weight(gen, din, dout)
-        for M in (1, 2, 8, 64):
+        for M in INT4_CHECK_ROWS:
             x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
             ref = int4_matmul_plain(x, w["q4"], w["s4"])
             got = int4_matmul(x, w["q4"], w["s4"])
@@ -475,7 +478,7 @@ def check_int4_matmul(gen) -> float:
                 fail(f"int4_matmul {name} [{din},{dout}] M={M}: max abs err {err} > 1e-5 x {top}")
             worst = max(worst, err)
             by_weight[name] = max(by_weight.get(name, 0.0), err / top)
-    print(f"[kernels] K8 ok at M in (1, 2, 8, 64), gs 128: max abs err {worst:.3g}; "
+    print(f"[kernels] K8 ok at M in {INT4_CHECK_ROWS}, gs 128: max abs err {worst:.3g}; "
           f"worst / max|ref| by weight " + ", ".join(
               f"{n} {r:.3g}" for n, r in by_weight.items()) + " (tolerance 1e-5)", flush=True)
     return worst
@@ -1114,34 +1117,73 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
         **_launches("int4_matmul", counts),
         "max_abs_err": errs["int4_matmul"],
         **time_int4_matmul(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 2),
-        "more": [time_int4_matmul(gen, name, din, dout, 2)
-                 for name, (din, dout) in FLAGSHIP_WEIGHTS.items() if name != "w1"]
-                + [time_int4_matmul(gen, "w1", 2048, 16384, M) for M in (8, 64)],
+        "more": [time_int4_matmul(gen, name, din, dout, M)
+                 for M in (2, 8) for name, (din, dout) in FLAGSHIP_WEIGHTS.items()
+                 if (name, M) != ("w1", 2)]
+                + [time_int4_matmul(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 64)],
     })
     return out
 
 
+def k8_breakdown(gen, card: str, calls: int = 40) -> None:
+    """Where a K8 call's device time goes, at M = 2 on each flagship weight
+    (default split, L2 cold): the per-call time as ``device_ms`` reads it
+    beside the kernel's and the counters' memset's own durations from
+    torch.profiler (CUPTI), and the timing harness's floor (a one-element
+    add)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels.int4_matmul import int4_matmul
+
+    one = torch.zeros(1, device="cuda")
+    print(f"[sweep] timing floor, one-element add: {device_ms(lambda: one.add_(1))[0] * 1e3:.2f} us "
+          f"({card})", flush=True)
+    for name, (din, dout) in FLAGSHIP_WEIGHTS.items():
+        sets = []
+        for _ in range(2 + int(64e6 // (din * dout // 2))):  # over the 50 MB L2
+            w = int4_weight(gen, din, dout)
+            sets.append((torch.randn((2, din), generator=gen, device="cuda").bfloat16(),
+                         w["q4"], w["s4"]))
+        cycle = itertools.cycle(sets)
+        ms = device_ms(lambda: int4_matmul(*next(cycle)))[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                int4_matmul(*next(cycle))
+            torch.cuda.synchronize()
+        parts = {"kernel": 0.0, "memset": 0.0}
+        for e in prof.key_averages():
+            key = "kernel" if "int4_matmul" in e.key else "memset" if "Memset" in e.key else None
+            if key is not None:
+                parts[key] += e.self_device_time_total / calls
+        print(f"[sweep] K8 {name} M=2: {ms * 1e3:.2f} us a call; kernel {parts['kernel']:.2f} us, "
+              f"memset {parts['memset']:.2f} us (CUPTI; {card})", flush=True)
+
+
 def phase_sweep(gen, card: str) -> None:
     """``python3 chip_smoke.py --sweep``: how K8's and K4's default splits
-    were chosen.  K8 on each weight at M = 2 for 4 to 64 splits of the packed
-    rows (one wave of CTAs ends where splits x column tiles pass the SM
-    count); K4 at B2 = 2 and 8 for a target of half, one and two CTAs per SM.
-    Device times per call, L2 cold."""
+    were chosen.  K8 on each weight at M = 2 and 8 for 1 to 32 splits of the
+    packed rows (one wave of CTAs ends where splits x 128-column tiles pass
+    the SM count); K4 at B2 = 2 and 8 for a target of half, one and two CTAs
+    per SM.  Device times per call, L2 cold."""
     from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.kernels.int4_matmul import split_count
 
     sms = sm_count(0)
-    for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
-        row, r = {}, {}
-        for n in (4, 5, 6, 7, 8, 16, 32, 64):
-            n = split_count(din, dout, sms, n)  # as the kernel would run it
-            if n not in row:
-                r = time_int4_matmul(gen, name, din, dout, 2, n_split=n)
-                row[n] = r["ms"] * 1e3
-        print(f"[sweep] K8 {name} M=2, us by splits: "
-              + ", ".join(f"{n}: {us:.1f}" for n, us in row.items())
-              + f" (default {split_count(din, dout, sms)}; bound {r['bound_ms'] * 1e3:.2f} us, "
-              f"bf16 torch.matmul {r['library_ms'] * 1e3:.1f} us; {card})", flush=True)
+    k8_breakdown(gen, card)
+    for M in (2, 8):
+        for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
+            row, r = {}, {}
+            for n in (1, 2, 3, 4, 6, 8, 12, 16, 32):
+                n = split_count(din, dout, sms, n)  # as the kernel would run it
+                if n not in row:
+                    r = time_int4_matmul(gen, name, din, dout, M, n_split=n)
+                    row[n] = r["ms"] * 1e3
+            print(f"[sweep] K8 {name} M={M}, us by splits: "
+                  + ", ".join(f"{n}: {us:.2f}" for n, us in row.items())
+                  + f" (default {split_count(din, dout, sms)}; bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us, bf16 torch.matmul "
+                  f"{r['library_ms'] * 1e3:.1f} us; {card})", flush=True)
     for B2 in (2, 8):
         row = {t: time_layer_tail(gen, B2, target_ctas=t)["ms"] * 1e3
                for t in (sms // 2, sms, 2 * sms)}

@@ -182,19 +182,50 @@ def test_decode_attention_held_out_rejects_bf16_cache(gen):
         decode_attention_single_held_out(q, k, k, new, new, 10)
 
 
-@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("M", [1, 2, 7, 8, 9, 16, 17, 32, 33, 64])
 @pytest.mark.parametrize("din,dout", [(2048, 2048), (2048, 8512), (4096, 2048), (8192, 2048)])
-def test_int4_matmul_kernel_matches_plain(gen, M, din, dout):
+@pytest.mark.parametrize("group_size", [32, 128])
+def test_int4_matmul_kernel_matches_plain(gen, M, din, dout, group_size):
     """Same bf16 products as the plain version, other fp32 summation order:
-    1e-5 x max|ref|."""
+    1e-5 x max|ref|.  M covers each n-tile count of the kernel (1, 2, 4, 8
+    tiles of 8 rows) and its edges; in_proj's 8512 columns end in a
+    part-filled tile; w2's din 8192 takes four splits at least."""
     w = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
-    qw = quantize_weight_int4(w, 128)
+    qw = quantize_weight_int4(w, group_size)
     x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
     ref = int4_matmul_plain(x, qw["q4"], qw["s4"])
     before = launch_counts["int4_matmul"]
     got = int4_matmul(x, qw["q4"], qw["s4"])
     assert launch_counts["int4_matmul"] == before + 1
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dout,group_size", [(24, 32), (256, 4)])
+def test_matmul_w_unpacks_what_the_int4_kernel_does_not_take(gen, dout, group_size):
+    """dout % 16 != 0 or a group size that is not a multiple of 8: the
+    unpack, as JAX dispatches by shape, and no K8 launch."""
+    from zonos_tpu_torch.ops.quant import int4_matmul_unpacked, matmul_w
+
+    w = quantize_weight_int4(torch.randn((256, dout), generator=gen, device="cuda") / 16,
+                             group_size)
+    x = torch.randn((2, 256), generator=gen, device="cuda").bfloat16()
+    before = launch_counts["int4_matmul"]
+    got = matmul_w(x, w)
+    assert launch_counts["int4_matmul"] == before
+    assert torch.equal(got, int4_matmul_unpacked(x, w["q4"], w["s4"]))
+
+
+def test_matmul_w_sends_an_unaligned_view_to_the_int4_kernel(gen):
+    """x at an offset that is not a multiple of 16 bytes still goes to K8."""
+    from zonos_tpu_torch.ops.quant import matmul_w
+
+    w = quantize_weight_int4(torch.randn((256, 128), generator=gen, device="cuda") / 16, 32)
+    x = torch.randn((3 * 256 + 1,), generator=gen, device="cuda").bfloat16()[1:].view(3, 256)
+    before = launch_counts["int4_matmul"]
+    got = matmul_w(x, w)
+    assert launch_counts["int4_matmul"] == before + 1
+    ref = int4_matmul_plain(x, w["q4"], w["s4"]).bfloat16()
+    assert (got.float() - ref.float()).abs().max() <= _bf16_ulps(ref.float(), 1)
 
 
 def test_split_kernels_on_two_streams_match_plain(gen):
@@ -226,6 +257,9 @@ def test_int4_matmul_kernel_rejects_what_it_does_not_take(gen):
         int4_matmul(torch.zeros((65, 256), dtype=torch.bfloat16, device="cuda"), qw["q4"], qw["s4"])
     with pytest.raises(TypeError):
         int4_matmul(torch.zeros((2, 256), device="cuda"), qw["q4"], qw["s4"])
+    with pytest.raises(ValueError):  # the kernel reads x in 16-byte pieces
+        x = torch.zeros((2 * 256 + 1,), dtype=torch.bfloat16, device="cuda")[1:].view(2, 256)
+        int4_matmul(x, qw["q4"], qw["s4"])
 
 
 def _tail_args(gen, B2, d=2048, inter=8192):

@@ -54,7 +54,15 @@ from zonos_tpu_torch.config import HYBRID_CONFIG_DICT, TRANSFORMER_CONFIG_DICT
 from zonos_tpu_torch.convert import convert_zonos_params, to_tensor
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels.decode_attention import decode_attention_split_plain
-from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+from zonos_tpu_torch.kernels.int4_matmul import (
+    MAX_ROWS_PER_SPLIT,
+    MIN_ROWS_PER_SPLIT,
+    int4_matmul,
+    int4_matmul_plain,
+    kernel_takes,
+    split_count,
+)
+from zonos_tpu_torch.kernels.int4_matmul import TILE as K8_TILE
 from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
 from zonos_tpu_torch.models import backbone as tbb
 from zonos_tpu_torch.ops import quant as tq
@@ -164,6 +172,31 @@ def test_int4_matmul_plain_matches_pallas(M, group_size):
     assert ours.dtype == torch.float32 and tuple(ours.shape) == (M, 384)
     assert np.abs(ours.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
     assert torch.equal(ours, int4_matmul_plain(tx, q, s))
+
+
+@pytest.mark.parametrize("din,dout", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+                                      (2048, 10368), (2048, 8512), (4096, 2048), (256, 384)])
+def test_int4_split_count_fits_the_kernel(din, dout):
+    """Every split count the wrapper passes K8 gives splits of whole k-steps
+    (8 packed rows, as the C launcher rounds them), none empty and none over
+    the kernel's limit; the default fills at most one wave of 132 SMs unless
+    the limit needs more splits."""
+    half, tiles = din // 2, -(-dout // K8_TILE)
+    least = -(-half // MAX_ROWS_PER_SPLIT)
+    for n in (None, 1, 3, 5, 7, 64, 1000):
+        splits = split_count(din, dout, 132, n)
+        rows = -(-(-(-half // splits)) // 8) * 8  # zt_int4_matmul's rows per split
+        assert rows <= MAX_ROWS_PER_SPLIT and (splits - 1) * rows < half <= splits * rows
+        assert rows >= min(half, MIN_ROWS_PER_SPLIT)
+        if n is None:
+            assert splits == least or splits * tiles <= 132
+
+
+def test_int4_kernel_takes_the_shapes_jax_sends_its_kernel():
+    assert kernel_takes(64, 2048, 16384, 128) and kernel_takes(1, 256, 8512, 32)
+    assert not kernel_takes(65, 2048, 2048, 128)  # a prefill: unpacked
+    assert not kernel_takes(2, 256, 24, 32)  # dout % 16
+    assert not kernel_takes(2, 256, 256, 4)  # groups not whole k-steps
 
 
 def _tail_inputs(d, dk, inter, seed):

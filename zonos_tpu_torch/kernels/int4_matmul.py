@@ -7,9 +7,24 @@ the few rows of a decode step.  ``q`` holds two 4-bit weights per byte in the
 nibble, rows ``[din/2, din)`` in the high one; ``s`` holds one bf16 scale per
 ``din / G`` rows and column.
 
-What bounds it on an H100: at M <= 64 each weight feeds at most 64 FMAs, far
-below the card's ridge, so the floor is reading the packed weights and their
-scales once (``din * dout / 2 + 2 * G * dout`` bytes) from HBM.
+What bounds it on an H100: at M <= 64 each weight feeds at most 64
+multiply-adds, far below the card's ridge, so the floor is reading the packed
+weights and their scales once (``din * dout / 2 + 2 * G * dout`` bytes) from
+HBM.
+
+Design (the source note has the details and a worked example): the kernel
+runs ``mma.sync`` m16n8k16 on the tensor cores with the weights as A (16
+columns x 16 k) and x as B (8 rows of x per n-tile, up to eight n-tiles
+sharing each A fragment), so every packed byte is read and dequantized once
+for any M.  k is permuted so that the two nibbles of one packed byte are one
+A register's k-pair (rows p and p + din/2), and x is staged in shared memory
+as the matching bf16 pairs; columns are permuted within a warp so that a lane
+fills its A fragments from one 16-, 8- or 4-byte load per packed row, with
+two batches of 128 bytes a lane in flight.  A CTA owns 128 columns; the
+packed rows are split over CTAs up to one wave, and the last CTA of a column
+tile adds the splits in split order.  Left for later: ``wgmma``, TMA, a
+thread-block-cluster reduction in place of the partials and the counters'
+memset, a persistent kernel.
 """
 
 from __future__ import annotations
@@ -22,11 +37,11 @@ from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 
 MAX_ROWS = 64  # the most rows the kernel takes (a decode step's batch with CFG)
-COL_ALIGN = 16  # a lane reads 16 packed bytes (16 columns) per row
-TILE = 512  # columns per CTA; compiled into the kernel
-ROW_TILE = 4  # rows of x a CTA takes at most; compiled into the kernel
-MAX_ROWS_PER_SPLIT = 1024  # packed rows of one split (its x slice in shared memory)
-MIN_ROWS_PER_SPLIT = 64  # eight packed rows a warp at least
+COL_ALIGN = 16  # a lane's columns are all in or all out of dout; rows start on 16 bytes
+K_STEP = 8  # packed rows per mma k-step (16 k: each byte's two nibbles); gs % K_STEP == 0
+TILE = 128  # columns per CTA; compiled into the kernel
+MAX_ROWS_PER_SPLIT = 1024  # packed rows of one split; compiled into the kernel
+MIN_ROWS_PER_SPLIT = 64  # one k-step for each of up to eight warps over a split's rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -54,6 +69,13 @@ def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torc
     return x.to(torch.bfloat16).float() @ w.reshape(din, dout).float()
 
 
+def kernel_takes(rows: int, din: int, dout: int, gs: int) -> bool:
+    """Whether K8 takes ``rows`` rows of x by a halves-packed ``[din/2, dout]``
+    weight in groups of ``gs`` rows (``matmul_w`` unpacks what it does not)."""
+    return (1 <= rows <= MAX_ROWS and gs % K_STEP == 0 and din % (2 * gs) == 0
+            and dout % COL_ALIGN == 0)
+
+
 def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int, int, int]:
     if not (x.is_cuda and q.device == x.device and s.device == x.device):
         raise ValueError("x, q and s must lie on the same CUDA device")
@@ -69,23 +91,31 @@ def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int,
     if din % G or din % (2 * (din // G)) or q.shape[0] * 2 != din or s.shape[1] != dout:
         raise ValueError(f"shapes x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)} "
                          "are not a halves-packed [din/2, dout] weight with an even group count")
-    if dout % COL_ALIGN:
-        raise ValueError(f"dout {dout} must be a multiple of {COL_ALIGN}")
+    if not kernel_takes(M, din, dout, din // G):
+        raise ValueError(f"dout {dout} must be a multiple of {COL_ALIGN} and the group size "
+                         f"{din // G} of {K_STEP}")
     if not (x.is_contiguous() and q.is_contiguous() and s.is_contiguous()):
         raise ValueError("int4 matmul takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (x, q, s)):
+        raise ValueError("int4 matmul takes x, q and s starting on 16-byte boundaries")
     return M, din, dout, din // G
 
 
 def split_count(din: int, dout: int, sms: int, n: int | None = None) -> int:
     """Splits of the packed rows: ``n`` if given, else as many as one wave of
-    CTAs holds on ``sms`` SMs (one CTA per SM; a second, partial wave measured
-    slower: ``chip_smoke.py --sweep``), each split at least MIN_ROWS_PER_SPLIT
-    and at most MAX_ROWS_PER_SPLIT packed rows, none empty."""
+    CTAs holds on ``sms`` SMs (one CTA per SM; ``chip_smoke.py --sweep``
+    times the alternatives), each split at least MIN_ROWS_PER_SPLIT and at
+    most MAX_ROWS_PER_SPLIT packed rows.  A split holds ``ceil(din / 2 / n)``
+    rows rounded up to K_STEP (as the kernel computes it), so the count
+    drops splits that rounding would leave empty."""
     half = din // 2
+    least = -(-half // MAX_ROWS_PER_SPLIT)
     if n is None:
-        n = max(sms // -(-dout // TILE), -(-half // MAX_ROWS_PER_SPLIT))
-    n = max(1, min(n, half // MIN_ROWS_PER_SPLIT), -(-half // MAX_ROWS_PER_SPLIT))
-    return -(-half // -(-half // n))  # drop splits that rounding would leave empty
+        n = sms // -(-dout // TILE)
+    n = max(1, least, min(n, half // MIN_ROWS_PER_SPLIT))
+    rows = -(-half // n)
+    rows = -(-rows // K_STEP) * K_STEP
+    return -(-half // rows)
 
 
 def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -99,8 +129,7 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     out = torch.empty((M, dout), dtype=torch.float32, device=x.device)
     part = (torch.empty((n_split, M, dout), dtype=torch.float32, device=x.device)
             if n_split > 1 else out)
-    row_tiles = -(-M // (M if M <= 2 else ROW_TILE))  # the kernel's MT: 1, 2 or 4
-    counters = torch.empty(-(-dout // TILE) * row_tiles, dtype=torch.int32, device=x.device)
+    counters = torch.empty(-(-dout // TILE), dtype=torch.int32, device=x.device)
     lib = library("int4_matmul", _SIGNATURES)
     rc = lib.zt_int4_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                             part.data_ptr(), counters.data_ptr(), M, din, dout, gs, n_split,

@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from zonos_tpu_torch.kernels.int4_matmul import MAX_ROWS as INT4_KERNEL_MAX_ROWS
-from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, unpack_int4
+from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, kernel_takes, unpack_int4
 
 F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
 
@@ -20,23 +19,33 @@ F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
 def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for a plain matrix, an int8 ``{"q": [in, out], "s": bf16 [out]}``
     or a group-wise int4 ``{"q4": [in/2, out] nibble-packed, "s4": bf16 [G, out]}``
-    weight (zonos_tpu/models/backbone.py:46-79).  int4 on a CUDA tensor with at
-    most 64 rows goes to K8; any other int4 input is unpacked here."""
+    weight (zonos_tpu/models/backbone.py:46-79).  int4 on a CUDA tensor goes to
+    K8 where its shape fits the kernel (at most 64 rows, as JAX dispatches);
+    any other int4 input is unpacked (:func:`int4_matmul_unpacked`)."""
     if isinstance(w, dict) and "q4" in w:
         q, s = w["q4"], w["s4"]
         dout, G, din = q.shape[-1], s.shape[-2], x.shape[-1]
-        gs = din // G
         rows = x.numel() // din
-        if x.is_cuda and rows <= INT4_KERNEL_MAX_ROWS and din % (2 * gs) == 0:
-            y = int4_matmul(x.reshape(rows, din).contiguous(), q, s)
-            return y.reshape(*x.shape[:-1], dout).to(x.dtype)
-        qfull = unpack_int4(q).to(x.dtype)
-        xg = x.reshape(*x.shape[:-1], G, gs)
-        y = torch.einsum("...gi,gio->...go", xg, qfull.reshape(G, gs, dout))
-        return (y * s.to(x.dtype)).sum(dim=-2)
+        if x.is_cuda and kernel_takes(rows, din, dout, din // G):
+            xr = x.reshape(rows, din).contiguous()
+            if xr.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte rows
+                xr = xr.clone()
+            return int4_matmul(xr, q, s).reshape(*x.shape[:-1], dout).to(x.dtype)
+        return int4_matmul_unpacked(x, q, s)
     if isinstance(w, dict) and "q" in w:
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
+
+
+def int4_matmul_unpacked(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """JAX's unpack of an int4 weight (zonos_tpu/models/backbone.py:68-76): the
+    group sums of ``x`` by the unpacked integers, times the scales, in the
+    dtype of ``x``."""
+    dout, G, din = q.shape[-1], s.shape[-2], x.shape[-1]
+    qfull = unpack_int4(q).to(x.dtype)
+    xg = x.reshape(*x.shape[:-1], G, din // G)
+    y = torch.einsum("...gi,gio->...go", xg, qfull.reshape(G, din // G, dout))
+    return (y * s.to(x.dtype)).sum(dim=-2)
 
 
 def quantize_weight_int8(w: torch.Tensor) -> dict:
