@@ -30,15 +30,17 @@ Phases, each of which fails the run (non-zero exit) on error:
      of 130 frames; K6, K7, K8.
    The bf16 and quantized transformer paths and the bf16 hybrid path are
    each followed by a profile of their batch-1 decode step (device busy and
-   idle share, top kernels, the port's kernels' ms per step).
+   idle share, top kernels, the port's kernels' ms per step); the int8 path
+   also by one at batch 64 with the f8 KV cache (K4 at 128 rows).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
    with further shapes under ``"more"``.
 
 ``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
-device time down (kernel, memset, timing floor), and then times K8 and K4
-over their contraction splits instead (how their defaults were chosen).
+device time down (kernel, memset, timing floor) and one K4 call's by launch,
+and then times K8 and K4 over their contraction splits instead (how their
+defaults were chosen).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -91,6 +93,10 @@ FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384
 # the transformer's shapes); in_proj's 8512 columns end in a part-filled tile
 HYBRID_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
 INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
+LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
+# the batch-64 int8 profile: bench.py's rtf_batch64 configuration (int8 weights, f8 KV
+# cache, CFG: 128 backbone rows), EOS banned so that every step runs all rows
+B64_BATCH, B64_NEW_TOKENS = 64, 32
 
 
 def fail(msg: str) -> None:
@@ -504,7 +510,7 @@ def layer_tail_args(gen, B2: int, d: int = 2048, inter: int = 8192) -> tuple:
 
 
 def check_layer_tail(gen) -> float:
-    """K4 vs the plain version at B2 in (2, 8, 128), flagship widths.
+    """K4 vs the plain version at B2 in (1, 2, 8, 64, 128), flagship widths.
     Tolerance 1e-2 x max|ref|, half the JAX test's fused-vs-unfused bound
     (tests/test_pallas_decode.py:46): the fp32 sums run in another order, which
     can move the bf16 roundings of h, the activation and the output by an
@@ -514,7 +520,7 @@ def check_layer_tail(gen) -> float:
     from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
 
     worst = worst_rel = 0.0
-    for B2 in (2, 8, 128):
+    for B2 in LAYER_TAIL_CHECK_ROWS:
         args = layer_tail_args(gen, B2)
         ref = fused_layer_tail_plain(*args).float()
         got = fused_layer_tail(*args).float()
@@ -716,7 +722,8 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
 
 # kernel-name fragments -> the port's kernel, for the profile's per-kernel line
 _PORT_KERNELS = (("flash_split", "K1"), ("flash_combine", "K1"), ("single_pass", "K2"),
-                 ("fused_sample", "K3"), ("tail_pass", "K4"), ("snake_conv1d", "K5"),
+                 ("fused_sample", "K3"), ("tail_pass", "K4"), ("tail_layer_norm", "K4"),
+                 ("snake_conv1d", "K5"),
                  ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"))
 # kernel-name fragments -> category, for the profile summary
 _CATEGORIES = (
@@ -725,10 +732,12 @@ _CATEGORIES = (
 )
 
 
-def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32) -> None:
-    """Where a batch-1 decode step's time goes: one short generate under
+def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32, batch: int = 1,
+                  sampling=None) -> None:
+    """Where a decode step's time goes: one short generate under
     torch.profiler for the device's kernel time, one without it for the
-    wall time.  Prints the device busy share and the top kernels.  Only the
+    wall time.  Prints the device busy share, the top kernels and the port's
+    kernels' ms per step (with K4's share of the busy time).  Only the
     device's activity is traced: the host's op events cost more to collect
     than the run they describe."""
     import torch
@@ -737,7 +746,8 @@ def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32) -> 
     def run():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        model.generate(prefix, max_new_tokens=new_tokens, seed=3)
+        model.generate(prefix, max_new_tokens=new_tokens, batch_size=batch,
+                       sampling_params=sampling, seed=[3 + i for i in range(batch)])
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
@@ -757,10 +767,10 @@ def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32) -> 
     for e in kernels:
         cat = next((c for c, keys in _CATEGORIES if any(k in e.key for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
-    print(f"{tag} batch-1 generate, {new_tokens} new tokens ({steps} decode steps + prefill): "
-          f"wall {wall * 1e3 / steps:.2f} ms/step, device busy {busy_ms / steps:.2f} ms/step "
-          f"= {100 * busy_ms / (wall * 1e3):.1f}% busy, {100 - 100 * busy_ms / (wall * 1e3):.1f}% idle "
-          f"({card})", flush=True)
+    print(f"{tag} batch-{batch} generate, {new_tokens} new tokens ({steps} decode steps + "
+          f"prefill): wall {wall * 1e3 / steps:.2f} ms/step, device busy {busy_ms / steps:.2f} "
+          f"ms/step = {100 * busy_ms / (wall * 1e3):.1f}% busy, "
+          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}% idle ({card})", flush=True)
     print(f"{tag} device ms/step by category: " + ", ".join(
         f"{c} {v / steps:.3f}" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1])), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -775,6 +785,25 @@ def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32) -> 
             ms_n[1] += e.count / steps
     print(f"{tag} port kernels, device ms/step (launches/step): " + ", ".join(
         f"{k} {v[0]:.4f} (x{v[1]:.1f})" for k, v in sorted(per_kernel.items())), flush=True)
+    if "K4" in per_kernel:
+        print(f"{tag} K4 {per_kernel['K4'][0]:.4f} ms/step = "
+              f"{100 * per_kernel['K4'][0] * steps / busy_ms:.1f}% of device busy", flush=True)
+
+
+def phase_profile_batch64(model, card: str) -> None:
+    """``[profile transformer int8 b64]``: the int8 model's decode step at
+    batch 64 with CFG (K4 at 128 rows) over the f8 KV cache, EOS banned."""
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    texts = [TEXTS[i % len(TEXTS)] for i in range(B64_BATCH)]
+    prefix = model.prepare_conditioning(make_cond_dict(text=texts, speaker=None))
+    model.set_storage(kv="f8")
+    try:
+        phase_profile("transformer int8 b64", model, prefix, card, new_tokens=B64_NEW_TOKENS,
+                      batch=B64_BATCH, sampling=SamplingParams(ban_eos=True))
+    finally:
+        model.set_storage()
 
 
 def _leaves(tree):
@@ -1160,17 +1189,46 @@ def k8_breakdown(gen, card: str, calls: int = 40) -> None:
               f"memset {parts['memset']:.2f} us (CUPTI; {card})", flush=True)
 
 
+def k4_breakdown(gen, card: str, calls: int = 20) -> None:
+    """Where a K4 call's device time goes at B2 = 2, 8 and 128 (default
+    splits, two weight sets alternating, L2 cold): each launch's own duration
+    (memset, the wo, w1 and w2 passes, the LayerNorm) from torch.profiler
+    (CUPTI), beside the per-call time as ``device_ms`` reads it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
+
+    names = {"tail_pass_kernel<0": "wo", "tail_layer_norm": "LayerNorm",
+             "tail_pass_kernel<1": "w1", "tail_pass_kernel<2": "w2", "Memset": "memset"}
+    for B2 in (2, 8, 128):
+        cycle = itertools.cycle([layer_tail_args(gen, B2) for _ in range(2)])
+        ms = device_ms(lambda: fused_layer_tail(*next(cycle)))[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fused_layer_tail(*next(cycle))
+            torch.cuda.synchronize()
+        parts = dict.fromkeys(names.values(), 0.0)
+        for e in prof.key_averages():
+            key = next((v for k, v in names.items() if k in e.key), None)
+            if key is not None:
+                parts[key] += e.self_device_time_total / calls
+        print(f"[sweep] K4 B2={B2}: {ms * 1e3:.2f} us a call; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items()) + f" us (CUPTI; {card})", flush=True)
+
+
 def phase_sweep(gen, card: str) -> None:
     """``python3 chip_smoke.py --sweep``: how K8's and K4's default splits
     were chosen.  K8 on each weight at M = 2 and 8 for 1 to 32 splits of the
     packed rows (one wave of CTAs ends where splits x 128-column tiles pass
-    the SM count); K4 at B2 = 2 and 8 for a target of half, one and two CTAs
-    per SM.  Device times per call, L2 cold."""
+    the SM count); K4 at B2 = 2, 8 and 128 for a target of half, one and two
+    CTAs per SM.  Device times per call, L2 cold."""
     from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.kernels.int4_matmul import split_count
 
     sms = sm_count(0)
     k8_breakdown(gen, card)
+    k4_breakdown(gen, card)
     for M in (2, 8):
         for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
             row, r = {}, {}
@@ -1184,7 +1242,7 @@ def phase_sweep(gen, card: str) -> None:
                   + f" (default {split_count(din, dout, sms)}; bound "
                   f"{r['bound_ms'] * 1e3:.2f} us, bf16 torch.matmul "
                   f"{r['library_ms'] * 1e3:.1f} us; {card})", flush=True)
-    for B2 in (2, 8):
+    for B2 in (2, 8, 128):
         row = {t: time_layer_tail(gen, B2, target_ctas=t)["ms"] * 1e3
                for t in (sms // 2, sms, 2 * sms)}
         print(f"[sweep] K4 B2={B2}, us by target CTAs: "
@@ -1235,6 +1293,8 @@ def main(argv: list[str]) -> int:
     path("transformer", model, 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS)
     quantize_model("transformer", model, "int8")  # the bf16 model, quantized in place
     path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
+    phase_profile_batch64(model, card)
+    print(f"[time] transformer int8 b64 profile done {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
     model = load_model("transformer")  # a fresh seed-0 model

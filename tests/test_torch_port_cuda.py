@@ -8,6 +8,9 @@ the flagship shapes.
 
 from __future__ import annotations
 
+import copy
+
+import numpy as np
 import pytest
 import torch
 
@@ -274,16 +277,19 @@ def _tail_args(gen, B2, d=2048, inter=8192):
             w1["q"], w1["s"], w2["q"], w2["s"])
 
 
-@pytest.mark.parametrize("B2", [2, 8, 13])
-def test_fused_layer_tail_kernel_matches_plain(gen, B2):
+@pytest.mark.parametrize("B2,d,inter", [(B2, 2048, 8192) for B2 in (1, 2, 8, 9, 13, 64, 128, 130)]
+                         + [(2, 256, 512), (130, 256, 512)])
+def test_fused_layer_tail_kernel_matches_plain(gen, B2, d, inter):
     """Other fp32 summation orders, which can move the bf16 roundings of h,
     the activation and the output: 1e-2 x max|ref|, half the JAX test's
-    fused-vs-unfused bound."""
-    args = _tail_args(gen, B2)
+    fused-vs-unfused bound.  B2 covers the n-tile edges (8 rows a tile, 16
+    tiles a CTA) and a second row tile past 128; one narrow width too."""
+    args = _tail_args(gen, B2, d, inter)
     ref = fused_layer_tail_plain(*args).float()
     before = launch_counts["fused_layer_tail"]
     got = fused_layer_tail(*args).float()
     assert launch_counts["fused_layer_tail"] == before + 1
+    assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
 
 
@@ -292,3 +298,196 @@ def test_fused_layer_tail_kernel_rejects_bf16_weights(gen):
     args[2] = args[2].bfloat16()  # a bf16 wo
     with pytest.raises(TypeError):
         fused_layer_tail(*args)
+
+
+# ---------------------------------------------------------------------------
+# the op layer's dispatch: what a kernel does not take (kernel_takes says no)
+# is computed with the reference math and launches nothing
+# ---------------------------------------------------------------------------
+
+
+def _tiny_backbone(d_model, dtype):
+    """A two-layer int8 transformer backbone made on the CPU, and its copy on the card."""
+    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT, ZonosConfig
+    from zonos_tpu_torch.models.backbone import init_transformer_params
+
+    cfg_dict = copy.deepcopy(TRANSFORMER_CONFIG_DICT)
+    cfg_dict["backbone"].update({"d_model": d_model, "n_layer": 2, "attn_mlp_d_intermediate": 128,
+                                 "attn_cfg": {"num_heads": 4, "num_heads_kv": 2}})
+    cfg = ZonosConfig.from_dict(cfg_dict).backbone
+    params = init_transformer_params(cfg, torch.Generator().manual_seed(0), dtype=dtype)
+    for name in ("wo", "w1", "w2"):
+        params["layers"][name] = quantize_weight_int8(params["layers"][name])
+    return cfg, params, _to(params, "cuda")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _decode_step_both(gen, d_model, dtype):
+    from zonos_tpu_torch.models.backbone import KVCache, transformer_decode_step
+
+    cfg, params, params_cuda = _tiny_backbone(d_model, dtype)
+    x = torch.randn((2, 1, d_model), generator=gen, device="cuda").to(dtype)
+    out = []
+    for p, dev in ((params, "cpu"), (params_cuda, "cuda")):
+        cache = KVCache.create(cfg, 2, 8, dtype=dtype, device=dev)
+        out.append(transformer_decode_step(cfg, p, x.to(dev), cache, 0)[0].float().cpu())
+    return out
+
+
+def _k1k2_case(gen):
+    from zonos_tpu_torch.ops.attention import decode_attention
+
+    q = torch.randn((2, 1, 8, 64), generator=gen, device="cuda").bfloat16()  # head_dim 64
+    k, v = (torch.randn((2, 4, 300, 64), generator=gen, device="cuda").bfloat16() for _ in range(2))
+    return decode_attention(q, k, v, 290), decode_attention_plain(q, k, v, 290)
+
+
+def _k1k2_fp32_case(gen):
+    from zonos_tpu_torch.ops.attention import decode_attention
+
+    q = torch.randn((2, 1, 16, 128), generator=gen, device="cuda")  # fp32
+    k, v = (torch.randn((2, 4, 300, 128), generator=gen, device="cuda") for _ in range(2))
+    return decode_attention(q, k, v, 100), decode_attention_plain(q, k, v, 100)
+
+
+def _k1k2_held_out_case(gen):
+    from zonos_tpu_torch.ops.attention import decode_attention_held_out
+
+    k, v, ks, vs = _quantized_cache(gen, "f8", S=300)
+    q = torch.randn((2, 1, 16, 128), generator=gen, device="cuda")  # an fp32 model's q
+    k_new, v_new = (torch.randn((2, 1, 4, 128), generator=gen, device="cuda") for _ in range(2))
+    args = (q, k, v, k_new, v_new, 280, ks, vs)
+    return decode_attention_held_out(*args), decode_attention_split_plain(*args)
+
+
+def _k3_case(gen):
+    from zonos_tpu_torch.ops.sampling import SamplingParams, sample_from_logits
+
+    V = 12352  # past the kernel's 12,288
+    logits = torch.randn((2, 9, V), generator=gen, device="cuda") * 3
+    noise = gumbel_noise((2, 9, V), gen, "cuda")
+    p = SamplingParams(min_p=0.1)
+    ref = fused_sample_plain(logits, noise, linear=p.linear, conf=p.conf, quad=p.quad,
+                             min_p=p.min_p, temperature=p.temperature)
+    return sample_from_logits(logits, p, noise), ref
+
+
+def _k5_case(gen):
+    from zonos_tpu_torch.kernels.snake_conv import _snake_conv
+
+    C, dil = 32, 45  # the halo of dilation 45 passes the kernel's 48 KB
+    x = torch.randn((1, 400, C), generator=gen, device="cuda")
+    alpha = 0.5 + torch.rand((C,), generator=gen, device="cuda")
+    w = torch.randn((C, C, 7), generator=gen, device="cuda") * 0.05
+    b = torch.randn((C,), generator=gen, device="cuda")
+    return _snake_conv(x, alpha, w, b, dil), snake_conv1d_plain(x, alpha, w, b, dil)
+
+
+def _k6_case(gen):
+    from zonos_tpu_torch.ops.ssm import ssd_chunked as ssd_op
+
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(gen, 2, 70, 4, 1, 128, 16)  # headdim 128
+    return ssd_op(x, dt, A, Bm, Cm, D), ssd_chunked_plain(x, dt, A, Bm, Cm, D)
+
+
+def _k7_case(gen):
+    from zonos_tpu_torch.ops.ssm import ssd_decode_step
+
+    B, H, P, N = 2, 4, 16, 24  # 24 fp32 = six 16-byte slices, not a power of two
+    x, Bm, Cm = (torch.randn(shape, generator=gen, device="cuda")
+                 for shape in ((B, H, P), (B, 1, N), (B, 1, N)))
+    dt = torch.rand((B, H), generator=gen, device="cuda")
+    A, D = -torch.rand((H,), generator=gen, device="cuda"), torch.randn((H,), generator=gen,
+                                                                        device="cuda")
+    state = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    ref_state = state.clone()
+    dA = torch.exp(dt * A[None, :])
+    y_state, _ = fused_state_step_plain(ref_state.view(B * H, P, N),
+                                        Cm.expand(B, H, N).reshape(B * H, N),
+                                        Bm.expand(B, H, N).reshape(B * H, N),
+                                        dA.reshape(B * H, 1), (x * dt[..., None]).reshape(B * H, P))
+    bc = (Bm * Cm).sum(-1)  # [B, 1], one group for every head
+    ref = dA[..., None] * y_state.view(B, H, P) + bc[..., None] * x * dt[..., None] \
+        + x * D[None, :, None]
+    y, _ = ssd_decode_step(x, dt, A, Bm, Cm, D, state)
+    return (y, state), (ref, ref_state)
+
+
+def _k8_case(gen):
+    from zonos_tpu_torch.ops.quant import int4_matmul_unpacked, matmul_w
+
+    w = quantize_weight_int4(torch.randn((256, 128), generator=gen, device="cuda") / 16, 32)
+    x = torch.randn((2, 256), generator=gen, device="cuda")  # fp32 x
+    return matmul_w(x, w), int4_matmul_unpacked(x, w["q4"], w["s4"])
+
+
+DISPATCH = {  # kernel -> (case, tolerance as a fraction of max|ref|; 0: bit-equal)
+    "K1K2 head_dim 64": (_k1k2_case, 0.0),
+    "K1K2 fp32": (_k1k2_fp32_case, 0.0),
+    "K1K2 fp32 q over an f8 cache": (_k1k2_held_out_case, 0.0),
+    "K3 vocab 12352": (_k3_case, 0.0),
+    # the decode step on the card against the same step on the CPU (both unfused);
+    # d_model 72 is not a multiple of 16
+    "K4 d_model 72": (lambda gen: _decode_step_both(gen, 72, torch.bfloat16), 2e-2),
+    "K4 fp32": (lambda gen: _decode_step_both(gen, 64, torch.float32), 1e-5),
+    "K5 dilation 45": (_k5_case, 0.0),
+    "K6 headdim 128": (_k6_case, 0.0),
+    "K7 d_state 24": (_k7_case, 1e-6),
+    "K8 fp32 x": (_k8_case, 0.0),
+}
+
+
+def _pairs(got, ref):
+    if isinstance(got, (tuple, list)):
+        for g, r in zip(got, ref):
+            yield from _pairs(g, r)
+    else:
+        yield got, ref
+
+
+@pytest.mark.parametrize("case", list(DISPATCH))
+def test_call_site_computes_what_its_kernel_does_not_take(gen, case):
+    """Each call site, at a dtype or shape its kernel does not take, returns
+    the reference math's result and launches no kernel."""
+    fn, tol = DISPATCH[case]
+    before = dict(launch_counts)
+    got, ref = fn(gen)
+    torch.cuda.synchronize()
+    assert launch_counts == before
+    for g, r in _pairs(got, ref):
+        g, r = g.float().cpu(), r.float().cpu()
+        assert g.shape == r.shape
+        if tol == 0.0:
+            assert torch.equal(g, r)
+        else:
+            assert (g - r).abs().max() <= tol * r.abs().max()
+
+
+def test_fp32_generate_on_the_card_gives_the_cpu_codes(gen):
+    """A tiny fp32 model on the card (where no kernel takes fp32 but K3,
+    which greedy decoding does not run) gives the CPU path's greedy codes."""
+    from zonos_tpu_torch import Zonos, ZonosConfig, make_cond_dict
+    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    cfg_dict = copy.deepcopy(TRANSFORMER_CONFIG_DICT)
+    cfg_dict["backbone"].update({"d_model": 64, "n_layer": 2, "attn_mlp_d_intermediate": 128,
+                                 "attn_cfg": {"num_heads": 4, "num_heads_kv": 2}})
+    cfg = ZonosConfig.from_dict(cfg_dict)
+    cpu = Zonos(cfg, seed=0, device="cpu", dtype=torch.float32)
+    card = Zonos(cfg, params=_to(cpu.params, "cuda"), device="cuda")
+    assert card.compute_dtype == torch.float32
+    greedy = SamplingParams(temperature=0.0)
+    codes = []
+    for model in (cpu, card):
+        prefix = model.prepare_conditioning(make_cond_dict(text="Hello world.", speaker=None))
+        codes.append(model.generate(prefix, max_new_tokens=24, seed=0, sampling_params=greedy))
+    assert len(codes[0]) == len(codes[1]) == 1
+    assert np.array_equal(codes[0][0], codes[1][0])

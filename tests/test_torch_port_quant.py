@@ -235,6 +235,170 @@ def test_layer_tail_plain_matches_pallas_and_unfused_jax(dims):
         0.02 * np.abs(unfused).max()
 
 
+# A numpy model of K4's lane maps (csrc/layer_tail.cu): which weight bytes a lane
+# loads, how one byte permute and two masks make an A register's exact bf16 pair,
+# which words of x are its B registers, and which output each accumulator is.
+# The A and B fragments are assembled into mma.m16n8k16's 16 x 16 and 16 x 8
+# tiles by PTX's fragment layout, multiplied, and the product dealt back out by
+# the accumulator layout, so the model holds the kernel's maps to the layout
+# the tensor cores use.
+
+def _byte_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
+    """CUDA's __byte_perm (selector nibbles 0-7) on uint32 arrays."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def _bf16_halves(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A uint32 array of bf16 pairs -> (low half, high half) as fp32."""
+    lo = ((bits & 0xFFFF) << 16).astype(np.uint32).view(np.float32)
+    hi = (bits & 0xFFFF0000).astype(np.uint32).view(np.float32)
+    return lo, hi
+
+
+def _bf16_round(v: np.ndarray) -> np.ndarray:
+    """fp32 -> bf16 (nearest, ties to even) -> fp32, for finite values."""
+    u = v.astype(np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _int8_pair(lo_row: np.ndarray, hi_row: np.ndarray, b: int) -> tuple[np.ndarray, np.ndarray]:
+    """int8_pair of layer_tail.cu: byte b of two rows' words -> the exact values."""
+    p = _byte_perm(lo_row, hi_row, b | (b << 4) | ((b + 4) << 8) | ((b + 4) << 12))
+    mag = _bf16_halves((p & 0x007F007F) | 0x43004300)
+    base = _bf16_halves((p & 0x00800080) | 0x43004300)
+    return mag[0] - base[0], mag[1] - base[1]  # a bf16x2 subtract; exact
+
+
+def _ldmatrix_b(xp: np.ndarray, nt: int, k0: int):
+    """ldmatrix.x4 as layer_tail.cu issues it for n-tiles nt, nt + 1 at k-step k0: lane l
+    addresses row l % 8 of n-tile nt + l // 16 at k0 + 8 * ((l // 8) % 2); lane t receives
+    row t // 4, columns 2 (t % 4) and 2 (t % 4) + 1 of matrix i in register i.  Returns
+    [n-tile][b0, b1][low, high half] arrays over the 32 lanes."""
+    lane = np.arange(32)
+    rows = np.zeros((4, 8, 8), np.float32)  # the four 8 x 8 matrices
+    for lt in range(32):
+        n = nt * 8 + (lt // 16) * 8 + lt % 8
+        k = k0 + ((lt // 8) % 2) * 8
+        rows[lt // 8, lt % 8] = xp[n, k:k + 8] if n < xp.shape[0] else 0
+    regs = [(rows[i, lane // 4, 2 * (lane % 4)], rows[i, lane // 4, 2 * (lane % 4) + 1])
+            for i in range(4)]
+    return [[regs[0], regs[1]], [regs[2], regs[3]]]
+
+
+def _lane_model_pass(q: np.ndarray, s, x: np.ndarray, N: int, halves: int) -> np.ndarray:
+    """One weight pass as the kernel's lanes compute it: int8 ``q [K, halves * N]``,
+    bf16-valued scales ``s [N]`` multiplied into the weights (wo, w2) or None
+    (w1), bf16-valued ``x [B2, K]`` -> the fp32 sums ``[halves, B2, N]``."""
+    K, B2 = q.shape[0], x.shape[0]
+    NT = -(-B2 // 8)
+    xp = np.zeros((NT * 8, K), np.float32)
+    xp[:B2] = x
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    out = np.full((halves, B2, N), np.nan, np.float32)
+    for col0 in range(0, N, 128):  # a CTA's columns
+        for warp in range(8):
+            lcol = col0 + warp * 16 + 2 * gid  # the lane's two columns
+            for h in range(halves):
+                acc = np.zeros((NT, 32, 4), np.float64)
+                for k0 in range(0, K, 16):
+                    def word(off):  # the lane's two bytes of weight row k0 + 2 tig + off
+                        w = np.zeros(32, np.uint32)
+                        for bb in range(2):
+                            c = lcol + bb
+                            cc = h * N + np.minimum(c, N - 1)
+                            v = np.where(c < N, q[k0 + 2 * tig + off, cc], 0)
+                            w |= (v.astype(np.uint8).astype(np.uint32)) << (8 * bb)
+                        return w
+
+                    w = [word(0), word(1), word(8), word(9)]
+                    regs = []
+                    for e in range(4):
+                        b, r = e & 1, 2 * (e >> 1)
+                        lo, hi = _int8_pair(w[r], w[r + 1], b)
+                        if s is not None:  # the bf16x2 multiply by the column's scale
+                            sc = s[np.minimum(lcol + b, N - 1)]
+                            lo, hi = _bf16_round(lo * sc), _bf16_round(hi * sc)
+                        regs.append((lo, hi))
+                    A = np.zeros((16, 16), np.float64)  # mma's A: row = column, col = k
+                    for e, (r_off, k_off) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                        A[gid + r_off, 2 * tig + k_off] = regs[e][0]
+                        A[gid + r_off, 2 * tig + k_off + 1] = regs[e][1]
+                    for nt in range(NT):
+                        b = _ldmatrix_b(xp, nt - nt % 2, k0)[nt % 2]  # [reg, half, lane]
+                        B = np.zeros((16, 8), np.float64)  # mma's B: row = k, col = n
+                        for r, k_off in ((0, 0), (1, 8)):
+                            B[2 * tig + k_off, gid] = b[r][0]
+                            B[2 * tig + k_off + 1, gid] = b[r][1]
+                        D = A @ B
+                        for e in range(4):  # c0..c3 = D[gid (+8)][2 tig (+1)]
+                            acc[nt, :, e] += D[gid + 8 * (e >> 1), 2 * tig + (e & 1)]
+                for nt in range(NT):
+                    for e in range(4):  # the epilogue's map
+                        rows = nt * 8 + 2 * tig + (e & 1)
+                        cols = lcol + (e >> 1)
+                        ok = (rows < B2) & (cols < N)
+                        out[h, rows[ok], cols[ok]] = acc[nt, ok, e]
+    assert not np.isnan(out).any(), "an output no lane wrote"
+    return out
+
+
+def test_layer_tail_int8_pair_is_exact():
+    """The byte permute, two masks and a bf16 subtract give every int8 value
+    exactly, in either half and from any byte of the words."""
+    v = np.arange(-128, 128, dtype=np.int64)
+    words = np.zeros(256, np.uint32)
+    for b in range(4):
+        words |= (np.roll(v, 37 * b).astype(np.uint8).astype(np.uint32)) << (8 * b)
+    other = np.roll(words, 101)
+    def byte_values(w, b):
+        return ((w >> (8 * b)) & 0xFF).astype(np.uint8).view(np.int8).astype(np.float32)
+
+    for b in range(4):
+        lo, hi = _int8_pair(words, other, b)
+        assert np.array_equal(lo, byte_values(words, b))
+        assert np.array_equal(hi, byte_values(other, b))
+        assert set(lo.tolist()) == set(range(-128, 128))
+
+
+@pytest.mark.parametrize("B2", [1, 2, 9, 13])
+def test_layer_tail_lane_maps_match_plain(B2):
+    """The whole tail through the lane model (the LayerNorm and epilogues as
+    the kernel computes them) agrees with ``fused_layer_tail_plain`` within
+    K4's card tolerance, 1e-2 x max|ref|.  Widths are not multiples of a
+    CTA's 128 columns (d 48, I 80), so the masks of the last tile count too;
+    B2 covers one and two n-tiles."""
+    dk, d, I = 32, 48, 80
+    rng = np.random.default_rng(B2)
+    bf = torch.bfloat16
+    attn = torch.tensor(rng.normal(size=(B2, dk)), dtype=bf)
+    resid = torch.tensor(rng.normal(size=(B2, d)), dtype=bf)
+    ws = {n: tq.quantize_weight_int8(torch.tensor(rng.normal(size=shape) / shape[0] ** 0.5,
+                                                  dtype=torch.float32))
+          for n, shape in (("wo", (dk, d)), ("w1", (d, 2 * I)), ("w2", (I, d)))}
+    ln_s = torch.tensor(1 + 0.1 * rng.normal(size=d), dtype=bf)
+    ln_b = torch.tensor(0.1 * rng.normal(size=d), dtype=bf)
+    ref = fused_layer_tail_plain(attn, resid, ws["wo"]["q"], ws["wo"]["s"], ln_s, ln_b,
+                                 ws["w1"]["q"], ws["w1"]["s"], ws["w2"]["q"], ws["w2"]["s"]).float()
+
+    def f(t):
+        return t.float().numpy()
+
+    x2 = f(resid) + _lane_model_pass(ws["wo"]["q"].numpy(), f(ws["wo"]["s"]), f(attn), d, 1)[0]
+    mu = x2.mean(-1, keepdims=True)
+    rstd = 1 / np.sqrt(((x2 - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+    h = _bf16_round((x2 - mu) * rstd * f(ln_s) + f(ln_b))
+    up, gate = _lane_model_pass(ws["w1"]["q"].numpy(), None, h, I, 2)
+    u, g = up * f(ws["w1"]["s"])[:I], gate * f(ws["w1"]["s"])[I:]
+    act = _bf16_round(u / (1 + np.exp(-g)) * g)
+    got = x2 + _lane_model_pass(ws["w2"]["q"].numpy(), f(ws["w2"]["s"]), act, d, 1)[0]
+    assert np.abs(_bf16_round(got) - ref.numpy()).max() <= 1e-2 * ref.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # quantized KV caches
 # ---------------------------------------------------------------------------

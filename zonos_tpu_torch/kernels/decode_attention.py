@@ -61,19 +61,58 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     return out.reshape(B, H, 1, D).transpose(1, 2).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> tuple:
-    if not (k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
-        raise ValueError("q, k_cache and v_cache must lie on the same CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"decode attention kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
+def _refusal(q, k, v, k_new=None, v_new=None, k_scale=None, v_scale=None):
+    """Why the kernels do not take these operands (by dtype and shape), as
+    ``(exception class, message)``, or None if they do.  With ``k_new`` the
+    held-out variants: an f8 or int8 cache; without, a bf16 cache."""
+    held_out = k_new is not None
+    if held_out and (k.dtype not in STORAGE or v.dtype != k.dtype):
+        return TypeError, ("quantized decode attention takes an f8 or int8 cache, got "
+                           f"{k.dtype}/{v.dtype}")
+    if not held_out and not k.dtype == v.dtype == torch.bfloat16:
+        return TypeError, f"decode attention kernel takes a bf16 cache, got {k.dtype}/{v.dtype}"
+    if q.dtype != torch.bfloat16 or held_out and not k_new.dtype == v_new.dtype == torch.bfloat16:
+        return TypeError, f"q and a held-out row must be bf16, got {q.dtype}"
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+        return ValueError, f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
     B, _, H, D = q.shape
     Bk, H_kv, S, Dk = k.shape
     if Bk != B or Dk != D or D != HEAD_DIM or H % H_kv or H // H_kv not in GROUPS:
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+        return ValueError, (f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}: the "
+                            f"kernels take head_dim {HEAD_DIM} and {GROUPS} query heads per kv "
+                            "head")
+    if held_out:
+        if k_new.shape != (B, 1, H_kv, D) or v_new.shape != k_new.shape:
+            return ValueError, f"held-out rows {tuple(k_new.shape)}, expected {(B, 1, H_kv, D)}"
+        scaled = k.dtype == torch.int8
+        if scaled != (k_scale is not None) or scaled != (v_scale is not None):
+            return ValueError, "an int8 cache comes with k_scale and v_scale, an f8 cache without"
+        if scaled and any(t.dtype != torch.float32 or t.shape != (B, H_kv, S)
+                          for t in (k_scale, v_scale)):
+            return ValueError, f"row scales must be fp32 {(B, H_kv, S)}"
+    return None
+
+
+def kernel_takes(q, k_cache, v_cache, k_new=None, v_new=None, k_scale=None,
+                 v_scale=None) -> bool:
+    """Whether K1/K2 take these operands, by their dtypes and shapes alone:
+    bf16 q (and held-out row), a bf16 cache (or, with ``k_new``, an f8 or
+    int8 one with its row scales), head_dim 128 and 1, 2, 4 or 8 query heads
+    per kv head.  ``ops/attention.py`` runs the plain version where they do
+    not."""
+    return _refusal(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale) is None
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> tuple:
+    if not (k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
+        raise ValueError("q, k_cache and v_cache must lie on the same CUDA device")
+    refusal = _refusal(q, k, v)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode attention kernel takes contiguous tensors")
+    B, _, H, _ = q.shape
+    H_kv, S = k.shape[1], k.shape[2]
     if not 1 <= length <= S:
         raise ValueError(f"length {length} outside [1, {S}]")
     return B, H_kv, H // H_kv, S
@@ -173,31 +212,19 @@ def gqa_output(weights: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tenso
 
 
 def _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale) -> tuple:
-    if k_cache.dtype not in STORAGE or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"quantized decode attention takes an f8 or int8 cache, got "
-                        f"{k_cache.dtype}/{v_cache.dtype}")
-    if not all(t.is_cuda and t.device == q.device for t in (k_cache, v_cache, k_new, v_new)):
-        raise ValueError("q, the cache and the held-out row must lie on the same CUDA device")
-    if not (q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16):
-        raise TypeError(f"q and the held-out row must be bf16, got {q.dtype}/{k_new.dtype}")
-    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
-    B, _, H, D = q.shape
-    Bk, H_kv, S, Dk = k_cache.shape
-    if Bk != B or Dk != D or D != HEAD_DIM or H % H_kv or H // H_kv not in GROUPS:
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
-    if k_new.shape != (B, 1, H_kv, D) or v_new.shape != k_new.shape:
-        raise ValueError(f"held-out rows {tuple(k_new.shape)}, expected {(B, 1, H_kv, D)}")
-    scaled = k_cache.dtype == torch.int8
-    if scaled != (k_scale is not None) or scaled != (v_scale is not None):
-        raise ValueError("an int8 cache comes with k_scale and v_scale, an f8 cache without")
-    if scaled:
-        for t in (k_scale, v_scale):
-            if (t.dtype != torch.float32 or t.shape != (B, H_kv, S) or t.device != q.device
-                    or not t.is_contiguous()):
-                raise ValueError(f"row scales must be contiguous fp32 {(B, H_kv, S)} on the card")
-    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("decode attention kernel takes a contiguous q and cache")
+    tensors = (k_cache, v_cache, k_new, v_new) + tuple(
+        t for t in (k_scale, v_scale) if t is not None)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("q, the cache, its scales and the held-out row must lie on the same "
+                         "CUDA device")
+    refusal = _refusal(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
+    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()
+            and all(t.is_contiguous() for t in (k_scale, v_scale) if t is not None)):
+        raise ValueError("decode attention kernel takes a contiguous q, cache and scales")
+    B, _, H, _ = q.shape
+    H_kv, S = k_cache.shape[1], k_cache.shape[2]
     if not 0 <= pos < S:
         raise ValueError(f"pos {pos} outside [0, {S})")
     return B, H_kv, H // H_kv, S

@@ -69,31 +69,33 @@ def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torc
     return x.to(torch.bfloat16).float() @ w.reshape(din, dout).float()
 
 
-def kernel_takes(rows: int, din: int, dout: int, gs: int) -> bool:
+def kernel_takes(rows: int, din: int, dout: int, gs: int, x_dtype=torch.bfloat16,
+                 q_dtype=torch.int8, s_dtype=torch.bfloat16) -> bool:
     """Whether K8 takes ``rows`` rows of x by a halves-packed ``[din/2, dout]``
-    weight in groups of ``gs`` rows (``matmul_w`` unpacks what it does not)."""
-    return (1 <= rows <= MAX_ROWS and gs % K_STEP == 0 and din % (2 * gs) == 0
+    weight in groups of ``gs`` rows, with these dtypes (bf16 x, int8 q, bf16
+    s); ``matmul_w`` unpacks what it does not."""
+    return (x_dtype == torch.bfloat16 and q_dtype == torch.int8 and s_dtype == torch.bfloat16
+            and 1 <= rows <= MAX_ROWS and gs % K_STEP == 0 and din % (2 * gs) == 0
             and dout % COL_ALIGN == 0)
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int, int, int]:
     if not (x.is_cuda and q.device == x.device and s.device == x.device):
         raise ValueError("x, q and s must lie on the same CUDA device")
-    if x.dtype != torch.bfloat16 or q.dtype != torch.int8 or s.dtype != torch.bfloat16:
-        raise TypeError(f"int4 matmul takes bf16 x, int8 q, bf16 s; "
-                        f"got {x.dtype}/{q.dtype}/{s.dtype}")
     if x.dim() != 2 or q.dim() != 2 or s.dim() != 2:
         raise ValueError(f"bad ranks x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)}")
     M, din = x.shape
     dout, G = q.shape[1], s.shape[0]
-    if not 1 <= M <= MAX_ROWS:
-        raise ValueError(f"int4 matmul takes 1..{MAX_ROWS} rows, got {M}")
     if din % G or din % (2 * (din // G)) or q.shape[0] * 2 != din or s.shape[1] != dout:
         raise ValueError(f"shapes x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)} "
                          "are not a halves-packed [din/2, dout] weight with an even group count")
-    if not kernel_takes(M, din, dout, din // G):
-        raise ValueError(f"dout {dout} must be a multiple of {COL_ALIGN} and the group size "
-                         f"{din // G} of {K_STEP}")
+    if not kernel_takes(M, din, dout, din // G, x.dtype, q.dtype, s.dtype):
+        if (x.dtype, q.dtype, s.dtype) != (torch.bfloat16, torch.int8, torch.bfloat16):
+            raise TypeError(f"int4 matmul takes bf16 x, int8 q, bf16 s; "
+                            f"got {x.dtype}/{q.dtype}/{s.dtype}")
+        raise ValueError(f"int4 matmul takes 1..{MAX_ROWS} rows, dout a multiple of {COL_ALIGN} "
+                         f"and groups of a multiple of {K_STEP} rows; got {M} rows, dout {dout}, "
+                         f"groups of {din // G}")
     if not (x.is_contiguous() and q.is_contiguous() and s.is_contiguous()):
         raise ValueError("int4 matmul takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in (x, q, s)):

@@ -45,6 +45,15 @@ def fused_sample_plain(logits: torch.Tensor, noise: torch.Tensor, linear: float,
     return torch.argmax(scores, dim=-1)
 
 
+def kernel_takes(logits: torch.Tensor, noise: torch.Tensor) -> bool:
+    """Whether K3 takes these operands, by dtype and shape: fp32 logits and
+    noise of one shape ``[B, K, V]`` with V at most MAX_VOCAB (the row lives in
+    shared memory).  ``ops/sampling.py`` runs the plain version where it does
+    not."""
+    return (logits.dtype == noise.dtype == torch.float32 and logits.dim() == 3
+            and logits.shape == noise.shape and logits.shape[-1] <= MAX_VOCAB)
+
+
 def fused_sample(logits: torch.Tensor, noise: torch.Tensor, linear: float, conf: float,
                  quad: float, min_p: float, temperature: float = 1.0) -> torch.Tensor:
     """One CTA per (row, codebook); CPU tensors take the plain version."""
@@ -52,17 +61,16 @@ def fused_sample(logits: torch.Tensor, noise: torch.Tensor, linear: float, conf:
         return fused_sample_plain(logits, noise, linear, conf, quad, min_p, temperature)
     if not noise.is_cuda or noise.device != logits.device:
         raise ValueError("logits and noise must lie on the same CUDA device")
-    if logits.dtype != torch.float32 or noise.dtype != torch.float32:
-        raise TypeError(f"fused_sample takes fp32, got {logits.dtype}/{noise.dtype}")
-    if logits.shape != noise.shape or logits.dim() != 3:
-        raise ValueError(f"bad shapes logits {tuple(logits.shape)} noise {tuple(noise.shape)}")
+    if not kernel_takes(logits, noise):
+        if logits.dtype != torch.float32 or noise.dtype != torch.float32:
+            raise TypeError(f"fused_sample takes fp32, got {logits.dtype}/{noise.dtype}")
+        raise ValueError(f"fused_sample takes logits and noise of one shape [B, K, V], V at most "
+                         f"{MAX_VOCAB}; got {tuple(logits.shape)} and {tuple(noise.shape)}")
     if not (logits.is_contiguous() and noise.is_contiguous()):
         raise ValueError("fused_sample takes contiguous tensors")
-    B, K, V = logits.shape
-    if V > MAX_VOCAB:
-        raise ValueError(f"vocab {V} exceeds the kernel's {MAX_VOCAB}")
     if not temperature > 0:
         raise ValueError("fused_sample needs temperature > 0 (temperature 0 is an argmax)")
+    B, K, V = logits.shape
     out = torch.empty((B, K), dtype=torch.int64, device=logits.device)
     lib = library("sampling", _SIGNATURES)
     rc = lib.zt_fused_sample(

@@ -32,6 +32,35 @@ def snake_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor, w: torch.Tensor, b:
     return y.contiguous() if residual is None else residual + y
 
 
+def _refusal(x, alpha, w, b, dilation, residual):
+    """Why the kernel does not take these operands (by dtype and shape), as
+    ``(exception class, message)``, or None if it does."""
+    tensors = [x, alpha, w, b] + ([residual] if residual is not None else [])
+    if any(t.dtype != torch.float32 for t in tensors):
+        return TypeError, "snake_conv1d takes fp32 (the DAC runs in fp32)"
+    if x.dim() != 3 or w.dim() != 3:
+        return ValueError, f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}"
+    B, T, C_in = x.shape
+    C_out, w_in, k = w.shape
+    if w_in != C_in or k % 2 == 0 or alpha.shape != (C_in,) or b.shape != (C_out,):
+        return ValueError, (f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} "
+                            f"alpha {tuple(alpha.shape)} b {tuple(b.shape)}")
+    if residual is not None and residual.shape != (B, T, C_out):
+        return ValueError, f"residual {tuple(residual.shape)} != {(B, T, C_out)}"
+    # the snake'd input window with its halo, and the chunk's k weight slices (fp32)
+    smem = ((_T_TILE + (k - 1) * dilation) * _CI_CHUNK + k * _CI_CHUNK * _CO_TILE) * 4
+    if smem > _SMEM_LIMIT:
+        return ValueError, f"k={k}, dilation={dilation} needs {smem} B of shared memory"
+    return None
+
+
+def kernel_takes(x, alpha, w, b, dilation: int = 1, residual=None) -> bool:
+    """Whether K5 takes these operands, by dtype and shape: fp32, an odd
+    kernel width, and a halo that fits its 48 KB of shared memory (at k = 7, a
+    dilation of at most 42; the DAC's are 1, 3 and 9)."""
+    return _refusal(x, alpha, w, b, dilation, residual) is None
+
+
 def snake_conv1d(x: torch.Tensor, alpha: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  dilation: int = 1, residual: torch.Tensor | None = None) -> torch.Tensor:
     """Fused snake + 'same'-padded dilated conv (+ residual); CPU tensors take
@@ -41,23 +70,13 @@ def snake_conv1d(x: torch.Tensor, alpha: torch.Tensor, w: torch.Tensor, b: torch
     tensors = [x, alpha, w, b] + ([residual] if residual is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("snake_conv1d operands must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("snake_conv1d takes fp32 (the DAC runs in fp32)")
-    if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    B, T, C_in = x.shape
-    C_out, w_in, k = w.shape
-    if w_in != C_in or k % 2 == 0 or alpha.shape != (C_in,) or b.shape != (C_out,):
-        raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} "
-                         f"alpha {tuple(alpha.shape)} b {tuple(b.shape)}")
-    if residual is not None and residual.shape != (B, T, C_out):
-        raise ValueError(f"residual {tuple(residual.shape)} != {(B, T, C_out)}")
+    refusal = _refusal(x, alpha, w, b, dilation, residual)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("snake_conv1d takes contiguous tensors")
-    # the snake'd input window with its halo, and the chunk's k weight slices (fp32)
-    smem = ((_T_TILE + (k - 1) * dilation) * _CI_CHUNK + k * _CI_CHUNK * _CO_TILE) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"k={k}, dilation={dilation} needs {smem} B of shared memory")
+    B, T, C_in = x.shape
+    C_out, _, k = w.shape
     # the kernel reads weights as [k, C_in, C_out] so a warp's loads are contiguous
     w_kio = w.permute(2, 1, 0).contiguous()
     y = torch.empty((B, T, C_out), dtype=x.dtype, device=x.device)
@@ -72,8 +91,16 @@ def snake_conv1d(x: torch.Tensor, alpha: torch.Tensor, w: torch.Tensor, b: torch
     return y
 
 
+def _snake_conv(x, alpha, w, b, dilation: int = 1, residual=None) -> torch.Tensor:
+    """K5 where it takes the operands; the plain version otherwise (any
+    dilation, as JAX's convolution takes)."""
+    fn = snake_conv1d if kernel_takes(x, alpha, w, b, dilation, residual) else snake_conv1d_plain
+    return fn(x, alpha, w, b, dilation, residual)
+
+
 def snake_residual_unit(p: dict, x: torch.Tensor, dilation: int) -> torch.Tensor:
     """DAC residual unit ``x + conv1x1(snake2(conv_k7_dil(snake1(x))))``: two
-    K5 launches on the card, the residual add fused into the second."""
-    y = snake_conv1d(x, p["alpha1"], p["conv1"]["w"], p["conv1"]["b"], dilation=dilation)
-    return snake_conv1d(y, p["alpha2"], p["conv2"]["w"], p["conv2"]["b"], dilation=1, residual=x)
+    K5 launches on the card, the residual add fused into the second, each
+    where the kernel takes its operands."""
+    y = _snake_conv(x, p["alpha1"], p["conv1"]["w"], p["conv1"]["b"], dilation=dilation)
+    return _snake_conv(y, p["alpha2"], p["conv2"]["w"], p["conv2"]["b"], dilation=1, residual=x)

@@ -3,8 +3,8 @@
 Replaces ``ssd_chunked_pallas`` (zonos_tpu/ops/pallas_ssm.py:167) and its
 XLA twin ``ssd_chunked`` (zonos_tpu/ops/ssm.py:74-135): the Mamba2
 selective scan over a whole sequence as 64-step chunks, from an optional
-initial state.  The kernel takes any ``ngroups`` and any batch, so no
-configuration and no batch size dispatches away from it.
+initial state.  The kernel takes any ``ngroups`` and any batch; ``kernel_takes``
+says which dtypes and widths it takes (``ops/ssm.py`` dispatches on it).
 
 Bound and design: see the source note.  One CTA per (row, head) loops over
 the chunks with the fp32 ``[P, N]`` state in shared memory.
@@ -79,6 +79,36 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: to
     return y + x[:, :L] * D[None, None, :, None], h
 
 
+def _refusal(x, dt, A, Bm, Cm, D, init_state=None):
+    """Why the kernel does not take these operands (by dtype and shape), as
+    ``(exception class, message)``, or None if it does."""
+    tensors = [x, dt, A, Bm, Cm, D] + ([init_state] if init_state is not None else [])
+    if any(t.dtype != torch.float32 for t in tensors):
+        return TypeError, "ssd_chunked takes fp32 operands"
+    if x.dim() != 4 or Bm.dim() != 4:
+        return ValueError, f"bad shapes x {tuple(x.shape)} B {tuple(Bm.shape)}"
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (dt.shape != (Bsz, L, H) or A.shape != (H,) or D.shape != (H,)
+            or Bm.shape != (Bsz, L, G, N) or Cm.shape != Bm.shape or G < 1 or H % G
+            or (init_state is not None and init_state.shape != (Bsz, H, P, N))):
+        return ValueError, (f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                            f"A {tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)} "
+                            f"D {tuple(D.shape)}")
+    if P % 4 or P > MAX_HEADDIM or N % 4 or N > MAX_D_STATE or L < 1:
+        return ValueError, (f"the kernel takes headdim <= {MAX_HEADDIM} and d_state <= "
+                            f"{MAX_D_STATE}, multiples of 4, and L >= 1; got P={P} N={N} L={L}")
+    return None
+
+
+def kernel_takes(x, dt, A, Bm, Cm, D, init_state=None) -> bool:
+    """Whether K6 takes these operands, by dtype and shape: fp32, headdim at
+    most 64 and d_state at most 128, multiples of 4 (the flagship's 64 and 128
+    sit on the limits).  ``ops/ssm.py`` runs the plain version where it does
+    not."""
+    return _refusal(x, dt, A, Bm, Cm, D, init_state) is None
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                 Cm: torch.Tensor, D: torch.Tensor, init_state: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,22 +119,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     tensors = [x, dt, A, Bm, Cm, D] + ([init_state] if init_state is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("ssd_chunked operands must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("ssd_chunked takes fp32 operands")
-    if x.dim() != 4 or Bm.dim() != 4:
-        raise ValueError(f"bad shapes x {tuple(x.shape)} B {tuple(Bm.shape)}")
-    Bsz, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    if (dt.shape != (Bsz, L, H) or A.shape != (H,) or D.shape != (H,)
-            or Bm.shape != (Bsz, L, G, N) or Cm.shape != Bm.shape or H % G
-            or (init_state is not None and init_state.shape != (Bsz, H, P, N))):
-        raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A {tuple(A.shape)} "
-                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} D {tuple(D.shape)}")
-    if P % 4 or P > MAX_HEADDIM or N % 4 or N > MAX_D_STATE or L < 1:
-        raise ValueError(f"the kernel takes headdim <= {MAX_HEADDIM} and d_state <= "
-                         f"{MAX_D_STATE}, multiples of 4, and L >= 1; got P={P} N={N} L={L}")
+    refusal = _refusal(x, dt, A, Bm, Cm, D, init_state)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("ssd_chunked takes contiguous, 16-byte-aligned tensors")
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = library("ssd_chunked", _SIGNATURES)

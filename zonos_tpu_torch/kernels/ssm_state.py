@@ -44,6 +44,34 @@ def fused_state_step_plain(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor
     return y, state
 
 
+def _refusal(state, C, B, dA, xdt):
+    """Why the kernel does not take these operands (by dtype and shape), as
+    ``(exception class, message)``, or None if it does."""
+    if state.dtype not in STATE_DTYPES:
+        return TypeError, f"fused_state_step stores fp32, bf16 or float8_e4m3fn, not {state.dtype}"
+    if any(t.dtype != torch.float32 for t in (C, B, dA, xdt)):
+        return TypeError, "fused_state_step takes fp32 C, B, dA and xdt"
+    if state.dim() != 3:
+        return ValueError, f"bad state shape {tuple(state.shape)}"
+    BH, P, N = state.shape
+    if C.shape != (BH, N) or B.shape != (BH, N) or dA.shape != (BH, 1) or xdt.shape != (BH, P):
+        return ValueError, (f"bad shapes state {tuple(state.shape)} C {tuple(C.shape)} "
+                            f"B {tuple(B.shape)} dA {tuple(dA.shape)} xdt {tuple(xdt.shape)}")
+    lanes = N * state.element_size() // 16  # 16-byte slices per state row
+    if (N * state.element_size()) % 16 or not 1 <= lanes <= 32 or lanes & (lanes - 1):
+        return ValueError, (f"d_state {N} in {state.dtype} is not 16-byte slices of a power of "
+                            "two up to 32")
+    return None
+
+
+def kernel_takes(state, C, B, dA, xdt) -> bool:
+    """Whether K7 takes these operands, by dtype and shape: an fp32, bf16 or
+    f8 state whose rows are a power-of-two count (at most 32) of 16-byte
+    slices, fp32 C, B, dA and xdt.  ``ops/ssm.py`` runs the plain version
+    where it does not."""
+    return _refusal(state, C, B, dA, xdt) is None
+
+
 def fused_state_step(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor, dA: torch.Tensor,
                      xdt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 for CUDA tensors; CPU tensors take the plain version.  Shapes and
@@ -53,20 +81,10 @@ def fused_state_step(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor, dA: 
     inputs = (C, B, dA, xdt)
     if any(t.device != state.device for t in inputs):
         raise ValueError("fused_state_step operands must lie on one CUDA device")
-    if state.dtype not in STATE_DTYPES:
-        raise TypeError(f"fused_state_step stores fp32, bf16 or float8_e4m3fn, not {state.dtype}")
-    if any(t.dtype != torch.float32 for t in inputs):
-        raise TypeError("fused_state_step takes fp32 C, B, dA and xdt")
-    if state.dim() != 3:
-        raise ValueError(f"bad state shape {tuple(state.shape)}")
+    refusal = _refusal(state, C, B, dA, xdt)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     BH, P, N = state.shape
-    if C.shape != (BH, N) or B.shape != (BH, N) or dA.shape != (BH, 1) or xdt.shape != (BH, P):
-        raise ValueError(f"bad shapes state {tuple(state.shape)} C {tuple(C.shape)} "
-                         f"B {tuple(B.shape)} dA {tuple(dA.shape)} xdt {tuple(xdt.shape)}")
-    lanes = N * state.element_size() // 16  # 16-byte slices per state row
-    if (N * state.element_size()) % 16 or not 1 <= lanes <= 32 or lanes & (lanes - 1):
-        raise ValueError(f"d_state {N} in {state.dtype} is not 16-byte slices of a power of "
-                         "two up to 32")
     if not (state.is_contiguous() and state.data_ptr() % 16 == 0
             and all(t.is_contiguous() for t in inputs)):
         raise ValueError("fused_state_step takes contiguous tensors and a 16-byte-aligned state")

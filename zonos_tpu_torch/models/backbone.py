@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
+from zonos_tpu_torch.kernels.layer_tail import kernel_takes as layer_tail_takes
 from zonos_tpu_torch.ops.attention import (
     decode_attention,
     decode_attention_held_out,
@@ -131,12 +132,18 @@ def _layer_params(params: dict, li: int) -> dict:
             for name, w in params["layers"].items()}
 
 
-def _use_fused_tail(lp: dict, x: torch.Tensor, prefill: bool) -> bool:
-    """K4 on a CUDA int8 decode step (zonos_tpu/models/backbone.py:235-250,
-    without its TPU opt-in); the CPU runs the unfused tail, as JAX does off
-    the TPU."""
-    return (not prefill and x.is_cuda and x.shape[1] == 1
-            and all(isinstance(lp[n], dict) and "q" in lp[n] for n in ("wo", "w1", "w2")))
+def _fused_tail_args(lp: dict, y: torch.Tensor, x: torch.Tensor, prefill: bool) -> tuple | None:
+    """K4's operands on a CUDA int8 decode step whose dtypes and shapes it
+    takes (``kernel_takes``; zonos_tpu/models/backbone.py:235-250 dispatches
+    by shape too, behind a TPU opt-in), else None: the unfused tail, as JAX
+    runs it off the TPU, on the CPU and for an fp32 model."""
+    if prefill or not x.is_cuda or x.shape[1] != 1 or not all(
+            isinstance(lp[n], dict) and "q" in lp[n] for n in ("wo", "w1", "w2")):
+        return None
+    args = (y.reshape(x.shape[0], -1), x[:, 0].contiguous(), lp["wo"]["q"], lp["wo"]["s"],
+            lp["norm2_scale"], lp["norm2_bias"], lp["w1"]["q"], lp["w1"]["s"],
+            lp["w2"]["q"], lp["w2"]["s"])
+    return args if layer_tail_takes(*args) else None
 
 
 def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin,
@@ -159,11 +166,9 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
     else:
         cache.write(li, pos, k, v)
         y = decode_attention(q, cache.k[li], cache.v[li], length=pos + 1)
-    if _use_fused_tail(lp, x, prefill):
-        return fused_layer_tail(
-            y.reshape(B, H * hd), x[:, 0], lp["wo"]["q"], lp["wo"]["s"],
-            lp["norm2_scale"], lp["norm2_bias"], lp["w1"]["q"], lp["w1"]["s"],
-            lp["w2"]["q"], lp["w2"]["s"], eps=cfg.norm_epsilon)[:, None]
+    tail = _fused_tail_args(lp, y, x, prefill)
+    if tail is not None:
+        return fused_layer_tail(*tail, eps=cfg.norm_epsilon)[:, None]
     x = x + matmul_w(y.reshape(B, S, H * hd), lp["wo"])
     h = layer_norm(x, lp["norm2_scale"], lp["norm2_bias"], cfg.norm_epsilon)
     u, gate = torch.chunk(matmul_w(h, lp["w1"]), 2, dim=-1)

@@ -5,13 +5,14 @@
   81-116).  Scores and softmax are fp32; the weights are cast to v's dtype
   before the value product.
 - :func:`decode_attention`: one query step against the cache, dispatched by
-  device: a CUDA tensor goes to the hand-written kernels (K2 while the cache
-  holds at most one 256-row block, K1 beyond), a CPU tensor to the plain
-  version.
+  device, dtype and shape: CUDA tensors the kernels take (``kernel_takes``:
+  bf16, head_dim 128, 1, 2, 4 or 8 query heads a kv head) go to the
+  hand-written kernels (K2 while the cache holds at most one 256-row block,
+  K1 beyond); anything else, as in JAX on any backend, to the plain version.
 - :func:`decode_attention_held_out`: the same over an f8 or int8 cache, with
   the current token's k/v held out in the compute dtype
   (``decode_attention_split``, zonos_tpu/ops/attention.py:119); K2/K1's
-  quantized-storage variants on the card.
+  quantized-storage variants on the card where they take the operands.
 
 KV cache layout: ``[B, H_kv, S_max, head_dim]``.
 """
@@ -30,6 +31,7 @@ from zonos_tpu_torch.kernels.decode_attention import (
     flash_decode_attention,
     flash_decode_attention_held_out,
     gqa_output,
+    kernel_takes,
 )
 
 
@@ -63,7 +65,7 @@ def fresh_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      length: int) -> torch.Tensor:
     """q [B, 1, H, D] against the first ``length`` rows of the cache."""
-    if not q.is_cuda:
+    if not (q.is_cuda and kernel_takes(q, k_cache, v_cache)):
         return decode_attention_plain(q, k_cache, v_cache, length)
     if length <= BLOCK_S:
         return decode_attention_single(q, k_cache, v_cache, length)
@@ -77,7 +79,7 @@ def decode_attention_held_out(q: torch.Tensor, k_cache: torch.Tensor, v_cache: t
     """q [B, 1, H, D] against cache rows [0, pos) plus the held-out current
     row ``k_new``/``v_new`` [B, 1, H_kv, D] (``pos + 1`` rows in all)."""
     args = (q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
-    if not q.is_cuda:
+    if not (q.is_cuda and kernel_takes(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)):
         return decode_attention_split_plain(*args)
     if pos + 1 <= BLOCK_S:
         return decode_attention_single_held_out(*args)

@@ -20,13 +20,14 @@ def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for a plain matrix, an int8 ``{"q": [in, out], "s": bf16 [out]}``
     or a group-wise int4 ``{"q4": [in/2, out] nibble-packed, "s4": bf16 [G, out]}``
     weight (zonos_tpu/models/backbone.py:46-79).  int4 on a CUDA tensor goes to
-    K8 where its shape fits the kernel (at most 64 rows, as JAX dispatches);
-    any other int4 input is unpacked (:func:`int4_matmul_unpacked`)."""
+    K8 where its dtypes and shape fit the kernel (bf16 x, at most 64 rows, as
+    JAX dispatches); any other int4 input is unpacked
+    (:func:`int4_matmul_unpacked`)."""
     if isinstance(w, dict) and "q4" in w:
         q, s = w["q4"], w["s4"]
         dout, G, din = q.shape[-1], s.shape[-2], x.shape[-1]
         rows = x.numel() // din
-        if x.is_cuda and kernel_takes(rows, din, dout, din // G):
+        if x.is_cuda and kernel_takes(rows, din, dout, din // G, x.dtype, q.dtype, s.dtype):
             xr = x.reshape(rows, din).contiguous()
             if xr.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte rows
                 xr = xr.clone()

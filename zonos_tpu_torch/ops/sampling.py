@@ -6,7 +6,8 @@ The Gumbel noise is an operand: the caller draws it from its own
 ``torch.Generator``, so a row's tokens depend on its own stream alone and
 tests can feed the JAX package's noise.  With ``top_p == top_k == 0`` the
 pipeline is :func:`~zonos_tpu_torch.kernels.sampling.fused_sample`, which is
-the K3 kernel on the card.
+the K3 kernel on the card where it takes the operands (``kernel_takes``: a
+vocabulary of at most 12,288), and its plain version elsewhere.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from zonos_tpu_torch.kernels.sampling import fused_sample
+from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain, kernel_takes
 
 
 @dataclass(frozen=True)
@@ -125,8 +126,11 @@ def sample_from_logits(
         raise ValueError("sampling at temperature > 0 needs Gumbel noise")
 
     if p.top_p == 0 and p.top_k == 0:
-        return fused_sample(logits.float().contiguous(), noise, linear=p.linear, conf=p.conf,
-                            quad=p.quad, min_p=p.min_p, temperature=p.temperature)
+        logits = logits.float().contiguous()
+        # K3 where it takes the operands (on the card; a CPU tensor takes the plain version)
+        sample = fused_sample if kernel_takes(logits, noise) else fused_sample_plain
+        return sample(logits, noise, linear=p.linear, conf=p.conf, quad=p.quad, min_p=p.min_p,
+                      temperature=p.temperature)
 
     probs = torch.softmax(logits / p.temperature, dim=-1)
     if p.linear > 0:

@@ -1,13 +1,15 @@
 """Mamba2 selective state-space (SSD) ops (counterpart of
 zonos_tpu/ops/ssm.py:31-254).
 
-- :func:`ssd_chunked`: the prefill over a whole sequence, dispatched by the
-  device alone: K6 (``kernels/ssd.py``) for CUDA tensors at every batch and
-  ngroups, the plain chunked formulation for CPU tensors.
+- :func:`ssd_chunked`: the prefill over a whole sequence: K6
+  (``kernels/ssd.py``) for CUDA tensors it takes (``kernel_takes``: fp32,
+  headdim <= 64, d_state <= 128; any batch and ngroups), the plain chunked
+  formulation otherwise, as JAX computes any width.
 - :func:`ssd_decode_step`: one recurrence step with JAX's algebra, the
   output from the OLD state, ``y = dA (C.s) + (B.C) dt x + D x``; K7
   (``kernels/ssm_state.py``) supplies ``C.s`` and writes the new state in
-  place in its storage dtype.
+  place in its storage dtype where it takes the state's width, its plain
+  version otherwise.
 - :func:`causal_conv1d_prefill` / :func:`causal_conv1d_step`: the depthwise
   causal conv and its streaming state (the tail of the padded pre-activation
   input), as plain tensor code.
@@ -21,10 +23,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from zonos_tpu_torch.kernels.ssd import ssd_chunked
-from zonos_tpu_torch.kernels.ssm_state import fused_state_step
+from zonos_tpu_torch.kernels import ssd as ssd_kernel
+from zonos_tpu_torch.kernels import ssm_state
 
 __all__ = ["causal_conv1d_prefill", "causal_conv1d_step", "ssd_chunked", "ssd_decode_step"]
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, D: torch.Tensor, init_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 prefill scan (shapes as ``kernels.ssd.ssd_chunked_plain``):
+    K6 where it takes the operands, the plain version otherwise."""
+    takes = ssd_kernel.kernel_takes(x, dt, A, Bm, Cm, D, init_state)
+    fn = ssd_kernel.ssd_chunked if takes else ssd_kernel.ssd_chunked_plain
+    return fn(x, dt, A, Bm, Cm, D, init_state)
 
 
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -39,9 +51,11 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
     Ch = Cm.repeat_interleave(H // Cm.shape[1], dim=1)
     dA = torch.exp(dt * A[None, :])  # [B, H]
     xdt = x * dt[..., None]  # [B, H, P]
-    y_state, _ = fused_state_step(state.view(Bsz * H, P, N), Ch.reshape(Bsz * H, N),
-                                  Bh.reshape(Bsz * H, N), dA.reshape(Bsz * H, 1),
-                                  xdt.reshape(Bsz * H, P))
+    args = (state.view(Bsz * H, P, N), Ch.reshape(Bsz * H, N), Bh.reshape(Bsz * H, N),
+            dA.reshape(Bsz * H, 1), xdt.reshape(Bsz * H, P))
+    step = (ssm_state.fused_state_step if ssm_state.kernel_takes(*args)
+            else ssm_state.fused_state_step_plain)
+    y_state, _ = step(*args)
     bc = torch.einsum("bhn,bhn->bh", Bh, Ch)  # B.C, one scalar per head
     y = dA[..., None] * y_state.view(Bsz, H, P) + bc[..., None] * xdt + x * D[None, :, None]
     return y, state
