@@ -39,7 +39,8 @@ Phases, each of which fails the run (non-zero exit) on error:
 
 ``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
-and then times K8 and K4 over their contraction splits instead (how their
+and then times K8 and K4 over their contraction splits, K7 over its slab
+sizes and K2 over its cluster sizes by cache length instead (how their
 defaults were chosen).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
@@ -94,6 +95,15 @@ FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384
 HYBRID_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
 INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
 LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
+# K2's cluster plan at its edges: one CTA (1 to 64 rows), three (65 to 96), four (97 to
+# 128), five (129), six (192), seven (224), eight (255, 256) at 1 and 2 batch rows; two
+# beyond 64 rows at 32 (128 pairs); one CTA a pair at 128; 1, 4 and 8 query heads a kv head
+K2_CHECK_LENGTHS = (1, 31, 32, 33, 64, 65, 66, 100, 129, 192, 224, 255, 256)
+K2_CHECK_BATCHES = (1, 2, 32, 128)
+K2_CHECK_GROUPS = (1, 4, 8)
+# K7 beyond the flagship shapes: (BH, P, N); 130 rows and P 50 end in part-filled grids
+# and slabs, N 64 gives 4, 8 and 16 lanes a row
+STATE_STEP_EXTRA_SHAPES = ((130, 64, 128), (128, 50, 128), (128, 64, 64))
 # the batch-64 int8 profile: bench.py's rtf_batch64 configuration (int8 weights, f8 KV
 # cache, CFG: 128 backbone rows), EOS banned so that every step runs all rows
 B64_BATCH, B64_NEW_TOKENS = 64, 32
@@ -213,6 +223,22 @@ def check_decode_attention(gen) -> dict:
                 worst[name] = max(worst[name], err)
     print(f"[kernels] K1/K2 ok at B in (2, 8), lengths (1, 255, 256, 257, 2000), S={S}: "
           f"max abs err {worst} (tolerance 2 bf16 ulps)", flush=True)
+    S = 512
+    for B, G in itertools.product(K2_CHECK_BATCHES, K2_CHECK_GROUPS):
+        q = torch.randn((B, 1, G * Hkv, D), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+        for length in K2_CHECK_LENGTHS:
+            ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
+            got = decode_attention_single(q, k, v, length)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref).abs().max())
+            if not err <= 2 * bf16_ulp(float(ref.abs().max())):
+                fail(f"decode_attention_single B={B} G={G} length={length}: max abs err {err}")
+            worst["decode_attention_single"] = max(worst["decode_attention_single"], err)
+    print(f"[kernels] K2 ok at B in {K2_CHECK_BATCHES}, G in {K2_CHECK_GROUPS}, lengths "
+          f"{K2_CHECK_LENGTHS}, S={S}: max abs err "
+          f"{worst['decode_attention_single']:.3g} (tolerance 2 bf16 ulps)", flush=True)
     return worst
 
 
@@ -338,23 +364,24 @@ def check_ssd_chunked(gen) -> float:
     return worst
 
 
-def state_step_inputs(gen, BH: int, dtype) -> tuple:
-    """A stored state and fp32 C, B, dA, xdt at the flagship widths; one value
-    is pushed past the f8 range, which must store as +-448."""
+def state_step_inputs(gen, BH: int, dtype, P: int = SSM_P, N: int = SSM_N) -> tuple:
+    """A stored state and fp32 C, B, dA, xdt (the flagship widths by default);
+    one value is pushed past the f8 range, which must store as +-448."""
     import torch
 
-    state = (torch.randn((BH, SSM_P, SSM_N), generator=gen, device="cuda") * 4).to(dtype)
-    C, B = (torch.randn((BH, SSM_N), generator=gen, device="cuda") for _ in range(2))
+    state = (torch.randn((BH, P, N), generator=gen, device="cuda") * 4).to(dtype)
+    C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
     dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
-    xdt = torch.randn((BH, SSM_P), generator=gen, device="cuda")
+    xdt = torch.randn((BH, P), generator=gen, device="cuda")
     xdt[0, 0] = 1e4
     return state, C, B, dA, xdt
 
 
 def check_fused_state_step(gen) -> float:
-    """K7 vs the plain version at BH in (128, 1024), P 64, N 128, for fp32,
-    bf16 and f8 storage: y within 1e-5 x max|ref|, the new state within one
-    storage ulp of the plain version's (where fp32 products round apart).
+    """K7 vs the plain version at BH in (128, 1024), P 64, N 128, and at
+    ``STATE_STEP_EXTRA_SHAPES``, for fp32, bf16 and f8 storage: y within 1e-5
+    x max|ref|, the new state within one storage ulp of the plain version's
+    (where fp32 products round apart), finite, f8 saturated to +-448.
     Returns the largest absolute error of y."""
     import torch
 
@@ -365,9 +392,10 @@ def check_fused_state_step(gen) -> float:
     )
 
     worst = 0.0
-    for BH in (128, 1024):
+    shapes = ((128, SSM_P, SSM_N), (1024, SSM_P, SSM_N)) + STATE_STEP_EXTRA_SHAPES
+    for BH, P, N in shapes:
         for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
-            state, C, B, dA, xdt = state_step_inputs(gen, BH, dtype)
+            state, C, B, dA, xdt = state_step_inputs(gen, BH, dtype, P, N)
             ref_state = state.clone()
             ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
             y, _ = fused_state_step(state, C, B, dA, xdt)
@@ -380,8 +408,11 @@ def check_fused_state_step(gen) -> float:
                     torch.isfinite(state.float()).all()):
                 fail(f"fused_state_step BH={BH} {dtype}: state off by more than one ulp "
                      f"(max {float(diff.max())}) or not finite")
+            if dtype == torch.float8_e4m3fn and float(state.float()[0, 0].abs().max()) != 448.0:
+                fail(f"fused_state_step BH={BH} f8: a value past the range stored as "
+                     f"{float(state.float()[0, 0].abs().max())}, not +-448")
             worst = max(worst, err)
-            print(f"[kernels] K7 ok at BH={BH}, {str(dtype).split('.')[-1]}: y max abs err "
+            print(f"[kernels] K7 ok at [{BH},{P},{N}], {str(dtype).split('.')[-1]}: y max abs err "
                   f"{err:.3g}; {int((diff == 0).sum())}/{diff.numel()} stored values equal to "
                   f"the plain version's, the rest within one ulp", flush=True)
     return worst
@@ -447,6 +478,28 @@ def check_decode_attention_quantized(gen) -> dict:
     print(f"[kernels] K1/K2 over f8 and int8 caches, held-out row, ok at B in (2, 8), lengths "
           f"(1, 255, 256, 257, 2000): max abs err {worst} (tolerance 4 bf16 ulps for f8, 2 for "
           f"int8)", flush=True)
+    S, Hkv = 512, 4
+    for storage in ("f8", "int8"):
+        key = f"decode_attention_single_{storage}"
+        for B, G in itertools.product(K2_CHECK_BATCHES, K2_CHECK_GROUPS):
+            k, v, ks, vs = quantized_cache(gen, storage, B, Hkv, S)
+            q, k_new, v_new = held_out_inputs(gen, B, G * Hkv, Hkv)
+            # pos = length - 1: pos 0 is the held-out row alone
+            for length in K2_CHECK_LENGTHS:
+                pos = length - 1
+                ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(),
+                                                   pos, ks, vs)
+                got = decode_attention_single_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref).abs().max())
+                tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
+                if not err <= tol:
+                    fail(f"{key} B={B} G={G} pos={pos}: max abs err {err} > {tol}")
+                worst[key] = max(worst[key], err)
+    print(f"[kernels] K2 over f8 and int8 caches ok at B in {K2_CHECK_BATCHES}, G in "
+          f"{K2_CHECK_GROUPS}, pos = length - 1 for lengths {K2_CHECK_LENGTHS}, S={S}: max abs "
+          f"err f8 {worst['decode_attention_single_f8']:.3g}, int8 "
+          f"{worst['decode_attention_single_int8']:.3g}", flush=True)
     return worst
 
 
@@ -721,7 +774,7 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
 
 
 # kernel-name fragments -> the port's kernel, for the profile's per-kernel line
-_PORT_KERNELS = (("flash_split", "K1"), ("flash_combine", "K1"), ("single_pass", "K2"),
+_PORT_KERNELS = (("flash_split", "K1"), ("flash_combine", "K1"), ("cluster_pass", "K2"),
                  ("fused_sample", "K3"), ("tail_pass", "K4"), ("tail_layer_norm", "K4"),
                  ("snake_conv1d", "K5"),
                  ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"))
@@ -870,39 +923,57 @@ def time_ssd_chunked(gen, L: int) -> dict:
             **_bound(*ssd_chunked_cost(2, L, SSM_H, 1, SSM_P, SSM_N, init_state=False))}
 
 
-def time_fused_state_step(gen, BH: int, dtype) -> dict:
+def time_fused_state_step(gen, BH: int, dtype, rows: int | None = None) -> dict:
     """K7 at ``BH`` rows x heads, cycling over enough states to exceed the
-    50 MB L2 (a layer's state is read after the other layers' weights)."""
+    50 MB L2 (a layer's state is read after the other layers' weights);
+    ``rows``: state rows a slab, launched through the C entry point in place
+    of the wrapper's ``slab_plan`` (``--sweep``), None for the wrapper."""
     import torch
 
-    from zonos_tpu_torch.kernels.ssm_state import fused_state_step, fused_state_step_plain
+    from zonos_tpu_torch.kernels._build import check, library
+    from zonos_tpu_torch.kernels.ssm_state import (
+        _SIGNATURES,
+        STATE_DTYPES,
+        fused_state_step,
+        fused_state_step_plain,
+    )
 
+    def with_rows(state, C, B, dA, xdt):
+        BH, P, N = state.shape
+        y = torch.empty((BH, P), dtype=torch.float32, device=state.device)
+        check(library("ssm_state", _SIGNATURES).zt_ssm_state_step(
+            state.data_ptr(), C.data_ptr(), B.data_ptr(), dA.data_ptr(), xdt.data_ptr(),
+            y.data_ptr(), BH, P, N, STATE_DTYPES[state.dtype], rows,
+            torch.cuda.current_stream().cuda_stream), "K7 sweep")
+        return y, state
+
+    step = fused_state_step if rows is None else with_rows
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_sets = 2 + int(64e6 // (BH * SSM_P * SSM_N * itemsize))
     sets = [state_step_inputs(gen, BH, dtype) for _ in range(n_sets)]
     cycle = itertools.cycle(sets)
     return {"shape": f"state [{BH},{SSM_P},{SSM_N}] {str(dtype).split('.')[-1]}, L2 cold",
-            **_times(lambda: fused_state_step(*next(cycle)),
-                     lambda: fused_state_step_plain(*next(cycle))),
+            **_times(lambda: step(*next(cycle)), lambda: fused_state_step_plain(*next(cycle))),
             **_bound(*fused_state_step_cost(BH, SSM_P, SSM_N, itemsize))}
 
 
 def time_decode_attention_quantized(gen, name: str, storage: str, length: int,
-                                    counts: dict) -> dict:
-    """K1 or K2 (``name``) over an f8 or int8 cache at batch 1 with CFG, the
-    current row held out, cycling over 8 caches for a cold L2 as the bf16
-    timing does.  The plain version is the split math; no single PyTorch call
-    reads these caches."""
+                                    counts: dict, B: int = 2, S: int = 2048) -> dict:
+    """K1 or K2 (``name``) over an f8 or int8 cache at ``B`` rows (2: batch 1
+    with CFG), the current row held out, cycling over 8 caches for a cold L2
+    as the bf16 timing does.  The plain version is the split math; no single
+    PyTorch call reads these caches."""
     from zonos_tpu_torch.kernels.decode_attention import (
         decode_attention_single_held_out,
         decode_attention_split_plain,
         flash_decode_attention_held_out,
     )
 
-    B, H, Hkv, D, S = 2, 16, 4, 128, 2048
+    H, Hkv, D = 16, 4, 128
     fn = flash_decode_attention_held_out if name == "flash_decode_attention" else \
         decode_attention_single_held_out
-    sets = [quantized_cache(gen, storage, B) + held_out_inputs(gen, B) for _ in range(8)]
+    sets = [quantized_cache(gen, storage, B, Hkv, S) + held_out_inputs(gen, B)
+            for _ in range(8)]
     cycle = itertools.cycle(sets)
     pos = length - 1
 
@@ -1044,7 +1115,10 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations",
             "library_ms": device_ms(library_call)[0],
             "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
-                     for storage in ("f8", "int8")],
+                     for storage in ("f8", "int8")]
+                    + ([time_decode_attention_quantized(gen, name, "f8", length, counts,
+                                                        B=2 * B64_BATCH, S=256)]
+                       if key == "K2" else []),
         })
 
     Bs, K, V = 1, 9, 1152  # batch 1: sampling runs on the CFG-blended logits
@@ -1222,7 +1296,8 @@ def phase_sweep(gen, card: str) -> None:
     were chosen.  K8 on each weight at M = 2 and 8 for 1 to 32 splits of the
     packed rows (one wave of CTAs ends where splits x 128-column tiles pass
     the SM count); K4 at B2 = 2, 8 and 128 for a target of half, one and two
-    CTAs per SM.  Device times per call, L2 cold."""
+    CTAs per SM; then K7's and K2's sweeps.  Device times per call, L2
+    cold."""
     from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.kernels.int4_matmul import split_count
 
@@ -1248,6 +1323,70 @@ def phase_sweep(gen, card: str) -> None:
         print(f"[sweep] K4 B2={B2}, us by target CTAs: "
               + ", ".join(f"{t}: {us:.1f}" for t, us in row.items())
               + f" (default {sms}, the SM count; {card})", flush=True)
+    k7_sweep(gen, card)
+    k2_sweep(gen, card)
+
+
+def k2_sweep(gen, card: str) -> None:
+    """K2 (bf16, q [2,1,16,128], batch 1 with CFG) over cache lengths for
+    clusters whose CTAs take at least 32, 64, 128 or 256 rows (256: one CTA a
+    pair, the first port's layout), launched through the C entry point with
+    each split: how ``CHUNK_ROWS`` and ``ONE_CTA_ROWS`` were chosen; device us
+    per call, L2 cold."""
+    import torch
+
+    from zonos_tpu_torch.kernels import decode_attention as da
+    from zonos_tpu_torch.kernels._build import check, library
+
+    lib = library("decode_attention", da._SIGNATURES)
+
+    def launch(q, k, v, length, n, chunk):
+        out = torch.empty_like(q)
+        check(lib.zt_decode_attention_single(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0], k.shape[1],
+            q.shape[2] // k.shape[1], k.shape[2], length, n, chunk, da.attention_scale(128),
+            torch.cuda.current_stream().cuda_stream), "K2 sweep")
+        return out
+
+    sets = [tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for shape in ((2, 1, 16, 128), (2, 4, 2048, 128), (2, 4, 2048, 128)))
+            for _ in range(8)]
+    cycle = itertools.cycle(sets)
+    for length in (16, 32, 48, 64, 96, 128, 192, 256):
+        row, plans = {}, set()
+        for rows in (32, 64, 128, 256):
+            n = min(da.MAX_CLUSTER, -(-length // rows))
+            chunk = -(-(-(-length // n)) // da.ROWS_PER_PASS) * da.ROWS_PER_PASS
+            plan = (-(-length // chunk), chunk)
+            if plan not in plans:
+                plans.add(plan)
+                us = device_ms(lambda: launch(*next(cycle), length, *plan))[0] * 1e3
+                row[f"{rows} ({plan[0]} CTAs)"] = us
+        print(f"[sweep] K2 bf16 length {length}, us by fewest rows a CTA: " + ", ".join(
+            f"{k}: {us:.2f}" for k, us in row.items())
+            + f" (default {da.cluster_plan(length, 8)}; {card})", flush=True)
+
+
+def k7_sweep(gen, card: str) -> None:
+    """K7 at its two flagship shapes for slabs of 64 down to 2 state rows,
+    launched through the C entry point with each (how ``CTAS_PER_SM`` and
+    ``MIN_SLAB_BYTES`` were chosen); device us per call, L2 cold."""
+    import torch
+
+    from zonos_tpu_torch.kernels._build import sm_count
+    from zonos_tpu_torch.kernels.ssm_state import MAX_SLAB_BYTES, slab_plan
+
+    for BH, dtype in ((128, torch.float32), (1024, torch.float8_e4m3fn)):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        row = {}
+        for rows in (64, 32, 16, 8, 4, 2):
+            if rows * SSM_N * itemsize <= MAX_SLAB_BYTES:
+                row[f"{rows} ({BH * -(-SSM_P // rows)} CTAs)"] = \
+                    time_fused_state_step(gen, BH, dtype, rows)["ms"] * 1e3
+        print(f"[sweep] K7 [{BH},{SSM_P},{SSM_N}] {str(dtype).split('.')[-1]}, us by rows a "
+              f"slab: " + ", ".join(f"{k}: {us:.2f}" for k, us in row.items())
+              + f" (default {slab_plan(BH, SSM_P, SSM_N, itemsize, sm_count(0))[0]} rows; "
+              f"{card})", flush=True)
 
 
 def main(argv: list[str]) -> int:

@@ -137,6 +137,58 @@ def test_fused_state_step_kernel_matches_plain(gen, dtype):
     assert ((state.float() - ref_state.float()).abs() <= storage_ulp(ref_state)).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("BH,P,N", [(128, 64, 128), (1024, 64, 128), (130, 64, 128),
+                                    (128, 50, 128), (128, 64, 64), (65536, 16, 128)])
+def test_fused_state_step_slabs_match_plain(gen, BH, P, N, dtype):
+    """K7's slab plan at the flagship shapes and off them (a BH and a P that
+    end in part-filled grids and slabs; N 64; 65,536 bh rows, batch 512 with
+    CFG on the hybrid, past grid.y's limit): y within 1e-5 x max|ref|, every
+    stored value within one storage ulp, finite, f8 saturated to +-448."""
+    state = (torch.randn((BH, P, N), generator=gen, device="cuda") * 4).to(dtype)
+    C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
+    dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+    xdt = torch.randn((BH, P), generator=gen, device="cuda")
+    xdt[0, 0] = 1e4
+    ref_state = state.clone()
+    ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
+    before = launch_counts["fused_state_step"]
+    y, _ = fused_state_step(state, C, B, dA, xdt)
+    assert launch_counts["fused_state_step"] == before + 1
+    assert (y - ref_y).abs().max() <= 1e-5 * ref_y.abs().max()
+    assert torch.isfinite(state.float()).all()
+    assert ((state.float() - ref_state.float()).abs() <= storage_ulp(ref_state)).all()
+    if dtype == torch.float8_e4m3fn:
+        assert state.float()[0, 0].abs().max() == 448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+def test_fused_state_step_keeps_a_nan_as_plain_does(gen, dtype):
+    """A NaN in xdt makes its state row NaN, stored as NaN (f8: the NaN byte,
+    not a saturated value) and read back as NaN by the next step, as the plain
+    version does: over two steps the NaNs of y and of the state sit where the
+    plain version's do, and the rest agrees as above."""
+    BH, P, N = 128, 64, 128
+    state = (torch.randn((BH, P, N), generator=gen, device="cuda") * 4).to(dtype)
+    ref_state = state.clone()
+    for step in range(2):
+        C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
+        dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+        xdt = torch.randn((BH, P), generator=gen, device="cuda")
+        xdt[1, 3] = float("nan")
+        ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
+        y, _ = fused_state_step(state, C, B, dA, xdt)
+        assert torch.equal(torch.isnan(y), torch.isnan(ref_y))
+        assert bool(torch.isnan(y[1, 3])) == (step == 1)
+        ok = ~torch.isnan(ref_y)
+        assert (y[ok] - ref_y[ok]).abs().max() <= 1e-5 * ref_y[ok].abs().max()
+        nan = torch.isnan(ref_state.float())
+        assert nan[1, 3].all() and nan.sum() == N
+        assert torch.equal(torch.isnan(state.float()), nan)
+        assert ((state.float() - ref_state.float())[~nan].abs()
+                <= storage_ulp(ref_state)[~nan]).all()
+
+
 def test_fused_state_step_kernel_rejects_fp16(gen):
     state = torch.zeros((4, 64, 128), dtype=torch.float16, device="cuda")
     C = torch.zeros((4, 128), device="cuda")
@@ -175,6 +227,48 @@ def test_decode_attention_held_out_kernels_match_plain(gen, storage, pos):
         assert (got.float() - ref).abs().max() <= tol
     for name in ("flash_decode_attention", "decode_attention_single"):
         assert launch_counts[f"{name}_{storage}"] == before[f"{name}_{storage}"] + 1
+
+
+# K2's cluster plan at its edges: one CTA (up to 64 rows), three (65 to 96), four (97 to
+# 128), five to eight (129 to 256) at 1 and 2 batch rows; two beyond 64 rows at 32 (128
+# pairs); one CTA a pair at 128
+K2_LENGTHS = [1, 31, 32, 33, 64, 65, 66, 100, 129, 192, 224, 255, 256]
+K2_BATCHES = [1, 2, 32, 128]
+
+
+@pytest.mark.parametrize("length", K2_LENGTHS)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B", K2_BATCHES)
+def test_decode_attention_cluster_kernel_matches_plain(gen, B, G, length):
+    """K2 (one cluster a pair, 1 to 8 CTAs) at 1, 2, 32 and 128 batch rows and
+    1, 4 and 8 query heads a kv head; tolerance 2 bf16 ulps of max|ref|."""
+    q = torch.randn((B, 1, 4 * G, 128), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, 4, 320, 128), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
+    before = launch_counts["decode_attention_single"]
+    got = decode_attention_single(q, k, v, length)
+    assert launch_counts["decode_attention_single"] == before + 1
+    assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, 2)
+
+
+@pytest.mark.parametrize("length", K2_LENGTHS)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B", K2_BATCHES)
+@pytest.mark.parametrize("storage", ["f8", "int8"])
+def test_decode_attention_cluster_kernel_held_out_matches_plain(gen, storage, B, G, length):
+    """K2 over f8 and int8 caches at pos = length - 1 (pos 0: the held-out row
+    alone); tolerance 4 bf16 ulps of max|ref| for f8, 2 for int8, as above."""
+    k, v, ks, vs = _quantized_cache(gen, storage, B=B, S=320)
+    q = torch.randn((B, 1, 4 * G, 128), generator=gen, device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((B, 1, 4, 128), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    pos = length - 1
+    ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(), pos, ks, vs)
+    before = launch_counts[f"decode_attention_single_{storage}"]
+    got = decode_attention_single_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+    assert launch_counts[f"decode_attention_single_{storage}"] == before + 1
+    assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, 4 if storage == "f8" else 2)
 
 
 def test_decode_attention_held_out_rejects_bf16_cache(gen):

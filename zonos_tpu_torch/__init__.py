@@ -14,10 +14,21 @@ hand-written CUDA C++ under ``csrc/``, each beside a plain PyTorch version
     DACAutoencoder().save_codes(["out.wav"], codes)
 """
 
-from zonos_tpu_torch.conditioning import make_cond_dict, supported_language_codes
-from zonos_tpu_torch.config import BackboneConfig, PrefixConditionerConfig, ZonosConfig
-from zonos_tpu_torch.models.dac import DACAutoencoder
-from zonos_tpu_torch.models.tts import Zonos
+import torch as _torch
+
+# PyTorch's CPU exp goes to MKL's vector math.  The first call in a process,
+# when it is split over several threads, can return some threads' share at
+# ~1e-4 relative error, and every later call is exact (seen with PyTorch
+# 2.13.0's CPU build and MKL 2024.2: 8 of 30 fresh processes on an 8-core CPU;
+# one small call on one thread first: 0 of 30).  This small call makes the
+# plain versions give the same bits from the first call on.  Drop it once
+# tests/test_torch_port_plans.py records no mismatch without it.
+_torch.exp(_torch.zeros(4))
+
+from zonos_tpu_torch.conditioning import make_cond_dict, supported_language_codes  # noqa: E402
+from zonos_tpu_torch.config import BackboneConfig, PrefixConditionerConfig, ZonosConfig  # noqa: E402
+from zonos_tpu_torch.models.dac import DACAutoencoder  # noqa: E402
+from zonos_tpu_torch.models.tts import Zonos  # noqa: E402
 
 __all__ = [
     "BackboneConfig",

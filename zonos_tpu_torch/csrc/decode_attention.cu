@@ -24,15 +24,24 @@
 //   keeps its own fp32 (m, l, acc) for its G query rows, and a second small kernel combines
 //   the splits with the usual log-sum-exp rescaling.  Blocks at or past `length` are never
 //   launched, so the bytes read scale with the valid length, not the allocated S.
-// - K2 is the same block routine run over all valid blocks inside one CTA per (batch row,
-//   kv head): one launch and no combine pass.  The port's dispatcher uses it while the
-//   cache holds at most one block (length <= 256), where K1 would launch a single split.
-// - A CTA (256 threads) stages its whole 256-row block, K and V (2 x 64 KB in bf16, 2 x 32
-//   KB in f8 or int8), into shared memory with cp.async before it computes anything: every
-//   byte it needs is in flight at once, so a block costs one HBM round trip, and the V copy
-//   lands while the scores are computed.  Rows at or past `length` are zero-filled, not
-//   read.  (Earlier versions loaded rows into registers, 64 rows at a time, and waited for
-//   about eight round trips per block: on a cold L2 that was the kernel's time, PERF.md.)
+// - K2 is one launch with no global scratch, for the port's dispatcher's short caches
+//   (length <= 256), where K1 would launch a single split.  Each (batch row, kv head) is a
+//   thread-block cluster of n CTAs (kernels/decode_attention.py cluster_plan: up to 8 CTAs
+//   of at least 32 rows while the grid stays within two CTAs per SM, so 8 at batch 1 with
+//   CFG, where there are only 8 pairs for 132 SMs; one CTA of up to 256 rows at batch 64
+//   with CFG, where one CTA a pair fills the card).  Rank r runs the same row routine over
+//   its chunk, then stores its (m, l) into every rank and each slice of its acc into the
+//   rank that owns those output columns, through distributed shared memory; after one
+//   cluster barrier each rank combines its columns with the usual log-sum-exp rescaling,
+//   in rank order.  A cluster's barriers and exchange cost more than they save up to 64
+//   rows, where one CTA a pair runs.
+// - A CTA (256 threads) stages its rows, up to a 256-row block of K and V (2 x 64 KB in
+//   bf16, 2 x 32 KB in f8 or int8), into shared memory with cp.async before it computes
+//   anything: every byte it needs is in flight at once, so a block costs one HBM round
+//   trip, and the V copy lands while the scores are computed.  Rows at or past `length`
+//   are zero-filled, not read.  (Earlier versions loaded rows into registers, 64 rows at a
+//   time, and waited for about eight round trips per block: on a cold L2 that was the
+//   kernel's time, PERF.md.)
 // - From shared memory, 16 lanes cover one 128-wide row with one 16-byte (bf16) or 8-byte
 //   (f8, int8) load each, so a warp reads two neighbouring rows.  Scores are reduced over
 //   the 16 lanes with 4 shuffles.  Softmax statistics are one row per thread.  The value
@@ -45,14 +54,16 @@
 //   run.
 // - Quantized caches (f8, int8): the current token's k and v are held out in bf16 and
 //   never read back from the cache, as in decode_attention_split: the kernels attend over
-//   cache rows [0, pos) plus that one row, and the caller writes the row afterwards.  K2
-//   starts each CTA's online softmax from the held-out row (m = its score, l = 1, acc = its
-//   v); K1's combine pass adds it beside the splits.  For int8 the row scale multiplies the
-//   score after the 1/sqrt(D) scale and the softmax weight before the value product,
-//   where decode_attention_split folds them; the scales of a block are staged beside it.
+//   cache rows [0, pos) plus that one row, and the caller writes the row afterwards.  K2's
+//   rank 0 starts its online softmax from the held-out row (m = its score, l = 1, acc = its
+//   v; at pos 0 that row is all there is); K1's combine pass adds it beside the splits.
+//   For int8 the row scale multiplies the score after the 1/sqrt(D) scale and the softmax
+//   weight before the value product, where decode_attention_split folds them; the scales
+//   of a block are staged beside it.
 //
 // C interface (ctypes): every entry point returns cudaGetLastError() after its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -63,6 +74,8 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kD = 128;
 constexpr int kBlockS = 256;
 constexpr int kThreads = 256;  // one softmax row per thread: kThreads == kBlockS
@@ -70,6 +83,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kLanesPerRow = 16;  // 16 lanes x 8 values = one 128-wide row
 constexpr int kRowsPerPass = kThreads / kLanesPerRow;
 constexpr int kMaxG = 8;
+constexpr int kMaxCluster = 8;  // K2's CTAs per cluster, the portable limit
 static_assert(kThreads == kBlockS, "softmax statistics take one row per thread");
 static_assert(kD == kLanesPerRow * 8, "a row is 16 lanes of 8 values");
 
@@ -83,8 +97,10 @@ constexpr bool kScaled = std::is_same<T, int8_t>::value;  // per-row fp32 scales
 // dynamic shared memory: the staged K and V blocks, [kBlockS][kD] of T each
 template <typename T>
 constexpr int kStageBytes = 2 * kBlockS * kD * (int)sizeof(T);
-static_assert(kWarps * kMaxG * kD * sizeof(float) <= kStageBytes<int8_t>,
-              "the partial sums fit the smallest stage");
+// the row-group partial sums [kWarps][G][kD] fp32, which reuse the stage after the last block
+template <int G>
+constexpr int kPartBytes = kWarps * G * kD * (int)sizeof(float);
+static_assert(kPartBytes<kMaxG> <= kStageBytes<int8_t>, "the partial sums fit a whole stage");
 
 __device__ __forceinline__ void widen8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -151,17 +167,20 @@ __device__ __forceinline__ void block_reduce(float (&v)[G], float (*red)[G]) {
   __syncthreads();
 }
 
-// Starts the asynchronous copy of cache rows [0, kBlockS) of `src` into `dst` as one
+// Starts the asynchronous copy of cache rows [0, stage_rows) of `src` into `dst` as one
 // cp.async group; rows at or past nrows are zero-filled without reading global memory.
-// Consecutive threads copy consecutive 16-byte pieces, so the reads are coalesced.
+// Consecutive threads copy consecutive 16-byte pieces, so the reads are coalesced.  K1
+// stages whole 256-row blocks (stage_rows = kBlockS); K2 stages its chunk up to the end of
+// its last 16-row pass.
 template <typename T>
-__device__ __forceinline__ void stage_block(T* dst, const T* src, int nrows) {
+__device__ __forceinline__ void stage_block(T* dst, const T* src, int nrows, int stage_rows) {
   constexpr int kChunksPerRow = kD * (int)sizeof(T) / 16;
   const char* s = reinterpret_cast<const char*>(src);
   char* d = reinterpret_cast<char*>(dst);
 #pragma unroll
   for (int i = 0; i < kBlockS * kChunksPerRow / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
+    if (c >= stage_rows * kChunksPerRow) break;
     const bool in = c / kChunksPerRow < nrows;
     const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(d + c * 16));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
@@ -190,17 +209,22 @@ struct Rows {
   const bf16* v_new;
 };
 
-// Online softmax over cache blocks [blk0, blk1) of one (batch row, kv head), started from
-// the held-out row when kHeldOut.  q: [G, D] bf16; the cache rows [S, D] of T.  On return
-// every thread holds the running max m and sum l of each query row, and threads t < D hold
-// out[g] = sum_r p_r * v[r][t].
-template <int G, typename T, bool kHeldOut>
-__device__ __forceinline__ void attend_blocks(const bf16* __restrict__ q, const Rows<T>& rows,
-                                              int length, int blk0, int blk1, float scale,
-                                              float (&m)[G], float (&l)[G], float (&out)[G]) {
-  extern __shared__ __align__(16) unsigned char stage[];  // kStageBytes<T>
+// Online softmax over cache rows [r0, r1) of one (batch row, kv head), in blocks of up to
+// kBlockS rows, started from the held-out row when kHeldOut and held_out (else m = -inf,
+// l = 0, and nothing at all for an empty range).  q: [G, D] bf16; the cache rows [S, D] of
+// T.  kFullStage stages whole blocks (K1); otherwise a block is staged to the end of its
+// last 16-row pass (K2's short chunks).  On return every thread holds the running max m and
+// sum l of each query row, and threads t < D hold out[g] = sum_r p_r * v[r][t].
+template <int G, typename T, bool kHeldOut, bool kFullStage>
+__device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Rows<T>& rows,
+                                            int r0, int r1, bool held_out, float scale,
+                                            float (&m)[G], float (&l)[G], float (&out)[G]) {
+  extern __shared__ __align__(16) unsigned char stage[];  // stage_bytes<T>(stage_rows_max)
   T* ks = reinterpret_cast<T*>(stage);
-  T* vs = ks + kBlockS * kD;
+  const int stage_rows_max =
+      kFullStage ? kBlockS
+                 : min(kBlockS, (r1 - r0 + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass);
+  T* vs = ks + stage_rows_max * kD;
   __shared__ float s[G][kBlockS];
   __shared__ float red[kWarps][G];
   __shared__ float kscale[kBlockS], vscale[kBlockS];
@@ -217,7 +241,7 @@ __device__ __forceinline__ void attend_blocks(const bf16* __restrict__ q, const 
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
-  if constexpr (kHeldOut) {
+  if (kHeldOut && held_out) {
     float kn[8], vn[8];
     widen8(*reinterpret_cast<const uint4*>(rows.k_new + sub * 8), kn);
     widen8(*reinterpret_cast<const uint4*>(rows.v_new + sub * 8), vn);
@@ -238,11 +262,12 @@ __device__ __forceinline__ void attend_blocks(const bf16* __restrict__ q, const 
     }
   }
 
-  for (int blk = blk0; blk < blk1; ++blk) {
-    const int row0 = blk * kBlockS;
-    const int nrows = min(kBlockS, length - row0);
-    stage_block(ks, rows.k + (size_t)row0 * kD, nrows);
-    stage_block(vs, rows.v + (size_t)row0 * kD, nrows);
+  for (int row0 = r0; row0 < r1; row0 += kBlockS) {
+    const int nrows = min(kBlockS, r1 - row0);
+    const int stage_rows =
+        kFullStage ? kBlockS : (nrows + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass;
+    stage_block(ks, rows.k + (size_t)row0 * kD, nrows, stage_rows);
+    stage_block(vs, rows.v + (size_t)row0 * kD, nrows, stage_rows);
     if constexpr (kScaled<T>) {
       kscale[tid] = tid < nrows ? rows.ks[row0 + tid] : 0.f;
       vscale[tid] = tid < nrows ? rows.vs[row0 + tid] : 0.f;
@@ -314,6 +339,7 @@ __device__ __forceinline__ void attend_blocks(const bf16* __restrict__ q, const 
 
   // sum the 16 row groups: two per warp (lanes xor 16), then the warps in order; the
   // partial sums [kWarps][G][kD] fp32 reuse the staging buffer, free after the last block
+  // (the launch gives it at least kPartBytes<G>)
   float(*part)[G][kD] = reinterpret_cast<float(*)[G][kD]>(stage);
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -366,8 +392,9 @@ flash_split_kernel(Call<T> c, float* __restrict__ m_part, float* __restrict__ l_
                    float* __restrict__ acc_part, int n_split) {
   const int split = blockIdx.x, bh = blockIdx.y;
   float m[G], l[G], acc[G];
-  attend_blocks<G, T, false>(c.q + (size_t)bh * G * kD, c.rows(bh), c.length, split, split + 1,
-                             c.scale, m, l, acc);
+  const int r0 = split * kBlockS;
+  attend_rows<G, T, false, true>(c.q + (size_t)bh * G * kD, c.rows(bh), r0,
+                                 min(r0 + kBlockS, c.length), false, c.scale, m, l, acc);
   const size_t base = ((size_t)bh * n_split + split) * G;
   if (threadIdx.x < kD) {
 #pragma unroll
@@ -428,18 +455,69 @@ flash_combine_kernel(Call<T> c, const float* __restrict__ m_part,
   }
 }
 
-// K2: grid (B * H_kv); one CTA walks every valid block of its (batch row, kv head).
+// K2: grid (n, B * H_kv), launched as clusters of n CTAs along x, one cluster per (batch
+// row, kv head).  Rank r attends cache rows [r * chunk, min((r + 1) * chunk, length)) (rank
+// 0 also the held-out row of a quantized cache).  Each rank owns a slice of `width` of the
+// 128 output columns; rank r stores its m and l into every rank's shared memory and each
+// slice of its acc into the rank that owns it (the exchange area, `xchg` bytes into the
+// dynamic shared memory, past the stage), then arrives on the cluster barrier with release
+// semantics and waits on it (acquire): each rank then combines the n partials of its own
+// columns in rank order from its own shared memory.  An earlier relaxed barrier phase,
+// waited on only just before the remote stores, makes sure every rank has started.  One
+// CTA (n = 1) writes its output directly.
 template <int G, typename T>
-__global__ void __launch_bounds__(kThreads) single_pass_kernel(Call<T> c) {
-  const int bh = blockIdx.x;
-  const int n_blocks = (c.length + kBlockS - 1) / kBlockS;
+__global__ void __launch_bounds__(kThreads)
+cluster_pass_kernel(Call<T> c, int chunk, int xchg) {
+  const int n = gridDim.x, rank = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  if (n > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int r0 = min(rank * chunk, c.length), r1 = min(r0 + chunk, c.length);
   float m[G], l[G], acc[G];
-  attend_blocks<G, T, kQuantized<T>>(c.q + (size_t)bh * G * kD, c.rows(bh), c.length, 0,
-                                     n_blocks, c.scale, m, l, acc);
-  if (threadIdx.x < kD) {
+  attend_rows<G, T, kQuantized<T>, false>(c.q + (size_t)bh * G * kD, c.rows(bh), r0, r1,
+                                          rank == 0, c.scale, m, l, acc);
+  bf16* out = c.out + (size_t)bh * G * kD;
+  if (n == 1) {
+    if (tid < kD) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-      c.out[((size_t)bh * G + g) * kD + threadIdx.x] = __float2bfloat16(acc[g] / l[g]);
+      for (int g = 0; g < G; ++g) out[g * kD + tid] = __float2bfloat16(acc[g] / l[g]);
+    }
+    return;
+  }
+  // the exchange area: m [n][G], l [n][G], acc [n][G][width] fp32 (width columns a rank)
+  const int width = (kD + n - 1) / n;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* xm = reinterpret_cast<float*>(dyn + xchg);
+  float* xl = xm + n * G;
+  float* xacc = xl + n * G;
+  cg::cluster_group cluster = cg::this_cluster();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
+  if (tid < kD) {  // column tid goes to the rank that owns it
+    float* dst = cluster.map_shared_rank(xacc, tid / width) + rank * G * width + tid % width;
+#pragma unroll
+    for (int g = 0; g < G; ++g) dst[g * width] = acc[g];
+  }
+  if (tid < n) {  // m and l go to every rank
+    float* dm = cluster.map_shared_rank(xm, tid) + rank * G;
+    float* dl = cluster.map_shared_rank(xl, tid) + rank * G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      dm[g] = m[g];
+      dl[g] = l[g];
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  const int cols = min(width, kD - rank * width);
+  for (int i = tid; i < G * cols; i += kThreads) {
+    const int g = i / cols, j = i % cols;
+    float mx = -INFINITY;
+    for (int r = 0; r < n; ++r) mx = fmaxf(mx, xm[r * G + g]);
+    float lsum = 0.f, o = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float w = expf(xm[r * G + g] - mx);  // 0 for an empty rank
+      lsum += xl[r * G + g] * w;
+      o += xacc[(r * G + g) * width + j] * w;
+    }
+    out[g * kD + rank * width + j] = __float2bfloat16(o / lsum);
   }
 }
 
@@ -468,12 +546,35 @@ int launch_flash(const Call<T>& c, void* m_part, void* l_part, void* acc_part, i
   return cudaGetLastError();
 }
 
+// K2's launch: clusters of n CTAs (1 to 8, the portable limit) of `chunk` rows each
+// (kernels/decode_attention.py cluster_plan); dynamic shared memory for the K and V stages of
+// one chunk (at most one block) and at least the row-group partial sums.
 template <int G, typename T>
-int launch_single(const Call<T>& c, int BH, cudaStream_t stream) {
-  static const cudaError_t attr = allow_stage(single_pass_kernel<G, T>, kStageBytes<T>);
+int launch_single(const Call<T>& c, int BH, int n, int chunk, cudaStream_t stream) {
+  if (n < 1 || n > kMaxCluster || chunk < 0 || (long long)n * chunk < c.length)
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_stage(
+      cluster_pass_kernel<G, T>, kStageBytes<T> + kMaxCluster * G * (2 + kD) * (int)sizeof(float));
   if (attr != cudaSuccess) return attr;
-  single_pass_kernel<G, T><<<BH, kThreads, kStageBytes<T>, stream>>>(c);
-  return cudaGetLastError();
+  const int stage_rows = min(kBlockS, (chunk + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass);
+  const int xchg = max(2 * stage_rows * kD * (int)sizeof(T), kPartBytes<G>);  // 16-byte multiple
+  const int width = (kD + n - 1) / n;
+  const int smem = xchg + (n > 1 ? n * G * (2 + width) * (int)sizeof(float) : 0);
+  cudaLaunchAttribute cluster_dim[1];
+  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
+  cluster_dim[0].val.clusterDim.x = n;
+  cluster_dim[0].val.clusterDim.y = 1;
+  cluster_dim[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n, BH);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = cluster_dim;
+  config.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, cluster_pass_kernel<G, T>, c, chunk, xchg);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
@@ -489,12 +590,12 @@ int flash_by_group(const Call<T>& c, void* m_part, void* l_part, void* acc_part,
 }
 
 template <typename T>
-int single_by_group(const Call<T>& c, int BH, int G, cudaStream_t st) {
+int single_by_group(const Call<T>& c, int BH, int G, int n, int chunk, cudaStream_t st) {
   switch (G) {
-    case 1: return launch_single<1, T>(c, BH, st);
-    case 2: return launch_single<2, T>(c, BH, st);
-    case 4: return launch_single<4, T>(c, BH, st);
-    case 8: return launch_single<8, T>(c, BH, st);
+    case 1: return launch_single<1, T>(c, BH, n, chunk, st);
+    case 2: return launch_single<2, T>(c, BH, n, chunk, st);
+    case 4: return launch_single<4, T>(c, BH, n, chunk, st);
+    case 8: return launch_single<8, T>(c, BH, n, chunk, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -523,12 +624,13 @@ extern "C" int zt_flash_decode_attention(const void* q, const void* k, const voi
                         static_cast<cudaStream_t>(stream));
 }
 
+// K2: clusters of n CTAs of `chunk` rows (n * chunk >= length).
 extern "C" int zt_decode_attention_single(const void* q, const void* k, const void* v, void* out,
-                                          int B, int Hkv, int G, int S, int length, float scale,
-                                          void* stream) {
+                                          int B, int Hkv, int G, int S, int length, int n,
+                                          int chunk, float scale, void* stream) {
   const Call<bf16> c = make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, S,
                                        length, scale);
-  return single_by_group(c, B * Hkv, G, static_cast<cudaStream_t>(stream));
+  return single_by_group(c, B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
 }
 
 // Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
@@ -558,15 +660,16 @@ extern "C" int zt_decode_attention_single_q(int storage, const void* q, const vo
                                             const void* v, const void* k_scale,
                                             const void* v_scale, const void* k_new,
                                             const void* v_new, void* out, int B, int Hkv, int G,
-                                            int S, int pos, float scale, void* stream) {
+                                            int S, int pos, int n, int chunk, float scale,
+                                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return single_by_group(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S, pos,
                                          scale),
-                           B * Hkv, G, st);
+                           B * Hkv, G, n, chunk, st);
   if (storage == 2)
     return single_by_group(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new, out, S,
                                              pos, scale),
-                           B * Hkv, G, st);
+                           B * Hkv, G, n, chunk, st);
   return cudaErrorInvalidValue;
 }

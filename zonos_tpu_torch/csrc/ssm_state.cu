@@ -18,25 +18,41 @@
 // fp32) one call moves 8.4 MB, ~2.5 us at 3.35 TB/s; at batch 8 with CFG in f8 (BH 1024)
 // 16.8 MB, ~5 us.
 //
-// Design: one CTA of 8 warps per bh row.  Each lane owns one 16-byte slice of a state row (4
-// fp32, 8 bf16 or 16 f8 values), so a warp reads 1, 2 or 4 whole rows per pass with
-// coalesced 16-byte loads; the lane's slices of C and B are read once into registers (no
-// shared memory is needed: every row of the state meets the same slice).  y[p] is a
-// warp-shuffle reduction over the lanes of a row.  Each warp first loads up to four passes
-// of rows, then computes and stores them, so several 16-byte loads per lane are in flight
-// before the first in-place store.
+// Design:
+// - The launch plan (kernels/ssm_state.py slab_plan) cuts each bh row's P rows into slabs of
+//   `rows` state rows, one CTA each: grid (BH, ceil(P / rows)), bh on grid.x, which takes up
+//   to 2^31 - 1 (grid.y stops at 65535: batch 512 with CFG on the hybrid has 65536 bh rows).
+//   A slab is one contiguous run of bytes, and slabs are small enough that the grid holds
+//   several CTAs per SM.
+// - One thread asks for the whole slab with one TMA bulk copy
+//   (cp.async.bulk global -> shared, completing on an mbarrier) before any value is used, so
+//   every byte of every resident CTA is in flight at once: one HBM round trip, not two.  The
+//   threads load their C, B and dA into registers, and the slab's xdt into shared memory,
+//   while it lands, so no load waits inside the loop over the slab.
+// - Each lane owns one 16-byte slice of a state row (4 fp32, 8 bf16 or 16 f8 values), the
+//   same slice in every row it visits, so its slices of C and B stay in registers.  y[p] is
+//   a warp-shuffle reduction over the lanes of a row (no cross-CTA sum: a row never spans
+//   two CTAs).  The new values go back into the slab in shared memory, and one thread
+//   stores the slab with one bulk copy (shared -> global) after fence.proxy.async.
+// - f8 converts two values an instruction each way.  The load widens an e4m3 pair to an
+//   f16 pair (__nv_cvt_fp8x2_to_halfraw2; exact, since every e4m3 value, subnormals
+//   included, is an f16 value, and NaN stays NaN), then to fp32.  (An exact integer decode,
+//   sign and (byte & 0x7F) << 20 times 2^120, measured slower once it also had to keep
+//   e4m3's NaN bytes NaN.)  The store saturates (__nv_cvt_float2_to_fp8x2, SATFINITE: NaN
+//   stays NaN, as in the plain version's cast).  bf16 widens by a shift and narrows in pairs.
 //
 // C interface (ctypes): returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // row passes loaded before the first store
+constexpr int kThreads = 128;
+constexpr int kMaxSlabBytes = 32 * 1024;  // also kernels/ssm_state.py MAX_SLAB_BYTES
 
 template <typename T>
 struct Vec;  // 16 bytes of T <-> floats
@@ -60,12 +76,11 @@ template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int E = 8;
   __device__ static void load(const uint4& r, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 v = __bfloat1622float2(h[k]);
-      f[2 * k] = v.x;
-      f[2 * k + 1] = v.y;
+    for (int k = 0; k < 4; ++k) {  // a bf16 is the top half of its fp32
+      f[2 * k] = __uint_as_float(w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
     }
   }
   __device__ static uint4 store(const float* f) {
@@ -81,35 +96,67 @@ template <>
 struct Vec<__nv_fp8_e4m3> {
   static constexpr int E = 16;
   __device__ static void load(const uint4& r, float* f) {
-    const uint8_t* q = reinterpret_cast<const uint8_t*>(&r);
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      __nv_fp8_e4m3 v;
-      v.__x = q[k];
-      f[k] = static_cast<float>(v);
+    for (int k = 0; k < 8; ++k) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>((w[k / 2] >> (16 * (k % 2))) & 0xFFFFu), __NV_E4M3);
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&h));
+      f[2 * k] = v.x;
+      f[2 * k + 1] = v.y;
     }
   }
   __device__ static uint4 store(const float* f) {
-    uint4 r;
-    uint8_t* q = reinterpret_cast<uint8_t*>(&r);
+    uint32_t w[4];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) q[k] = __nv_cvt_float_to_fp8(f[k], __NV_SATFINITE, __NV_E4M3);
-    return r;
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t lo =
+          __nv_cvt_float2_to_fp8x2(make_float2(f[4 * k], f[4 * k + 1]), __NV_SATFINITE, __NV_E4M3);
+      const uint32_t hi = __nv_cvt_float2_to_fp8x2(make_float2(f[4 * k + 2], f[4 * k + 3]),
+                                                   __NV_SATFINITE, __NV_E4M3);
+      w[k] = lo | (hi << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 state_step_kernel(T* state, const float* __restrict__ C, const float* __restrict__ B,
                   const float* __restrict__ dA, const float* __restrict__ xdt,
-                  float* __restrict__ y, int P, int N) {
+                  float* __restrict__ y, int P, int N, int rows_per_cta) {
   constexpr int E = Vec<T>::E;
-  const int lanes_per_row = N / E;              // a power of two, at most 32
-  const int rows_per_pass = 32 / lanes_per_row;
-  const int bh = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = kThreads / 32;
-  const int seg = lane / lanes_per_row, n0 = (lane % lanes_per_row) * E;
+  extern __shared__ __align__(128) uint4 slab[];  // the slab, then xdt of its rows
+  __shared__ __align__(8) uint64_t landed;
 
+  const int bh = blockIdx.x, p0 = blockIdx.y * rows_per_cta;
+  const int rows = min(rows_per_cta, P - p0);
+  const int lanes_per_row = N / E;  // a power of two, at most 32
+  const int pieces = rows * lanes_per_row;  // 16-byte slices in the slab
+  const unsigned bytes = static_cast<unsigned>(pieces) * 16u;
+  T* gslab = state + ((size_t)bh * P + p0) * N;
+  const uint32_t bar = smem_addr(&landed);
+
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(slab)),
+        "l"(gslab), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+
+  // while the slab lands: this lane's slices of C and B (the same in every row it visits,
+  // since kThreads is a multiple of 32 and lanes_per_row divides 32), and dA
+  const int n0 = (threadIdx.x % lanes_per_row) * E;
   float c[E], b[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -117,49 +164,72 @@ state_step_kernel(T* state, const float* __restrict__ C, const float* __restrict
     b[e] = B[(size_t)bh * N + n0 + e];
   }
   const float da = dA[bh];
-  T* rows = state + (size_t)bh * P * N;
-  const int stride = n_warps * rows_per_pass;
+  float* xs = reinterpret_cast<float*>(slab + rows_per_cta * lanes_per_row);
+  for (int r = threadIdx.x; r < rows; r += kThreads) xs[r] = xdt[(size_t)bh * P + p0 + r];
+  __syncthreads();  // the barrier's initialisation and xs are visible before anyone waits
 
-  for (int base = warp * rows_per_pass; base < P; base += kUnroll * stride) {
-    uint4 raw[kUnroll];
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+
+  // a warp's 32 slices at each step are whole rows; rows past the slab are masked
+#pragma unroll 4
+  for (int i0 = 0; i0 < pieces; i0 += kThreads) {
+    const int i = i0 + threadIdx.x;
+    const int r = i / lanes_per_row;
+    float s[E];
+    Vec<T>::load(i < pieces ? slab[i] : make_uint4(0u, 0u, 0u, 0u), s);
+    float part = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u * stride + seg;
-      raw[u] = p < P ? *reinterpret_cast<const uint4*>(rows + (size_t)p * N + n0)
-                     : make_uint4(0u, 0u, 0u, 0u);
+    for (int e = 0; e < E; ++e) part = fmaf(s[e], c[e], part);
+    for (int off = lanes_per_row / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (i < pieces) {
+      const size_t row = (size_t)bh * P + p0 + r;
+      const float xv = xs[r];
+      float ns[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) ns[e] = __fadd_rn(__fmul_rn(s[e], da), __fmul_rn(xv, b[e]));
+      slab[i] = Vec<T>::store(ns);
+      if (n0 == 0) y[row] = part;
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u * stride + seg;
-      float s[E];
-      Vec<T>::load(raw[u], s);
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) part = fmaf(s[e], c[e], part);
-      for (int off = lanes_per_row / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (p < P) {
-        const float xv = xdt[(size_t)bh * P + p];
-        float ns[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) ns[e] = __fadd_rn(__fmul_rn(s[e], da), __fmul_rn(xv, b[e]));
-        *reinterpret_cast<uint4*>(rows + (size_t)p * N + n0) = Vec<T>::store(ns);
-        if (n0 == 0) y[(size_t)bh * P + p] = part;
-      }
-    }
+  }
+
+  // the generic-proxy writes to the slab, made visible to the bulk copy's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gslab),
+                 "r"(smem_addr(slab)), "r"(bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the slab is read
   }
 }
 
 template <typename T>
 int launch(void* state, const void* C, const void* B, const void* dA, const void* xdt, void* y,
-           int BH, int P, int N, cudaStream_t stream) {
+           int BH, int P, int N, int rows_per_cta, cudaStream_t stream) {
   constexpr int E = Vec<T>::E;
   const int lanes = N / E;
-  if (N % E || lanes < 1 || lanes > 32 || (lanes & (lanes - 1))) return cudaErrorInvalidValue;
-  state_step_kernel<T><<<BH, kThreads, 0, stream>>>(
+  const int slab_bytes = rows_per_cta * N * (int)sizeof(T);
+  if (N % E || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || rows_per_cta < 1 ||
+      slab_bytes > kMaxSlabBytes)
+    return cudaErrorInvalidValue;
+  const int per_bh = (P + rows_per_cta - 1) / rows_per_cta;
+  if (per_bh > 65535) return cudaErrorInvalidValue;  // grid.y's limit
+  const dim3 grid(BH, per_bh);
+  const int smem = slab_bytes + rows_per_cta * (int)sizeof(float);  // the slab, xdt
+  state_step_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(state), static_cast<const float*>(C), static_cast<const float*>(B),
       static_cast<const float*>(dA), static_cast<const float*>(xdt), static_cast<float*>(y), P,
-      N);
+      N, rows_per_cta);
   return cudaGetLastError();
 }
 
@@ -167,15 +237,17 @@ int launch(void* state, const void* C, const void* B, const void* dA, const void
 
 // state [BH, P, N] (dtype 0 fp32, 1 bf16, 2 f8 e4m3), updated in place; C, B [BH, N],
 // dA [BH], xdt [BH, P], y [BH, P]: fp32, contiguous, 16-byte-aligned state.  N * sizeof / 16
-// must be a power of two no larger than 32 (N = 128 in every storage type).
+// must be a power of two no larger than 32 (N = 128 in every storage type); rows_per_cta
+// rows of N make at most 32 KB, and ceil(P / rows_per_cta) <= 65535 (kernels/ssm_state.py
+// slab_plan).
 extern "C" int zt_ssm_state_step(void* state, const void* C, const void* B, const void* dA,
                                  const void* xdt, void* y, int BH, int P, int N, int dtype,
-                                 void* stream) {
+                                 int rows_per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(state, C, B, dA, xdt, y, BH, P, N, s);
-    case 1: return launch<__nv_bfloat16>(state, C, B, dA, xdt, y, BH, P, N, s);
-    case 2: return launch<__nv_fp8_e4m3>(state, C, B, dA, xdt, y, BH, P, N, s);
+    case 0: return launch<float>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
+    case 1: return launch<__nv_bfloat16>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
+    case 2: return launch<__nv_fp8_e4m3>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
     default: return cudaErrorInvalidValue;
   }
 }

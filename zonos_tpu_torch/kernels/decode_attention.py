@@ -20,7 +20,7 @@ import functools
 import torch
 
 from zonos_tpu_torch.kernels import launch_counts
-from zonos_tpu_torch.kernels._build import check, library
+from zonos_tpu_torch.kernels._build import check, library, sm_count
 
 BLOCK_S = 256  # cache rows per split; compiled into the kernel
 HEAD_DIM = 128  # compiled into the kernel
@@ -29,12 +29,37 @@ GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernel is instantiated for
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "zt_flash_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "zt_decode_attention_single": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "zt_flash_decode_attention_q": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
-    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
 }
 # quantized cache storage: the kernels' storage code and the launch-count suffix
 STORAGE = {torch.float8_e4m3fn: (1, "f8"), torch.int8: (2, "int8")}
+MAX_CLUSTER = 8  # CTAs in a thread-block cluster, the portable limit
+CHUNK_ROWS = 32  # the fewest cache rows worth a CTA of its own in a cluster
+ONE_CTA_ROWS = 64  # up to here one CTA a pair beats a cluster's fixed cost (--sweep)
+ROWS_PER_PASS = 16  # cache rows a CTA covers at once (16 lanes a row); chunks are multiples
+CTAS_PER_SM = 2  # the grid K2's plan stops splitting at
+
+
+def cluster_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
+    """K2's launch plan: ``(n, chunk)``, clusters of ``n`` CTAs (1 to 8), one
+    per (batch row, kv head), rank ``r`` attending cache rows ``[r * chunk,
+    min((r + 1) * chunk, length))``.  Up to ``ONE_CTA_ROWS`` rows one CTA a
+    pair (a cluster's barriers and exchange cost more than they save there);
+    beyond, one CTA per ``CHUNK_ROWS`` rows, at most 8, halved while the grid
+    would pass two CTAs per SM, since one CTA a pair already fills the card
+    there.  ``chunk`` is then rounded up to a multiple of 16 rows and ``n``
+    cut to the ranks that hold rows.  Batch 1 with CFG at
+    256 rows (8 pairs): 8 CTAs of 32 rows; batch 64 with CFG (512 pairs): one
+    CTA of 256.  ``length`` 0 (a quantized cache at pos 0, the held-out row
+    only): one CTA with no cache rows."""
+    n = 1 if length <= ONE_CTA_ROWS else min(MAX_CLUSTER, -(-length // CHUNK_ROWS))
+    while n > 1 and bh_kv * n > CTAS_PER_SM * sms:
+        n //= 2
+    chunk = -(-length // n)
+    chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
+    return (max(1, -(-length // chunk)) if chunk else 1), chunk
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,17 +174,20 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 
 def decode_attention_single(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                             length: int) -> torch.Tensor:
-    """K2: one CTA per (row, kv head) walks every valid block; one launch,
-    no combine pass.  CPU tensors take the plain version."""
+    """K2: one thread-block cluster per (row, kv head) splits the valid rows
+    over its CTAs (:func:`cluster_plan`) and combines their partial softmaxes
+    through distributed shared memory; one launch, no scratch.  CPU tensors
+    take the plain version."""
     length = int(length)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, length)
     B, H_kv, G, S = _check(q, k_cache, v_cache, length)
+    n, chunk = cluster_plan(length, B * H_kv, sm_count(q.device.index))
     out = torch.empty_like(q)
     lib = library("decode_attention", _SIGNATURES)
     rc = lib.zt_decode_attention_single(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, H_kv, G, S, length, attention_scale(HEAD_DIM),
+        B, H_kv, G, S, length, n, chunk, attention_scale(HEAD_DIM),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(rc, "decode_attention_single")
@@ -265,9 +293,10 @@ def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
 
 def decode_attention_single_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
                                      k_scale=None, v_scale=None) -> torch.Tensor:
-    """K2 over an f8 or int8 cache with the current row held out: one CTA per
-    (row, kv head) starts its online softmax from the held-out row and walks
-    the blocks of [0, pos).  CPU tensors take the plain version."""
+    """K2 over an f8 or int8 cache with the current row held out: one cluster
+    per (row, kv head) splits [0, pos) over its CTAs, rank 0 starting its
+    online softmax from the held-out row.  CPU tensors take the plain
+    version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
@@ -275,11 +304,12 @@ def decode_attention_single_held_out(q, k_cache, v_cache, k_new, v_new, pos: int
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
     code, suffix = STORAGE[k_cache.dtype]
+    n, chunk = cluster_plan(pos, B * H_kv, sm_count(q.device.index))
     out = torch.empty_like(q)
     lib = library("decode_attention", _SIGNATURES)
     rc = lib.zt_decode_attention_single_q(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos,
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos, n, chunk,
         attention_scale(HEAD_DIM), torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(rc, f"decode_attention_single_{suffix}")
