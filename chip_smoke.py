@@ -40,8 +40,13 @@ Phases, each of which fails the run (non-zero exit) on error:
 ``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
 and then times K8 and K4 over their contraction splits, K7 over its slab
-sizes and K2 over its cluster sizes by cache length instead (how their
-defaults were chosen).
+sizes, K2 and K1 over their cluster sizes by cache length and K5 over its
+tile shapes by DAC width instead (how their defaults were chosen).
+
+``python3 chip_smoke.py --times [--port DIR]`` runs phases 1-2 and only the
+timed rows of K1, K2 and K5 with a breakdown of a K1 call by launch; with
+``--port DIR`` it imports the port from DIR, a checkout of another commit,
+so that two commits' kernels are timed by the same code on one card.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -101,6 +106,12 @@ LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
 K2_CHECK_LENGTHS = (1, 31, 32, 33, 64, 65, 66, 100, 129, 192, 224, 255, 256)
 K2_CHECK_BATCHES = (1, 2, 32, 128)
 K2_CHECK_GROUPS = (1, 4, 8)
+# K1 past 256 rows: clusters of 9 to 16 CTAs at batch 1 and 4, two to eight a pair at 128
+# batch rows; 64-row (bf16) and 128-row (f8, int8) stages, one to four a rank; the held-out
+# row at pos 256, 257 and S - 1
+K1_CHECK_LENGTHS = (257, 511, 1000, 2000, 2047)
+K1_CHECK_POS = (256, 257, 510, 999, 1999, 2047)
+K1_CHECK_BATCHES = (2, 8, 128)
 # K7 beyond the flagship shapes: (BH, P, N); 130 rows and P 50 end in part-filled grids
 # and slabs, N 64 gives 4, 8 and 16 lanes a row
 STATE_STEP_EXTRA_SHAPES = ((130, 64, 128), (128, 50, 128), (128, 64, 64))
@@ -152,19 +163,19 @@ def device_ms(fn, calls: int = 20, reps: int = 21, warmup: int = 3) -> tuple[flo
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
+def phase_device(here: str) -> str:
+    """Needs CUDA and the port imported from ``here`` (the checkout that holds
+    this script, or ``--port DIR``); prints the card's name and power limit."""
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one NVIDIA card")
-    here = os.path.dirname(os.path.abspath(__file__))
     try:
         import zonos_tpu_torch
     except ImportError as e:
         fail(f"cannot import the port ({e}): run this script from the repository's root")
     if os.path.dirname(os.path.dirname(os.path.abspath(zonos_tpu_torch.__file__))) != here:
-        fail(f"zonos_tpu_torch was imported from {zonos_tpu_torch.__file__}, not from the "
-             f"checkout that holds this script ({here})")
+        fail(f"zonos_tpu_torch was imported from {zonos_tpu_torch.__file__}, not from {here}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else \
@@ -242,6 +253,58 @@ def check_decode_attention(gen) -> dict:
     return worst
 
 
+def check_flash_attention(gen, worst: dict) -> None:
+    """K1 over caches past 256 rows at B in ``K1_CHECK_BATCHES`` and G 1, 4
+    and 8: bf16 at ``K1_CHECK_LENGTHS`` (S 2048) and 4095 (S 4096), f8 and
+    int8 with the held-out row at ``K1_CHECK_POS`` and 4095; the tolerances
+    of ``check_decode_attention`` and ``check_decode_attention_quantized``.
+    Updates ``worst`` in place."""
+    import torch
+
+    from zonos_tpu_torch.kernels.decode_attention import (
+        decode_attention_plain,
+        decode_attention_split_plain,
+        flash_decode_attention,
+        flash_decode_attention_held_out,
+    )
+
+    Hkv, D = 4, 128
+    for B, G in itertools.product(K1_CHECK_BATCHES, K2_CHECK_GROUPS):
+        for S, lengths in ((2048, K1_CHECK_LENGTHS), (4096, (4095,))):
+            q = torch.randn((B, 1, G * Hkv, D), generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            for length in lengths:
+                ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
+                got = flash_decode_attention(q, k, v, length)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref).abs().max())
+                if not err <= 2 * bf16_ulp(float(ref.abs().max())):
+                    fail(f"flash_decode_attention B={B} G={G} length={length}: max abs err {err}")
+                worst["flash_decode_attention"] = max(worst["flash_decode_attention"], err)
+            del k, v
+            for storage in ("f8", "int8"):
+                key = f"flash_decode_attention_{storage}"
+                k, v, ks, vs = quantized_cache(gen, storage, B, Hkv, S)
+                q, k_new, v_new = held_out_inputs(gen, B, G * Hkv, Hkv)
+                for pos in (K1_CHECK_POS if S == 2048 else (4095,)):
+                    ref = decode_attention_split_plain(q.float(), k, v, k_new.float(),
+                                                       v_new.float(), pos, ks, vs)
+                    got = flash_decode_attention_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - ref).abs().max())
+                    tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
+                    if not err <= tol:
+                        fail(f"{key} B={B} G={G} pos={pos}: max abs err {err} > {tol}")
+                    worst[key] = max(worst[key], err)
+                del k, v, ks, vs
+    print(f"[kernels] K1 ok at B in {K1_CHECK_BATCHES}, G in {K2_CHECK_GROUPS}: bf16 at lengths "
+          f"{K1_CHECK_LENGTHS} (S 2048) and 4095 (S 4096), f8 and int8 at pos {K1_CHECK_POS} and "
+          f"4095: max abs err bf16 {worst['flash_decode_attention']:.3g}, f8 "
+          f"{worst['flash_decode_attention_f8']:.3g}, int8 "
+          f"{worst['flash_decode_attention_int8']:.3g}", flush=True)
+
+
 def check_fused_sample(gen) -> float:
     """K3 vs the plain version on the same logits and Gumbel noise: ids must
     match except where the plain version's top two scores lie within 1e-4.
@@ -295,15 +358,19 @@ def _unit_params(gen, C: int) -> dict:
 
 def check_snake_conv(gen, frames: int = 86) -> float:
     """K5 vs the plain version (fp32 cuDNN, TF32 off) at every decoder
-    residual-unit shape; tolerance 1e-4 x max|ref|."""
+    residual-unit shape, then at batch 2 (dilation 3) and at T = 1001, a
+    multiple of no tile (dilation 9), at each width; tolerance 1e-4 x
+    max|ref|."""
     import torch
 
     from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
 
     worst = 0.0
-    for C, T, dil in residual_unit_shapes(frames):
+    extra = [(C, T, 3, 2) for C, T, d in residual_unit_shapes(frames) if d == 1] + \
+            [(C, 1001, 9, 1) for C, _, d in residual_unit_shapes(frames) if d == 1]
+    for C, T, dil, B in [(C, T, d, 1) for C, T, d in residual_unit_shapes(frames)] + extra:
         p = _unit_params(gen, C)
-        x = torch.randn((1, T, C), generator=gen, device="cuda")
+        x = torch.randn((B, T, C), generator=gen, device="cuda")
         for alpha, conv, d, res in ((p["alpha1"], p["conv1"], dil, None),
                                     (p["alpha2"], p["conv2"], 1, x)):
             ref = snake_conv1d_plain(x, alpha, conv["w"], conv["b"], d, res)
@@ -312,11 +379,12 @@ def check_snake_conv(gen, frames: int = 86) -> float:
             err = float((got - ref).abs().max())
             tol = 1e-4 * float(ref.abs().max())
             if not err <= tol:
-                fail(f"snake_conv1d C={C} T={T} k={conv['w'].shape[-1]} dil={d}: "
+                fail(f"snake_conv1d B={B} C={C} T={T} k={conv['w'].shape[-1]} dil={d}: "
                      f"max abs err {err} > {tol}")
             worst = max(worst, err / float(ref.abs().max()))
-    print(f"[kernels] K5 ok at all 12 residual units x 2 convs (F={frames}): "
-          f"worst max-abs-err / max|ref| = {worst:.3g} (tolerance 1e-4)", flush=True)
+    print(f"[kernels] K5 ok at all 12 residual units x 2 convs (F={frames}), batch 2 and T 1001 "
+          f"at each width: worst max-abs-err / max|ref| = {worst:.3g} (tolerance 1e-4)",
+          flush=True)
     return worst
 
 
@@ -774,7 +842,7 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
 
 
 # kernel-name fragments -> the port's kernel, for the profile's per-kernel line
-_PORT_KERNELS = (("flash_split", "K1"), ("flash_combine", "K1"), ("cluster_pass", "K2"),
+_PORT_KERNELS = (("flash_cluster", "K1"), ("cluster_pass", "K2"),
                  ("fused_sample", "K3"), ("tail_pass", "K4"), ("tail_layer_norm", "K4"),
                  ("snake_conv1d", "K5"),
                  ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"))
@@ -1054,9 +1122,11 @@ def time_layer_tail(gen, B2: int, target_ctas: int | None = None) -> dict:
             **_bound(2.0 * B2 * weights, nbytes, BF16_FLOPS_PER_S)}
 
 
-def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
-    """``counts`` maps each main path to its launch counts; ``prefill_len`` is
-    the hybrid batch-1 prefill's length (K6's main-path shape)."""
+def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
+    """K1 (``key`` "K1", length 2000) or K2 ("K2", length 256) at batch 1 with
+    CFG over a bf16 cache beside the plain version and SDPA, with the f8 and
+    int8 caches and the batch-64 f8 cache (pos 1999 or 255) under
+    ``"more"``."""
     import torch
     import torch.nn.functional as F
 
@@ -1065,16 +1135,11 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
         decode_attention_single,
         flash_decode_attention,
     )
-    from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
-    from zonos_tpu_torch.kernels.snake_conv import (
-        snake_conv1d_plain,
-        snake_residual_unit,
-    )
-    from zonos_tpu_torch.ops.sampling import gumbel_noise
 
-    out = []
     H, Hkv, D, S = 16, 4, 128, 2048
     B = 2  # batch 1 with classifier-free guidance
+    name, fn, length = (("flash_decode_attention", flash_decode_attention, 2000) if key == "K1"
+                        else ("decode_attention_single", decode_attention_single, 256))
     # On the decode path a layer's cache is read after the other 25 layers'
     # weights have passed through L2, so it comes from HBM.  The timed calls
     # cycle over 8 caches (8 x 8.4 MB > the 50 MB L2) to read it cold too.
@@ -1082,45 +1147,103 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
                   for shape in ((B, 1, H, D), (B, Hkv, S, D), (B, Hkv, S, D)))
             for _ in range(8)]
     q, k, v = sets[0]
-    for name, fn, length, key in (
-            ("flash_decode_attention", flash_decode_attention, 2000, "K1"),
-            ("decode_attention_single", decode_attention_single, 256, "K2")):
-        mask = (torch.arange(S, device="cuda") < length)[None, None, None, :]
-        lib_ref = F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=mask,
-                                                 enable_gqa=True).transpose(1, 2).float()
-        if not float((lib_ref - fn(q, k, v, length).float()).abs().max()) <= 4 * bf16_ulp(
-                float(lib_ref.abs().max())):
-            fail(f"library call disagrees with {name}")
-        cycle = itertools.cycle(sets)
+    mask = (torch.arange(S, device="cuda") < length)[None, None, None, :]
+    lib_ref = F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=mask,
+                                             enable_gqa=True).transpose(1, 2).float()
+    if not float((lib_ref - fn(q, k, v, length).float()).abs().max()) <= 4 * bf16_ulp(
+            float(lib_ref.abs().max())):
+        fail(f"library call disagrees with {name}")
+    cycle = itertools.cycle(sets)
 
-        def library_call():
-            qq, kk, vv = next(cycle)
-            return F.scaled_dot_product_attention(qq.transpose(1, 2), kk, vv, attn_mask=mask,
-                                                  enable_gqa=True)
+    def library_call():
+        qq, kk, vv = next(cycle)
+        return F.scaled_dot_product_attention(qq.transpose(1, 2), kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
 
-        nbytes = 2 * (2 * B * Hkv * length * D + 2 * B * H * D)
-        flops = 4 * B * H * length * D
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
-        out.append({
-            "name": name, "id": key, "route": "cuda",
-            "source": "zonos_tpu_torch/csrc/decode_attention.cu",
-            "replaces": ("zonos_tpu/ops/pallas_kernels.py:147" if key == "K1"
-                         else "zonos_tpu/ops/pallas_kernels.py:58"),
-            **_launches(name, counts),
-            "max_abs_err": errs[name],
-            "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] bf16, length {length}",
-            **_times(lambda: fn(*next(cycle), length),
-                     lambda: decode_attention_plain(*next(cycle), length)),
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations",
-            "library_ms": device_ms(library_call)[0],
-            "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
-                     for storage in ("f8", "int8")]
-                    + ([time_decode_attention_quantized(gen, name, "f8", length, counts,
-                                                        B=2 * B64_BATCH, S=256)]
-                       if key == "K2" else []),
-        })
+    nbytes = 2 * (2 * B * Hkv * length * D + 2 * B * H * D)
+    flops = 4 * B * H * length * D
+    return {
+        "name": name, "id": key, "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/decode_attention.cu",
+        "replaces": ("zonos_tpu/ops/pallas_kernels.py:147" if key == "K1"
+                     else "zonos_tpu/ops/pallas_kernels.py:58"),
+        **_launches(name, counts),
+        "max_abs_err": errs.get(name),
+        "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] bf16, length {length}",
+        **_times(lambda: fn(*next(cycle), length),
+                 lambda: decode_attention_plain(*next(cycle), length)),
+        **_bound(flops, nbytes),
+        "library_ms": device_ms(library_call)[0],
+        "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
+                 for storage in ("f8", "int8")]
+                + [time_decode_attention_quantized(gen, name, "f8", length, counts,
+                                                   B=2 * B64_BATCH, S=S if key == "K1" else 256)],
+    }
 
+
+def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
+    """K5 over the 12 DAC decoder residual units (24 launches) for ``frames``
+    frames at batch 1, each unit's time printed, beside the plain version
+    (snake + cuDNN fp32, TF32 off)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.snake_conv import snake_conv1d_plain, snake_residual_unit
+
+    ms = plain_ms = host_ms = bound = 0.0
+    bound_ops = bound_bytes = 0.0
+    units = []
+    for C, T, dil in residual_unit_shapes(frames):
+        p = _unit_params(gen, C)
+        x = torch.randn((1, T, C), generator=gen, device="cuda")
+        unit_ms, unit_host = device_ms(lambda: snake_residual_unit(p, x, dil), calls=5)
+        ms += unit_ms
+        host_ms += unit_host
+
+        def plain_unit():
+            y = snake_conv1d_plain(x, p["alpha1"], p["conv1"]["w"], p["conv1"]["b"], dil)
+            return snake_conv1d_plain(y, p["alpha2"], p["conv2"]["w"], p["conv2"]["b"], 1, x)
+
+        unit_plain = device_ms(plain_unit, calls=5)[0]
+        plain_ms += unit_plain
+        unit_bound = 0.0
+        for kk, extra in ((7, 0), (1, T * C)):  # second conv also reads the residual
+            f = 2 * T * C * C * kk
+            b = 4 * (2 * T * C + kk * C * C + 2 * C + extra)
+            bound_ops += f / FP32_FLOPS_PER_S
+            bound_bytes += b / HBM_BYTES_PER_S
+            unit_bound += max(f / FP32_FLOPS_PER_S, b / HBM_BYTES_PER_S)
+        bound += unit_bound
+        units.append({"C": C, "T": T, "dilation": dil, "ms": unit_ms, "plain_ms": unit_plain,
+                      "bound_ms": unit_bound * 1e3})
+        print(f"[time] K5 unit C={C} T={T} dil={dil}: {unit_ms * 1e3:.1f} us (plain "
+              f"{unit_plain * 1e3:.1f}, bound {unit_bound * 1e6:.1f})", flush=True)
+    return {
+        "name": "snake_conv1d", "id": "K5", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/snake_conv.cu",
+        "replaces": "zonos_tpu/ops/pallas_dac.py:47",
+        **_launches("snake_conv1d", counts),
+        "max_abs_err": errs.get("snake_conv1d"),
+        "shape": f"all 12 DAC decoder residual units (24 launches) for {frames} frames, batch 1, fp32",
+        "ms": ms,
+        "kernel_ms": ms,
+        "host_ms": host_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound * 1e3,
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None,
+        "units": units,
+    }
+
+
+def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
+    """``counts`` maps each main path to its launch counts; ``prefill_len`` is
+    the hybrid batch-1 prefill's length (K6's main-path shape)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
+    from zonos_tpu_torch.ops.sampling import gumbel_noise
+
+    out = [time_decode_attention(gen, key, counts, errs) for key in ("K1", "K2")]
     Bs, K, V = 1, 9, 1152  # batch 1: sampling runs on the CFG-blended logits
     logits = torch.randn((Bs, K, V), generator=gen, device="cuda") * 3.0
     logits[..., 1025:] = float("-inf")
@@ -1141,42 +1264,7 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
         "library_ms": None,
     })
 
-    frames = 86
-    ms = plain_ms = host_ms = bound = 0.0
-    bound_ops = bound_bytes = 0.0
-    for C, T, dil in residual_unit_shapes(frames):
-        p = _unit_params(gen, C)
-        x = torch.randn((1, T, C), generator=gen, device="cuda")
-        unit_ms, unit_host = device_ms(lambda: snake_residual_unit(p, x, dil), calls=5)
-        ms += unit_ms
-        host_ms += unit_host
-
-        def plain_unit():
-            y = snake_conv1d_plain(x, p["alpha1"], p["conv1"]["w"], p["conv1"]["b"], dil)
-            return snake_conv1d_plain(y, p["alpha2"], p["conv2"]["w"], p["conv2"]["b"], 1, x)
-
-        plain_ms += device_ms(plain_unit, calls=5)[0]
-        for kk, extra in ((7, 0), (1, T * C)):  # second conv also reads the residual
-            f = 2 * T * C * C * kk
-            b = 4 * (2 * T * C + kk * C * C + 2 * C + extra)
-            bound_ops += f / FP32_FLOPS_PER_S
-            bound_bytes += b / HBM_BYTES_PER_S
-            bound += max(f / FP32_FLOPS_PER_S, b / HBM_BYTES_PER_S)
-    out.append({
-        "name": "snake_conv1d", "id": "K5", "route": "cuda",
-        "source": "zonos_tpu_torch/csrc/snake_conv.cu",
-        "replaces": "zonos_tpu/ops/pallas_dac.py:47",
-        **_launches("snake_conv1d", counts),
-        "max_abs_err": errs["snake_conv1d"],
-        "shape": f"all 12 DAC decoder residual units (24 launches) for {frames} frames, batch 1, fp32",
-        "ms": ms,
-        "kernel_ms": ms,
-        "host_ms": host_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound * 1e3,
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": None,
-    })
+    out.append(time_snake_conv(gen, counts, errs))
 
     main_shape = time_ssd_chunked(gen, prefill_len)
     out.append({
@@ -1325,6 +1413,8 @@ def phase_sweep(gen, card: str) -> None:
               + f" (default {sms}, the SM count; {card})", flush=True)
     k7_sweep(gen, card)
     k2_sweep(gen, card)
+    k1_sweep(gen, card)
+    k5_sweep(gen, card)
 
 
 def k2_sweep(gen, card: str) -> None:
@@ -1367,6 +1457,169 @@ def k2_sweep(gen, card: str) -> None:
             + f" (default {da.cluster_plan(length, 8)}; {card})", flush=True)
 
 
+def k1_sweep(gen, card: str) -> None:
+    """K1 over cache lengths 512, 1000, 2000 and 4000 at batch 1 with CFG
+    (bf16, q [2,1,16,128]) and batch 64 with CFG (f8 with the held-out row, q
+    [128,1,16,128]) for clusters of 1, 2, 4, 8 and 16 CTAs, launched through the C
+    entry points, and how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): how ``flash_plan`` was chosen;
+    device us per call, L2 cold."""
+    import torch
+
+    from zonos_tpu_torch.kernels import decode_attention as da
+    from zonos_tpu_torch.kernels._build import check, library, sm_count
+
+    lib = library("decode_attention", da._SIGNATURES)
+    scale = da.attention_scale(128)
+
+    def launch(q, k, v, k_new, v_new, length, n, chunk):
+        out = torch.empty_like(q)
+        B, _, H, _ = q.shape
+        Hkv, S = k.shape[1], k.shape[2]
+        stream = torch.cuda.current_stream().cuda_stream
+        if k_new is None:
+            rc = lib.zt_flash_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                               out.data_ptr(), B, Hkv, H // Hkv, S, length, n,
+                                               chunk, scale, stream)
+        else:
+            rc = lib.zt_flash_decode_attention_q(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), 0,
+                                                 0, k_new.data_ptr(), v_new.data_ptr(),
+                                                 out.data_ptr(), B, Hkv, H // Hkv, S, length, n,
+                                                 chunk, scale, stream)
+        check(rc, "K1 sweep")
+        return out
+
+    S = 4096
+    b1 = [tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                for shape in ((2, 1, 16, 128), (2, 4, S, 128), (2, 4, S, 128))) + (None, None)
+          for _ in range(8)]
+    b64 = []
+    for _ in range(2):  # 2 x 537 MB: over the 50 MB L2
+        k, v, _, _ = quantized_cache(gen, "f8", 2 * B64_BATCH, 4, S)
+        q, k_new, v_new = held_out_inputs(gen, 2 * B64_BATCH)
+        b64.append((q, k, v, k_new, v_new))
+    for label, sets, storage in (("batch 1, bf16", b1, torch.bfloat16),
+                                 ("batch 64, f8", b64, torch.float8_e4m3fn)):
+        cycle = itertools.cycle(sets)
+        pairs = sets[0][0].shape[0] * 4
+        for length in (512, 1000, 2000, 4000):
+            row = {}
+            for n in (1, 2, 4, 8, 16):
+                chunk = -(-(-(-length // n)) // da.ROWS_PER_PASS) * da.ROWS_PER_PASS
+                plan = (-(-length // chunk), chunk)
+                us = device_ms(lambda: launch(*next(cycle), length, *plan))[0] * 1e3
+                fits = da.max_active_clusters(storage, 4, *plan)
+                row[f"{plan[0]} CTAs of {chunk}"] = f"{us:.2f} ({fits} clusters fit)"
+            print(f"[sweep] K1 {label} length {length}, us by cluster: " + ", ".join(
+                f"{k}: {v}" for k, v in row.items())
+                + f" (default {da.flash_plan(length, pairs, sm_count(0))}; {card})", flush=True)
+
+
+def k5_sweep(gen, card: str, frames: int = 86) -> None:
+    """K5 with each of its tiles at each DAC width (the dilation-9 unit's k = 7
+    conv and its k = 1 conv, batch 1, 86 frames), launched through the C entry
+    point and held against the plain version (1e-4 x max|ref|): how
+    ``conv_plan`` and ``TILE_COST`` were chosen; device us per call."""
+    import torch
+
+    from zonos_tpu_torch.kernels import snake_conv as k5
+    from zonos_tpu_torch.kernels._build import check, library, sm_count
+
+    lib = library("snake_conv", k5._SIGNATURES)
+
+    def launch(x, alpha, w_kio, b, dil, res, tile):
+        B, T, C = x.shape
+        y = torch.empty_like(x)
+        check(lib.zt_snake_conv1d(x.data_ptr(), alpha.data_ptr(), w_kio.data_ptr(), b.data_ptr(),
+                                  res.data_ptr() if res is not None else None, y.data_ptr(),
+                                  B, T, C, C, w_kio.shape[0], dil, tile,
+                                  torch.cuda.current_stream().cuda_stream), "K5 sweep")
+        return y
+
+    for C, T, dil in residual_unit_shapes(frames):
+        if dil != 9:
+            continue
+        p = _unit_params(gen, C)
+        x = torch.randn((1, T, C), generator=gen, device="cuda")
+        for alpha, conv, d, res in ((p["alpha1"], p["conv1"], dil, None),
+                                    (p["alpha2"], p["conv2"], 1, x)):
+            w_kio = conv["w"].permute(2, 1, 0).contiguous()
+            ref = k5.snake_conv1d_plain(x, alpha, conv["w"], conv["b"], d, res)
+            row = {}
+            for tile, (tt, tc) in enumerate(k5.TILES):
+                err = float((launch(x, alpha, w_kio, conv["b"], d, res, tile) - ref).abs().max())
+                if not err <= 1e-4 * float(ref.abs().max()):
+                    fail(f"K5 sweep tile {tt}x{tc} C={C} T={T} k={w_kio.shape[0]}: err {err}")
+                us = device_ms(lambda: launch(x, alpha, w_kio, conv["b"], d, res, tile),
+                               calls=5)[0] * 1e3
+                row[f"{tt}x{tc} ({-(-T // tt) * -(-C // tc)} CTAs)"] = us
+            default = k5.TILES[k5.conv_plan(T, C, C, w_kio.shape[0], d, sm_count(0))]
+            flops = 2.0 * T * C * C * w_kio.shape[0]
+            print(f"[sweep] K5 C={C} T={T} k={w_kio.shape[0]} dil={d}, us by tile: " + ", ".join(
+                f"{k}: {us:.1f}" for k, us in row.items())
+                + f" (default {default[0]}x{default[1]}; fp32 bound "
+                f"{flops / FP32_FLOPS_PER_S * 1e6:.1f} us; {card})", flush=True)
+
+
+def k1_breakdown(gen, card: str, calls: int = 40) -> None:
+    """Where a K1 call's device time goes at its four timed shapes (batch 1
+    with CFG at length 2000 over bf16, f8 and int8 caches; batch 64 with CFG
+    over f8): each kernel's own duration per call from torch.profiler
+    (CUPTI), beside the per-call time as ``device_ms`` reads it, and the
+    timing harness's floor (a one-element add)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels.decode_attention import (
+        flash_decode_attention,
+        flash_decode_attention_held_out,
+    )
+
+    one = torch.zeros(1, device="cuda")
+    print(f"[times] timing floor, one-element add: {device_ms(lambda: one.add_(1))[0] * 1e3:.2f} "
+          f"us ({card})", flush=True)
+    for label, storage, B in (("bf16", None, 2), ("f8", "f8", 2), ("int8", "int8", 2),
+                              ("f8 batch 64", "f8", 2 * B64_BATCH)):
+        sets = []
+        for _ in range(8 if B == 2 else 2):
+            if storage is None:
+                q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                           for shape in ((B, 1, 16, 128), (B, 4, 2048, 128), (B, 4, 2048, 128)))
+                sets.append(lambda q=q, k=k, v=v: flash_decode_attention(q, k, v, 2000))
+            else:
+                k, v, ks, vs = quantized_cache(gen, storage, B)
+                q, k_new, v_new = held_out_inputs(gen, B)
+                sets.append(lambda a=(q, k, v, k_new, v_new, 1999, ks, vs):
+                            flash_decode_attention_held_out(*a))
+        cycle = itertools.cycle(sets)
+        ms = device_ms(lambda: next(cycle)())[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                next(cycle)()
+            torch.cuda.synchronize()
+        parts: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+                name = name.split("<")[0].split("(")[0]
+                parts[name] = parts.get(name, 0.0) + e.self_device_time_total / calls
+        print(f"[times] K1 {label}: {ms * 1e3:.2f} us a call; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items()) + f" us (CUPTI; {card})", flush=True)
+
+
+def phase_times(gen, card: str) -> None:
+    """``python3 chip_smoke.py --times [--port DIR]``: the timed rows of K1,
+    K2 and K5 (no checks, no main paths, launches 0) and K1's breakdown by
+    launch, one JSON line each.  With ``--port DIR`` the port is imported
+    from DIR, a checkout of another commit (its kernels built from its own
+    sources into its own ``build/``): run it beside this tree's in turns to
+    compare two commits on one card."""
+    k1_breakdown(gen, card)
+    for entry in (time_decode_attention(gen, "K1", {}, {}), time_decode_attention(gen, "K2", {}, {}),
+                  time_snake_conv(gen, {}, {})):
+        print(json.dumps({"times": entry, "card": card}), flush=True)
+
+
 def k7_sweep(gen, card: str) -> None:
     """K7 at its two flagship shapes for slabs of 64 down to 2 state rows,
     launched through the C entry point with each (how ``CTAS_PER_SM`` and
@@ -1390,9 +1643,14 @@ def k7_sweep(gen, card: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--sweep"]):
-        fail(f"usage: chip_smoke.py [--sweep], not {argv}")
-    card = phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    if argv[:1] == ["--times"] and argv[1:2] == ["--port"] and len(argv) == 3:
+        here = os.path.abspath(argv[2])
+        sys.path.insert(0, here)
+        argv = argv[:1]
+    if argv not in ([], ["--sweep"], ["--times"]):
+        fail(f"usage: chip_smoke.py [--sweep | --times [--port DIR]], not {argv}")
+    card = phase_device(here)
     import torch
 
     torch.backends.cudnn.allow_tf32 = False  # fp32 references really in fp32
@@ -1402,7 +1660,7 @@ def main(argv: list[str]) -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     if argv:
-        phase_sweep(gen, card)
+        (phase_sweep if argv == ["--sweep"] else phase_times)(gen, card)
         return 0
     errs = dict(check_decode_attention(gen))
     errs["fused_sample"] = check_fused_sample(gen)
@@ -1410,6 +1668,7 @@ def main(argv: list[str]) -> int:
     errs["ssd_chunked"] = check_ssd_chunked(gen)
     errs["fused_state_step"] = check_fused_state_step(gen)
     errs.update(check_decode_attention_quantized(gen))
+    check_flash_attention(gen, errs)
     errs["fused_layer_tail"] = check_layer_tail(gen)
     errs["int4_matmul"] = check_int4_matmul(gen)
 

@@ -93,6 +93,71 @@ def test_snake_conv_kernel_matches_plain(gen, k, dilation):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+def _fp32_plain(fn, *args):
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 reference really in fp32
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+# every DAC width at a T that is a multiple of no tile (and at 86 frames for 768), batch 1
+# and 2
+K5_SHAPES = [(768, 688, 1), (768, 1001, 2), (384, 1001, 2), (192, 700, 2), (96, 1001, 1)]
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+@pytest.mark.parametrize("k,dilation", [(7, 1), (7, 3), (7, 9), (1, 1)])
+@pytest.mark.parametrize("C,T,B", K5_SHAPES)
+def test_snake_conv_tiles_match_plain(gen, C, T, B, k, dilation, tile):
+    """Each of K5's tiles (launched through the C entry point, whatever the
+    plan would pick) with and without the residual; tolerance 1e-4 x
+    max|ref|."""
+    from zonos_tpu_torch.kernels import snake_conv as k5
+    from zonos_tpu_torch.kernels._build import check, library
+
+    x = torch.randn((B, T, C), generator=gen, device="cuda")
+    alpha = 0.5 + torch.rand((C,), generator=gen, device="cuda")
+    w = torch.randn((C, C, k), generator=gen, device="cuda") * 0.02
+    b = torch.randn((C,), generator=gen, device="cuda")
+    w_kio = w.permute(2, 1, 0).contiguous()
+    for res in (None, x):
+        ref = _fp32_plain(snake_conv1d_plain, x, alpha, w, b, dilation, res)
+        got = torch.empty_like(ref)
+        check(library("snake_conv", k5._SIGNATURES).zt_snake_conv1d(
+            x.data_ptr(), alpha.data_ptr(), w_kio.data_ptr(), b.data_ptr(),
+            res.data_ptr() if res is not None else None, got.data_ptr(), B, T, C, C, k,
+            dilation, tile, torch.cuda.current_stream().cuda_stream), "snake_conv1d")
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("C,T,B", K5_SHAPES)
+def test_snake_residual_unit_kernel_matches_plain(gen, C, T, B, dilation):
+    """The residual unit through the wrapper (two launches, the tile of
+    ``conv_plan``); tolerance 1e-4 x max|ref|."""
+    from zonos_tpu_torch.kernels.snake_conv import snake_residual_unit
+
+    def conv(k):
+        return {"w": torch.randn((C, C, k), generator=gen, device="cuda") * 0.02,
+                "b": torch.randn((C,), generator=gen, device="cuda") * 0.01}
+
+    p = {"alpha1": 0.5 + torch.rand((C,), generator=gen, device="cuda"), "conv1": conv(7),
+         "alpha2": 0.5 + torch.rand((C,), generator=gen, device="cuda"), "conv2": conv(1)}
+    x = torch.randn((B, T, C), generator=gen, device="cuda")
+
+    def plain():
+        y = snake_conv1d_plain(x, p["alpha1"], p["conv1"]["w"], p["conv1"]["b"], dilation)
+        return snake_conv1d_plain(y, p["alpha2"], p["conv2"]["w"], p["conv2"]["b"], 1, x)
+
+    ref = _fp32_plain(plain)
+    before = launch_counts["snake_conv1d"]
+    got = snake_residual_unit(p, x, dilation)
+    assert launch_counts["snake_conv1d"] == before + 2
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
 def _ssd_inputs(gen, B, L, H, G, P, N):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -269,6 +334,68 @@ def test_decode_attention_cluster_kernel_held_out_matches_plain(gen, storage, B,
     got = decode_attention_single_held_out(q, k, v, k_new, v_new, pos, ks, vs)
     assert launch_counts[f"decode_attention_single_{storage}"] == before + 1
     assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, 4 if storage == "f8" else 2)
+
+
+# K1's plans past 256 rows: 9 to 16 CTAs a cluster at 1 and 4 batch rows (CFG), 2 to 8 at
+# 64; one to four stages a rank (64 rows bf16, 128 f8/int8); S 4096 for 4095
+K1_LENGTHS = [257, 511, 1000, 2000, 2047, 4095]
+K1_POS = [256, 257, 2047, 4095]
+K1_BATCHES = [2, 8, 128]
+
+
+@pytest.mark.parametrize("length", K1_LENGTHS)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B", K1_BATCHES)
+def test_flash_cluster_kernel_matches_plain(gen, B, G, length):
+    """K1 (one cluster of up to 16 CTAs a pair, stages carried online) at 2,
+    8 and 128 batch rows and 1, 4 and 8 query heads a kv head; tolerance 2
+    bf16 ulps of max|ref|."""
+    S = 4096 if length > 2048 else 2048
+    q = torch.randn((B, 1, 4 * G, 128), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, 4, S, 128), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
+    before = launch_counts["flash_decode_attention"]
+    got = flash_decode_attention(q, k, v, length)
+    assert launch_counts["flash_decode_attention"] == before + 1
+    assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, 2)
+
+
+@pytest.mark.parametrize("pos", K1_POS)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B", K1_BATCHES)
+@pytest.mark.parametrize("storage", ["f8", "int8"])
+def test_flash_cluster_kernel_held_out_matches_plain(gen, storage, B, G, pos):
+    """K1 over f8 and int8 caches with the held-out row; tolerance 4 bf16 ulps
+    of max|ref| for f8, 2 for int8, as above."""
+    S = 4096 if pos >= 2048 else 2048
+    k, v, ks, vs = _quantized_cache(gen, storage, B=B, S=S)
+    q = torch.randn((B, 1, 4 * G, 128), generator=gen, device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((B, 1, 4, 128), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(), pos, ks, vs)
+    before = launch_counts[f"flash_decode_attention_{storage}"]
+    got = flash_decode_attention_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+    assert launch_counts[f"flash_decode_attention_{storage}"] == before + 1
+    assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, 4 if storage == "f8" else 2)
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float8_e4m3fn, torch.int8])
+def test_flash_plan_fits_the_card(gen, storage):
+    """The card holds all 8 clusters of K1's batch-1 plan at 2000 and 4095
+    rows (16 CTAs each) at once up to 4 query heads a kv head (the flagship's;
+    at 8 a CTA's registers fill an SM, and at least one cluster fits), and a
+    full wave of the batch-64 plan's."""
+    from zonos_tpu_torch.kernels._build import sm_count
+    from zonos_tpu_torch.kernels.decode_attention import flash_plan, max_active_clusters
+
+    sms = sm_count(torch.cuda.current_device())
+    for G in (1, 2, 4, 8):
+        for length in (2000, 4095):
+            n, chunk = flash_plan(length, 8, sms)
+            assert n == 16 and max_active_clusters(storage, G, n, chunk) >= (8 if G <= 4 else 1)
+        n, chunk = flash_plan(1999, 512, sms)
+        assert max_active_clusters(storage, G, n, chunk) * n >= sms
 
 
 def test_decode_attention_held_out_rejects_bf16_cache(gen):
@@ -476,7 +603,7 @@ def _k3_case(gen):
 def _k5_case(gen):
     from zonos_tpu_torch.kernels.snake_conv import _snake_conv
 
-    C, dil = 32, 45  # the halo of dilation 45 passes the kernel's 48 KB
+    C, dil = 32, 177  # the halo of dilation 177 passes the kernel's 227 KB of shared memory
     x = torch.randn((1, 400, C), generator=gen, device="cuda")
     alpha = 0.5 + torch.rand((C,), generator=gen, device="cuda")
     w = torch.randn((C, C, 7), generator=gen, device="cuda") * 0.05
@@ -531,7 +658,7 @@ DISPATCH = {  # kernel -> (case, tolerance as a fraction of max|ref|; 0: bit-equ
     # d_model 72 is not a multiple of 16
     "K4 d_model 72": (lambda gen: _decode_step_both(gen, 72, torch.bfloat16), 2e-2),
     "K4 fp32": (lambda gen: _decode_step_both(gen, 64, torch.float32), 1e-5),
-    "K5 dilation 45": (_k5_case, 0.0),
+    "K5 dilation 177": (_k5_case, 0.0),
     "K6 headdim 128": (_k6_case, 0.0),
     "K7 d_state 24": (_k7_case, 1e-6),
     "K8 fp32 x": (_k8_case, 0.0),

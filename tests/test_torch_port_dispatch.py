@@ -103,10 +103,16 @@ CASES = {
     "K4 d 2056": (_tail, dict(d=2056), False),
     "K4 I 8200": (_tail, dict(I=8200), False),
     "K4 dk 2040": (_tail, dict(dk=2040), False),
-    # K5: its 48 KB of shared memory holds the halo of a dilation up to 42 at k = 7
+    # K5: 227 KB of shared memory hold the halo of a dilation up to 87 at k = 7, and of a
+    # multiple of 4 up to 304 (one copy of the window)
     "K5 flagship": (_snake, {}, True),
     "K5 dilation 42": (_snake, dict(dilation=42), True),
-    "K5 dilation 43": (_snake, dict(dilation=43), False),
+    "K5 dilation 43": (_snake, dict(dilation=43), True),
+    "K5 dilation 87": (_snake, dict(dilation=87), True),
+    "K5 dilation 89": (_snake, dict(dilation=89), False),
+    "K5 dilation 304": (_snake, dict(dilation=304), True),
+    "K5 dilation 308": (_snake, dict(dilation=308), False),
+    "K5 C 1538 (not a multiple of 4)": (_snake, dict(C=1538), False),
     "K5 even k": (_snake, dict(k=4, dilation=1), False),
     "K5 bf16": (_snake, dict(dtype=BF), False),
     # K6: headdim <= 64, d_state <= 128 (the flagship sits on both)

@@ -1,20 +1,28 @@
-"""Launch plans and arithmetic of K7 and K2 that the CPU can check.
+"""Launch plans and arithmetic of K7, K2, K1 and K5 that the CPU can check.
 
 K7 (the Mamba2 decode-state step) cuts each bh row's state into slabs
 (``slab_plan``) and widens f8 through f16; K2 (one-pass decode attention)
 splits a cache's rows over the CTAs of a thread-block cluster
-(``cluster_plan``) and combines their partial softmaxes in rank order.  The
-kernels run only on the card; here the plans are checked for coverage and a
-numpy or torch model of each kernel's arithmetic is held against the plain
-versions and JAX's ``decode_attention``.
+(``cluster_plan``) and combines their partial softmaxes in rank order; K1
+(decode attention past 256 rows) does the same over clusters of up to 16
+CTAs (``flash_plan``), each CTA walking its chunk in stages carried online.
+K5 (the DAC snake-conv) computes tiles chosen by shape (``conv_plan``) over
+chunks of 8 input channels and a halo window.  The kernels run only on the
+card; here the plans are checked for coverage and a numpy or torch model of
+each kernel's arithmetic is held against the plain versions and JAX's
+``decode_attention`` and DAC residual unit.
 
-Tolerances: the f8 widening exactly; the K2 model 1e-6 x max|ref| against the
-fp32 plain versions (the same sums in another order), 1e-5 against JAX (the
-existing port tests' bound).
+Tolerances: the f8 widening exactly; the K2 and K1 models 1e-6 x max|ref|
+against the plain versions (the same sums in another order; K1's against
+them in float64, since over 2000 rows the fp32 plain version's own rounding
+reaches ~9e-7), 1e-5 against JAX (the existing port tests' bound); the K5 model 1e-5 x max|ref|
+against the plain version and JAX's residual unit (fp32 sums of up to C_in x k
+products in another order; the existing K5 parity tests' bound).
 """
 
 from __future__ import annotations
 
+import itertools
 import subprocess
 import sys
 import textwrap
@@ -25,14 +33,24 @@ import numpy as np
 import pytest
 import torch
 
+from zonos_tpu.models.dac.codec import _res_unit as jax_res_unit
 from zonos_tpu.ops.attention import decode_attention as jax_decode_attention
 from zonos_tpu_torch.kernels.decode_attention import (
     MAX_CLUSTER,
+    MAX_FLASH_CLUSTER,
+    ONE_CTA_ROWS,
     ROWS_PER_PASS,
     attention_scale,
     cluster_plan,
     decode_attention_plain,
     decode_attention_split_plain,
+    flash_plan,
+)
+from zonos_tpu_torch.kernels.snake_conv import (
+    TILES,
+    ci_chunk,
+    conv_plan,
+    snake_conv1d_plain,
 )
 from zonos_tpu_torch.kernels.ssm_state import MAX_SLAB_BYTES, slab_plan
 
@@ -126,13 +144,40 @@ def test_cluster_plan_at_the_flagship_shapes():
     assert cluster_plan(256, 512, SMS) == (1, 256)
 
 
+def _attend(qh, k, v, rows, scale, k_scale, v_scale, state):
+    """One online-softmax step of a state (m, l, acc) over cache ``rows`` (a
+    range): M = max(m, max s), l e^(m - M) + sum e^(s - M), acc e^(m - M) +
+    sum p v."""
+    m, l, acc = state
+    rows = slice(rows.start, rows.stop)
+    s = torch.einsum("bhgd,bhkd->bhgk", qh, k[:, :, rows].float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, rows]
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    pv = p if v_scale is None else p * v_scale[:, :, None, rows]
+    return (m_new, l * corr + p.sum(-1),
+            acc * corr[..., None] + torch.einsum("bhgk,bhkd->bhgd", pv, v[:, :, rows].float()))
+
+
+def _merge(states):
+    """The ranks' states combined in order: M = max m, L = sum l e^(m - M),
+    O = sum acc e^(m - M) (a rank without rows, m = -inf, weighs 0)."""
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    return (M, sum(l * torch.exp(m - M) for m, l, _ in states),
+            sum(acc * torch.exp(m - M)[..., None] for m, _, acc in states))
+
+
 def _k2_model(q, k, v, length, n, chunk, k_new=None, v_new=None, k_scale=None,
-              v_scale=None):
+              v_scale=None, stage_rows=None):
     """K2's arithmetic in fp32: rank r keeps (m, l, acc) over cache rows
     [r * chunk, min((r + 1) * chunk, length)), rank 0 started from the held-out
     row (m = its score, l = 1, acc = its v); then the ranks combine in order:
     M = max m_r, L = sum l_r e^(m_r - M), out = sum acc_r e^(m_r - M) / L.
-    q [B, 1, H, D], k/v [B, H_kv, S, D], scales [B, H_kv, S]."""
+    With ``stage_rows`` (K1) a rank walks its rows in stages of that many,
+    carrying (m, l, acc) online from one to the next; K2 takes its chunk as
+    one stage.  q [B, 1, H, D], k/v [B, H_kv, S, D], scales [B, H_kv, S]."""
     B, _, H, D = q.shape
     H_kv = k.shape[1]
     qh = q.transpose(1, 2).reshape(B, H_kv, H // H_kv, D).float()  # [B, H_kv, G, D]
@@ -141,30 +186,18 @@ def _k2_model(q, k, v, length, n, chunk, k_new=None, v_new=None, k_scale=None,
     for rank in range(n):
         r0 = min(rank * chunk, length)
         r1 = min(r0 + chunk, length)
-        m = torch.full(qh.shape[:3], float("-inf"))
-        l = torch.zeros(qh.shape[:3])
-        acc = torch.zeros(qh.shape)
+        state = (torch.full(qh.shape[:3], float("-inf")), torch.zeros(qh.shape[:3]),
+                 torch.zeros(qh.shape))
         if rank == 0 and k_new is not None:
             kn, vn = k_new[:, 0].float(), v_new[:, 0].float()  # [B, H_kv, D]
             m = torch.einsum("bhgd,bhd->bhg", qh, kn) * scale
-            l = torch.ones_like(m)
-            acc = vn[:, :, None, :].expand_as(acc).clone()
-        if r1 > r0:
-            s = torch.einsum("bhgd,bhkd->bhgk", qh, k[:, :, r0:r1].float()) * scale
-            if k_scale is not None:
-                s = s * k_scale[:, :, None, r0:r1]
-            m_new = torch.maximum(m, s.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * corr + p.sum(-1)
-            pv = p if v_scale is None else p * v_scale[:, :, None, r0:r1]
-            acc = acc * corr[..., None] + torch.einsum("bhgk,bhkd->bhgd", pv,
-                                                       v[:, :, r0:r1].float())
-            m = m_new
-        parts.append((m, l, acc))
-    M = torch.stack([m for m, _, _ in parts]).amax(0)
-    L = sum(l * torch.exp(m - M) for m, l, _ in parts)
-    O = sum(acc * torch.exp(m - M)[..., None] for m, _, acc in parts)
+            state = (m, torch.ones_like(m), vn[:, :, None, :].expand_as(qh).clone())
+        step = stage_rows or max(chunk, 1)
+        for s0 in range(r0, r1, step):
+            state = _attend(qh, k, v, range(s0, min(s0 + step, r1)), scale, k_scale, v_scale,
+                            state)
+        parts.append(state)
+    _, L, O = _merge(parts)
     return (O / L[..., None]).reshape(B, H, 1, D).transpose(1, 2)
 
 
@@ -227,6 +260,229 @@ def test_k2_model_matches_jax(length, G):
     for n, chunk in _plans(length, 4):
         np.testing.assert_allclose(_k2_model(q, k, v, length, n, chunk).numpy(),
                                    np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+FLASH_STAGE_ROWS = {"bf16": 64, "f8": 128, "int8": 128}  # csrc: one 32 KB ring slot of K and V
+
+
+@pytest.mark.parametrize("bh_kv", [1, 8, 16, 64, 512, 1024])
+def test_flash_plan_covers_every_row_once(bh_kv):
+    for length in list(range(1, 300)) + list(range(300, 4097, 37)) + [4095, 4096]:
+        n, chunk = flash_plan(length, bh_kv, SMS)
+        assert 1 <= n <= MAX_FLASH_CLUSTER and chunk % ROWS_PER_PASS == 0
+        assert n == 1 or chunk >= ONE_CTA_ROWS
+        assert n == 1 or 2 * bh_kv * n <= 2 * SMS  # clusters only while pairs leave SMs idle
+        seen = np.zeros(length, np.int64)
+        for rank in range(n):
+            r0 = min(rank * chunk, length)
+            assert r0 < length  # every rank holds rows
+            seen[r0:min(r0 + chunk, length)] += 1
+        assert (seen == 1).all(), (length, n, chunk)
+    assert flash_plan(0, bh_kv, SMS) == (1, 0)  # pos 0: the held-out row alone
+
+
+def test_flash_plan_at_the_flagship_shapes():
+    """Batch 1 with CFG (8 pairs) at 2000 rows: 16 CTAs of 128 rows, 128 CTAs
+    on 132 SMs; at 512 rows 8 CTAs of 64; batch 2 with CFG (16 pairs): 8 CTAs
+    a pair; batch 64 with CFG (512 pairs) at pos 1999: one CTA a pair, which
+    streams all 1999 rows."""
+    assert flash_plan(2000, 8, SMS) == (16, 128)
+    assert flash_plan(4095, 8, SMS) == (16, 256)
+    assert flash_plan(512, 8, SMS) == (8, 64)
+    assert flash_plan(2000, 16, SMS) == (8, 256)
+    assert flash_plan(1999, 512, SMS) == (1, 2000)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f8"])  # the stage each cache's K1 walks
+@pytest.mark.parametrize("bh_kv_scale", [1, 64])  # the plans of batch 1 and batch 64 (CFG)
+@pytest.mark.parametrize("length", [257, 1000, 2000, 4095])
+def test_k1_model_matches_plain(length, bh_kv_scale, storage):
+    rng = np.random.default_rng(length + bh_kv_scale)
+    q, k, v = _qkv(rng, 2, 16, 4, 4096)
+    ref = decode_attention_plain(q.double(), k.double(), v.double(), length)
+    n, chunk = flash_plan(length, 8 * bh_kv_scale, SMS)
+    got = _k2_model(q, k, v, length, n, chunk, stage_rows=FLASH_STAGE_ROWS[storage])
+    assert _rel_err(got.double(), ref) <= 1e-6
+
+
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+@pytest.mark.parametrize("pos", [256, 999, 1999, 4095])
+def test_k1_model_with_held_out_row_matches_split_plain(pos, storage):
+    """Rank 0's held-out start and stages of 128 rows (an f8 or int8 cache's),
+    against the plain split version in float64, at the plans of batch 1 and
+    batch 64 (CFG)."""
+    rng = np.random.default_rng(200 + pos)
+    S = 4096
+    q, k, v = _qkv(rng, 2, 16, 4, S)
+    k_new, v_new = (torch.from_numpy(rng.normal(size=(2, 1, 4, 128)).astype(np.float32))
+                    for _ in range(2))
+    scales = (None, None)
+    if storage == "int8":
+        k, v = (torch.from_numpy(rng.integers(-127, 128, size=(2, 4, S, 128)).astype(np.int8))
+                for _ in range(2))
+        scales = tuple(torch.from_numpy((rng.random((2, 4, S)) * 0.02 + 0.005)
+                                        .astype(np.float32)) for _ in range(2))
+    ref = decode_attention_split_plain(q.double(), k, v, k_new.double(), v_new.double(), pos,
+                                       *(t if t is None else t.double() for t in scales))
+    for bh_kv in (8, 512):
+        n, chunk = flash_plan(pos, bh_kv, SMS)
+        got = _k2_model(q, k, v, pos, n, chunk, k_new, v_new, *scales, stage_rows=128)
+        assert _rel_err(got.double(), ref) <= 1e-6
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("length", [257, 1000, 2000, 4095])
+def test_k1_model_matches_jax(length, G):
+    rng = np.random.default_rng(11 * length + G)
+    q, k, v = _qkv(rng, 1, 4 * G, 4, 4096)
+    ref = jax_decode_attention(q.numpy(), k.numpy(), v.numpy(), jnp.int32(length))
+    n, chunk = flash_plan(length, 4, SMS)
+    got = _k2_model(q, k, v, length, n, chunk, stage_rows=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+DAC_UNITS_86 = [(768, 688), (384, 5504), (192, 22016), (96, 44032)]  # (C, T) at 86 frames
+
+
+def _tile_threads(tile: int) -> tuple[int, int, int]:
+    """(threads along time, along channels, time steps a thread) of a tile:
+    csrc/snake_conv.cu runs RT = 8 time steps a thread at 128 rows, 4 below."""
+    tt, tc = TILES[tile]
+    rt = 8 if tt == 128 else 4
+    return tt // rt, tc // 8, rt
+
+
+def _tile_outputs(tile: int, T: int, C_out: int, batch: int = 1) -> np.ndarray:
+    """How often the kernel's grid and thread maps write each output
+    (csrc/snake_conv.cu: CTA (bx, by, b) at t0 = bx * TT, co0 = by * TC;
+    thread (ty, tx) at times t0 + ty*4 + g*4*kTY + i, channels co0 + tx*4 +
+    h*TC/2 + e, masked at T and C_out)."""
+    tt, tc = TILES[tile]
+    kty, ktx, rt = _tile_threads(tile)
+    seen = np.zeros((batch, T, C_out), np.int64)
+    ty, tx = np.meshgrid(np.arange(kty), np.arange(ktx), indexing="ij")
+    for b, bx, by in itertools.product(range(batch), range(-(-T // tt)), range(-(-C_out // tc))):
+        for g, i, h, e in itertools.product(range(rt // 4), range(4), range(2), range(4)):
+            t = bx * tt + ty * 4 + g * 4 * kty + i
+            co = by * tc + tx * 4 + h * (tc // 2) + e
+            ok = (t < T) & (co < C_out)
+            np.add.at(seen, (b, t[ok], co[ok]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("tile", range(len(TILES)))
+@pytest.mark.parametrize("T,C_out,batch", [(300, 200, 1), (688, 96, 2), (33, 100, 1)])
+def test_conv_tiles_cover_every_output_once(tile, T, C_out, batch):
+    assert (_tile_outputs(tile, T, C_out, batch) == 1).all()
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("C,T", DAC_UNITS_86)
+def test_conv_plan_at_every_dac_width(C, T, batch):
+    """At 86 frames no column tile is masked (96 divides every width) and the
+    plan takes the tile the card measured fastest (``chip_smoke.py --sweep``):
+    64 x 96 at (768, 688), where 88 CTAs leave SMs idle but a wave of 32 x 96
+    tiles was slower, and 128 x 96 elsewhere and at batch 2 but for (768, 688)."""
+    for k, dil in ((7, 1), (7, 3), (7, 9), (1, 1)):
+        tt, tc = TILES[conv_plan(T, C, C, k, dil, SMS, batch)]
+        assert C % tc == 0
+        assert (tt, tc) == ((64, 96) if (C, batch) == (768, 1) else (128, 96))
+
+
+def _snake_np(v, a):
+    return v + np.sin(a * v) ** 2 / (a + 1e-9)
+
+
+def _k5_model(x, alpha, w, b, dilation, residual=None, tile=0):
+    """K5's tiling in fp32 numpy: CTA tiles of TILES[tile]; for each chunk of
+    ``ci_chunk(k)`` input channels the raw window of TT + (k-1) * dilation rows from t0 - pad,
+    zero outside [0, T) and past C_in, the snake applied to it, then tap j's
+    product of the window shifted by j * dilation with the chunk's weight
+    slice; bias and residual in the epilogue, masked stores.  x [B, T, C_in],
+    w [C_out, C_in, k] (torch's layout) -> [B, T, C_out]."""
+    x, alpha, w, b = (t.numpy() for t in (x, alpha, w, b))
+    B, T, C_in = x.shape
+    C_out, _, k = w.shape
+    w_kio = np.transpose(w, (2, 1, 0))  # [k, C_in, C_out], as the kernel reads it
+    tt, tc = TILES[tile]
+    pad, rows, ci = (k - 1) * dilation // 2, tt + (k - 1) * dilation, ci_chunk(k)
+    y = np.zeros((B, T, C_out), np.float32)
+    for bi, t0, co0 in itertools.product(range(B), range(0, T, tt), range(0, C_out, tc)):
+        acc = np.zeros((tt, tc), np.float32)
+        for ci0 in range(0, C_in, ci):
+            win = np.zeros((rows, ci), np.float32)
+            t = t0 - pad + np.arange(rows)
+            ok = (t >= 0) & (t < T)
+            cs = min(ci, C_in - ci0)
+            win[ok, :cs] = x[bi, t[ok], ci0:ci0 + cs]
+            win[:, :cs] = _snake_np(win[:, :cs], alpha[ci0:ci0 + cs]).astype(np.float32)
+            ws = np.zeros((k, ci, tc), np.float32)
+            co = min(tc, C_out - co0)
+            ws[:, :cs, :co] = w_kio[:, ci0:ci0 + cs, co0:co0 + co]
+            for j in range(k):
+                acc += win[j * dilation:j * dilation + tt] @ ws[j]
+        t_n, c_n = min(tt, T - t0), min(tc, C_out - co0)
+        y[bi, t0:t0 + t_n, co0:co0 + c_n] = acc[:t_n, :c_n] + b[co0:co0 + c_n]
+    if residual is not None:
+        y += residual.numpy()
+    return torch.from_numpy(y)
+
+
+def _conv_inputs(rng, B, T, C_in, C_out, k):
+    return (torch.from_numpy(rng.normal(size=(B, T, C_in)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0.5, 1.5, size=(C_in,)).astype(np.float32)),
+            torch.from_numpy((rng.normal(size=(C_out, C_in, k)) * 0.1).astype(np.float32)),
+            torch.from_numpy((rng.normal(size=(C_out,)) * 0.1).astype(np.float32)))
+
+
+@pytest.mark.parametrize("tile", range(len(TILES)))
+@pytest.mark.parametrize("k,dilation", [(7, 1), (7, 3), (7, 9), (1, 1)])
+def test_k5_model_matches_plain(k, dilation, tile):
+    """Widths and a length that are not multiples of any tile or chunk: C_in
+    20 (two and a half chunks), C_out 100 (a part-filled column tile), T 150,
+    batch 2, with and without the residual."""
+    rng = np.random.default_rng(10 * k + dilation + 100 * tile)
+    x, alpha, w, b = _conv_inputs(rng, 2, 150, 20, 100, k)
+    res = torch.from_numpy(rng.normal(size=(2, 150, 100)).astype(np.float32))
+    for residual in (None, res):
+        ref = snake_conv1d_plain(x, alpha, w, b, dilation, residual)
+        got = _k5_model(x, alpha, w, b, dilation, residual, tile)
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+def test_k5_model_residual_unit_matches_jax(dilation):
+    """Two model launches, the residual added in the second's epilogue, as
+    snake_residual_unit runs them, against JAX's DAC residual unit at C 20, T
+    150 (JAX's conv layout [k, C_in, C_out])."""
+    rng = np.random.default_rng(dilation)
+    C, T = 20, 150
+    x = rng.normal(size=(1, T, C)).astype(np.float32)
+    p = {"alpha1": rng.uniform(0.5, 1.5, size=(C,)).astype(np.float32),
+         "conv1": {"w": (rng.normal(size=(7, C, C)) * 0.1).astype(np.float32),
+                   "b": (rng.normal(size=(C,)) * 0.1).astype(np.float32)},
+         "alpha2": rng.uniform(0.5, 1.5, size=(C,)).astype(np.float32),
+         "conv2": {"w": (rng.normal(size=(1, C, C)) * 0.1).astype(np.float32),
+                   "b": (rng.normal(size=(C,)) * 0.1).astype(np.float32)}}
+    ref = np.array(jax_res_unit(p, x, dilation))
+
+    def conv(name):
+        return (torch.from_numpy(np.ascontiguousarray(np.transpose(p[name]["w"], (2, 1, 0)))),
+                torch.from_numpy(p[name]["b"]))
+
+    xt = torch.from_numpy(x)
+    tile = conv_plan(T, C, C, 7, dilation, SMS)
+    y = _k5_model(xt, torch.from_numpy(p["alpha1"]), *conv("conv1"), dilation, tile=tile)
+    got = _k5_model(y, torch.from_numpy(p["alpha2"]), *conv("conv2"), 1, residual=xt, tile=tile)
+    assert _rel_err(got, torch.from_numpy(ref)) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

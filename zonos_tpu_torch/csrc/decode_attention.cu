@@ -20,33 +20,33 @@
 // - The TPU kernel walks the cache blocks in order on one core and carries (m, l, acc) in
 //   VMEM scratch from one grid step to the next.  On the card CTAs run in parallel and in no
 //   order, and at batch 1 with CFG there are only 2 * 4 = 8 (batch row, kv head) pairs for
-//   132 SMs.  So K1 splits over S: one CTA per (256-row cache block, batch row, kv head)
-//   keeps its own fp32 (m, l, acc) for its G query rows, and a second small kernel combines
-//   the splits with the usual log-sum-exp rescaling.  Blocks at or past `length` are never
-//   launched, so the bytes read scale with the valid length, not the allocated S.
-// - K2 is one launch with no global scratch, for the port's dispatcher's short caches
-//   (length <= 256), where K1 would launch a single split.  Each (batch row, kv head) is a
-//   thread-block cluster of n CTAs (kernels/decode_attention.py cluster_plan: up to 8 CTAs
-//   of at least 32 rows while the grid stays within two CTAs per SM, so 8 at batch 1 with
-//   CFG, where there are only 8 pairs for 132 SMs; one CTA of up to 256 rows at batch 64
-//   with CFG, where one CTA a pair fills the card).  Rank r runs the same row routine over
-//   its chunk, then stores its (m, l) into every rank and each slice of its acc into the
-//   rank that owns those output columns, through distributed shared memory; after one
-//   cluster barrier each rank combines its columns with the usual log-sum-exp rescaling,
-//   in rank order.  A cluster's barriers and exchange cost more than they save up to 64
-//   rows, where one CTA a pair runs.
-// - A CTA (256 threads) stages its rows, up to a 256-row block of K and V (2 x 64 KB in
-//   bf16, 2 x 32 KB in f8 or int8), into shared memory with cp.async before it computes
-//   anything: every byte it needs is in flight at once, so a block costs one HBM round
-//   trip, and the V copy lands while the scores are computed.  Rows at or past `length`
-//   are zero-filled, not read.  (Earlier versions loaded rows into registers, 64 rows at a
-//   time, and waited for about eight round trips per block: on a cold L2 that was the
-//   kernel's time, PERF.md.)
-// - From shared memory, 16 lanes cover one 128-wide row with one 16-byte (bf16) or 8-byte
-//   (f8, int8) load each, so a warp reads two neighbouring rows.  Scores are reduced over
-//   the 16 lanes with 4 shuffles.  Softmax statistics are one row per thread.  The value
-//   product uses the same layout (each thread accumulates 8 output columns over its rows)
-//   and the 16 row groups are summed at the end in a fixed order.
+//   132 SMs.  So both kernels split a pair's valid rows over the CTAs of a thread-block
+//   cluster, one cluster per pair (kernels/decode_attention.py cluster_plan for K2,
+//   flash_plan for K1): rank r runs the row routine over its contiguous chunk, then stores
+//   its (m, l) into every rank and each slice of its acc into the rank that owns those
+//   output columns, through distributed shared memory; after one cluster barrier each rank
+//   combines its columns with the usual log-sum-exp rescaling, in rank order.  One launch,
+//   no global scratch.  Rows at or past `length` are never read, so the bytes read scale
+//   with the valid length, not the allocated S.
+// - K2 (`cluster_pass_kernel`, caches up to 256 rows): clusters of up to 8 CTAs (the
+//   portable limit) of at least 32 rows while the grid stays within two CTAs per SM; a
+//   CTA stages its whole chunk (up to 256 rows) before it computes.  Up to 64 rows one CTA
+//   a pair, where a cluster's barriers and exchange cost more than they save.
+// - K1 (`flash_cluster_kernel`, longer caches): clusters of up to 16 CTAs (a non-portable
+//   size, allowed by a function attribute), so that the 8 pairs of batch 1 with CFG become
+//   128 CTAs on 132 SMs; at batch 64 with CFG (512 pairs) fewer CTAs a pair (kernels/
+//   decode_attention.py flash_plan).  A rank streams its chunk through a ring of two 32 KB
+//   stages (64 rows of bf16 K and V, 128 of f8 or int8), carrying (m, l, acc) online: the
+//   next stage's copies are in flight while the current one is computed.  A CTA takes at
+//   most 64 KB of shared memory, so a 16-CTA cluster fits in a GPC
+//   (zt_flash_max_active_clusters asks the card how many fit).
+// - Copies go by cp.async (every byte of a stage in flight at once), K and V as two groups
+//   so that V lands while the scores are computed; rows at or past `length` are
+//   zero-filled, not read.  16 lanes cover one 128-wide row with one 16-byte (bf16) or
+//   8-byte (f8, int8) load each, so a warp reads two neighbouring rows, and a score is
+//   reduced over the 16 lanes with 4 shuffles.  Softmax statistics are one row per thread;
+//   the value product uses the same layout (each thread accumulates 8 output columns over
+//   its rows), and the 16 row groups are summed at the end in a fixed order.
 // - Scores, softmax weights and the accumulators are fp32; q, k, v are widened in
 //   registers (an f8 or int8 value is exact in fp32); the output is rounded to bf16 once.
 //   Rows at or past `length` are neither read nor computed, so garbage there (even inf/nan)
@@ -54,14 +54,13 @@
 //   run.
 // - Quantized caches (f8, int8): the current token's k and v are held out in bf16 and
 //   never read back from the cache, as in decode_attention_split: the kernels attend over
-//   cache rows [0, pos) plus that one row, and the caller writes the row afterwards.  K2's
-//   rank 0 starts its online softmax from the held-out row (m = its score, l = 1, acc = its
-//   v; at pos 0 that row is all there is); K1's combine pass adds it beside the splits.
-//   For int8 the row scale multiplies the score after the 1/sqrt(D) scale and the softmax
-//   weight before the value product, where decode_attention_split folds them; the scales
-//   of a block are staged beside it.
+//   cache rows [0, pos) plus that one row, and the caller writes the row afterwards.  Rank
+//   0 starts its online softmax from the held-out row (m = its score, l = 1, acc = its v;
+//   at pos 0 that row is all there is).  For int8 the row scale multiplies the score after
+//   the 1/sqrt(D) scale and the softmax weight before the value product, where
+//   decode_attention_split folds them; the scales of a stage are copied beside it.
 //
-// C interface (ctypes): every entry point returns cudaGetLastError() after its launches.
+// C interface (ctypes): every entry point returns cudaGetLastError() after its launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,6 +69,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -77,14 +77,16 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kD = 128;
-constexpr int kBlockS = 256;
-constexpr int kThreads = 256;  // one softmax row per thread: kThreads == kBlockS
+constexpr int kBlockS = 256;  // K2 stages a chunk of up to this many rows whole
+constexpr int kThreads = 256;  // one softmax row per thread: a stage holds at most kThreads rows
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanesPerRow = 16;  // 16 lanes x 8 values = one 128-wide row
 constexpr int kRowsPerPass = kThreads / kLanesPerRow;
 constexpr int kMaxG = 8;
 constexpr int kMaxCluster = 8;  // K2's CTAs per cluster, the portable limit
-static_assert(kThreads == kBlockS, "softmax statistics take one row per thread");
+constexpr int kMaxFlashCluster = 16;  // K1's, the largest cluster Hopper launches
+constexpr int kSlotBytes = 32 * 1024;  // one of K1's ring stages: its K and V rows
+constexpr int kFlashRing = 2;
 static_assert(kD == kLanesPerRow * 8, "a row is 16 lanes of 8 values");
 
 using bf16 = __nv_bfloat16;
@@ -94,13 +96,18 @@ template <typename T>
 constexpr bool kQuantized = !std::is_same<T, bf16>::value;  // held-out current row
 template <typename T>
 constexpr bool kScaled = std::is_same<T, int8_t>::value;  // per-row fp32 scales
-// dynamic shared memory: the staged K and V blocks, [kBlockS][kD] of T each
+// K2's dynamic shared memory at most: one chunk's K and V, [kBlockS][kD] of T each
 template <typename T>
 constexpr int kStageBytes = 2 * kBlockS * kD * (int)sizeof(T);
-// the row-group partial sums [kWarps][G][kD] fp32, which reuse the stage after the last block
+// K1's stage: the rows of K and V that fill one ring slot (64 bf16, 128 f8 or int8)
+template <typename T>
+constexpr int kFlashStageRows = kSlotBytes / (2 * kD * (int)sizeof(T));
+// the row-group partial sums [kWarps][G][kD] fp32, which reuse the stages after the last one
 template <int G>
 constexpr int kPartBytes = kWarps * G * kD * (int)sizeof(float);
-static_assert(kPartBytes<kMaxG> <= kStageBytes<int8_t>, "the partial sums fit a whole stage");
+static_assert(kPartBytes<kMaxG> <= kSlotBytes, "the partial sums fit one ring slot");
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 __device__ __forceinline__ void widen8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -167,18 +174,16 @@ __device__ __forceinline__ void block_reduce(float (&v)[G], float (*red)[G]) {
   __syncthreads();
 }
 
-// Starts the asynchronous copy of cache rows [0, stage_rows) of `src` into `dst` as one
-// cp.async group; rows at or past nrows are zero-filled without reading global memory.
-// Consecutive threads copy consecutive 16-byte pieces, so the reads are coalesced.  K1
-// stages whole 256-row blocks (stage_rows = kBlockS); K2 stages its chunk up to the end of
-// its last 16-row pass.
-template <typename T>
-__device__ __forceinline__ void stage_block(T* dst, const T* src, int nrows, int stage_rows) {
+// Starts the asynchronous copy of cache rows [0, stage_rows) of `src` into `dst` (not yet
+// committed); rows at or past nrows are zero-filled without reading global memory.
+// Consecutive threads copy consecutive 16-byte pieces, so the reads are coalesced.
+template <typename T, int kRows>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int nrows, int stage_rows) {
   constexpr int kChunksPerRow = kD * (int)sizeof(T) / 16;
   const char* s = reinterpret_cast<const char*>(src);
   char* d = reinterpret_cast<char*>(dst);
 #pragma unroll
-  for (int i = 0; i < kBlockS * kChunksPerRow / kThreads; ++i) {
+  for (int i = 0; i < (kRows * kChunksPerRow + kThreads - 1) / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (c >= stage_rows * kChunksPerRow) break;
     const bool in = c / kChunksPerRow < nrows;
@@ -186,8 +191,20 @@ __device__ __forceinline__ void stage_block(T* dst, const T* src, int nrows, int
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
                  "l"(in ? s + c * 16 : s), "r"(in ? 16 : 0));
   }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
+
+// The same for an int8 cache's row scales: [0, stage_rows), zero past nrows.
+__device__ __forceinline__ void copy_scales(float* dst, const float* src, int nrows,
+                                            int stage_rows) {
+  const int r = threadIdx.x;
+  if (r < stage_rows) {
+    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst + r));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
+                 "l"(r < nrows ? src + r : src), "r"(r < nrows ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Waits until at most `n` of this thread's cp.async groups are pending, then makes every
 // thread's copies visible to the CTA.
@@ -209,28 +226,49 @@ struct Rows {
   const bf16* v_new;
 };
 
-// Online softmax over cache rows [r0, r1) of one (batch row, kv head), in blocks of up to
-// kBlockS rows, started from the held-out row when kHeldOut and held_out (else m = -inf,
+// Online softmax over cache rows [r0, r1) of one (batch row, kv head), in stages of up to
+// kStageRows rows, started from the held-out row when kHeldOut and held_out (else m = -inf,
 // l = 0, and nothing at all for an empty range).  q: [G, D] bf16; the cache rows [S, D] of
-// T.  kFullStage stages whole blocks (K1); otherwise a block is staged to the end of its
-// last 16-row pass (K2's short chunks).  On return every thread holds the running max m and
-// sum l of each query row, and threads t < D hold out[g] = sum_r p_r * v[r][t].
-template <int G, typename T, bool kHeldOut, bool kFullStage>
+// T.  The stages go through a ring of kRing slots of the dynamic shared memory, each slot
+// the K and then the V rows of one stage (a slot holds min(kStageRows, r1 - r0 rounded up
+// to a 16-row pass) rows), copied as two cp.async groups so that V lands while the scores
+// are computed; with kRing > 1 (K1) the copies of stage i + 1 are started before stage i is
+// computed, and the first stage's before anything else.  K2 (kRing = 1) stages its chunk
+// whole.  On return every thread holds the running max m and sum l of each query row, and
+// threads t < D hold out[g] = sum_r p_r * v[r][t].
+template <int G, typename T, bool kHeldOut, int kStageRows, int kRing>
 __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Rows<T>& rows,
                                             int r0, int r1, bool held_out, float scale,
                                             float (&m)[G], float (&l)[G], float (&out)[G]) {
-  extern __shared__ __align__(16) unsigned char stage[];  // stage_bytes<T>(stage_rows_max)
-  T* ks = reinterpret_cast<T*>(stage);
-  const int stage_rows_max =
-      kFullStage ? kBlockS
-                 : min(kBlockS, (r1 - r0 + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass);
-  T* vs = ks + stage_rows_max * kD;
-  __shared__ float s[G][kBlockS];
+  static_assert(kStageRows <= kThreads && kStageRows % kRowsPerPass == 0,
+                "softmax statistics take one row per thread");
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ float s[G][kStageRows];
   __shared__ float red[kWarps][G];
-  __shared__ float kscale[kBlockS], vscale[kBlockS];
+  __shared__ float kscale[kRing][kScaled<T> ? kStageRows : 1];
+  __shared__ float vscale[kRing][kScaled<T> ? kStageRows : 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = tid % kLanesPerRow;  // columns [sub * 8, sub * 8 + 8)
   const int row_in_pass = tid / kLanesPerRow;
+  const int slot_rows = min(kStageRows, round_up(r1 - r0, kRowsPerPass));
+  const int n_stages = (r1 - r0 + kStageRows - 1) / kStageRows;
+  auto slot = [&](int i) {  // stage i's K rows; its V rows follow
+    return reinterpret_cast<T*>(stage) + (size_t)(i % kRing) * 2 * slot_rows * kD;
+  };
+  auto issue = [&](int i) {  // stage i's copies: K (and its scales), then V, two groups
+    const int row0 = r0 + i * kStageRows, nrows = min(kStageRows, r1 - row0);
+    const int stage_rows = round_up(nrows, kRowsPerPass);
+    T* ks = slot(i);
+    copy_rows<T, kStageRows>(ks, rows.k + (size_t)row0 * kD, nrows, stage_rows);
+    if constexpr (kScaled<T>) copy_scales(kscale[i % kRing], rows.ks + row0, nrows, stage_rows);
+    commit_copies();
+    copy_rows<T, kStageRows>(ks + slot_rows * kD, rows.v + (size_t)row0 * kD, nrows, stage_rows);
+    if constexpr (kScaled<T>) copy_scales(vscale[i % kRing], rows.vs + row0, nrows, stage_rows);
+    commit_copies();
+  };
+  if constexpr (kRing > 1) {
+    if (n_stages > 0) issue(0);
+  }
 
   float qf[G][8], acc[G][8];
 #pragma unroll
@@ -262,17 +300,20 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
     }
   }
 
-  for (int row0 = r0; row0 < r1; row0 += kBlockS) {
-    const int nrows = min(kBlockS, r1 - row0);
-    const int stage_rows =
-        kFullStage ? kBlockS : (nrows + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass;
-    stage_block(ks, rows.k + (size_t)row0 * kD, nrows, stage_rows);
-    stage_block(vs, rows.v + (size_t)row0 * kD, nrows, stage_rows);
-    if constexpr (kScaled<T>) {
-      kscale[tid] = tid < nrows ? rows.ks[row0 + tid] : 0.f;
-      vscale[tid] = tid < nrows ? rows.vs[row0 + tid] : 0.f;
+  for (int i = 0; i < n_stages; ++i) {
+    const int nrows = min(kStageRows, r1 - r0 - i * kStageRows);
+    bool more = false;  // stage i + 1's copies are in flight behind stage i's
+    if constexpr (kRing == 1) {
+      issue(i);
+    } else {
+      more = i + 1 < n_stages;
+      if (more) issue(i + 1);
     }
-    wait_staged<1>();  // K has landed; V is still in flight
+    if (more) wait_staged<3>(); else wait_staged<1>();  // K has landed; V may be in flight
+    const T* ks = slot(i);
+    const T* vs = ks + slot_rows * kD;
+    const float* kscl = kscale[i % kRing];
+    const float* vscl = vscale[i % kRing];
 
     // scores s[g][r] = scale * q[g] . k[row0 + r] (times the row's scale for int8)
     for (int r = row_in_pass; r - row_in_pass < nrows; r += kRowsPerPass) {
@@ -282,13 +323,13 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) dot = fmaf(qf[g][i], kf[i], dot);
+        for (int j = 0; j < 8; ++j) dot = fmaf(qf[g][j], kf[j], dot);
 #pragma unroll
         for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);  // stays inside the 16 lanes
         if (sub == 0 && r < nrows) {
           float sc = dot * scale;
-          if constexpr (kScaled<T>) sc *= kscale[r];
+          if constexpr (kScaled<T>) sc *= kscl[r];
           s[g][r] = sc;
         }
       }
@@ -307,9 +348,9 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       m_new[g] = fmaxf(m[g], mx[g]);
-      corr[g] = expf(m[g] - m_new[g]);  // 0 on the first block (m = -inf)
+      corr[g] = expf(m[g] - m_new[g]);  // 0 on the first stage (m = -inf)
       const float p = tid < nrows ? expf(sv[g] - m_new[g]) : 0.f;
-      s[g][tid] = p;
+      if (tid < kStageRows) s[g][tid] = p;
       sum[g] = p;
     }
     block_reduce<G, false>(sum, red);  // its barriers also publish the p values
@@ -318,27 +359,27 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
       l[g] = l[g] * corr[g] + sum[g];
       m[g] = m_new[g];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= corr[g];
+      for (int j = 0; j < 8; ++j) acc[g][j] *= corr[g];
     }
 
     // value product: this thread's 8 columns over its rows (p = 0 and v = 0 past nrows)
-    wait_staged<0>();
+    if (more) wait_staged<2>(); else wait_staged<0>();
     for (int r = row_in_pass; r - row_in_pass < nrows; r += kRowsPerPass) {
       float vf[8];
       load8(vs + r * kD + sub * 8, vf);
-      const float row_scale = kScaled<T> ? vscale[r] : 1.f;
+      const float row_scale = kScaled<T> ? vscl[r] : 1.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = kScaled<T> ? s[g][r] * row_scale : s[g][r];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+        for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(p, vf[j], acc[g][j]);
       }
     }
-    __syncthreads();  // s, the scales and the staged blocks are rewritten by the next block
+    __syncthreads();  // s, the scales and this slot are rewritten by a later stage
   }
 
   // sum the 16 row groups: two per warp (lanes xor 16), then the warps in order; the
-  // partial sums [kWarps][G][kD] fp32 reuse the staging buffer, free after the last block
+  // partial sums [kWarps][G][kD] fp32 reuse the staging buffer, free after the last stage
   // (the launch gives it at least kPartBytes<G>)
   float(*part)[G][kD] = reinterpret_cast<float(*)[G][kD]>(stage);
 #pragma unroll
@@ -385,95 +426,25 @@ struct Call {
   }
 };
 
-// K1, pass 1: grid (n_split, B * H_kv).  The held-out row is left to the combine pass.
-template <int G, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_split_kernel(Call<T> c, float* __restrict__ m_part, float* __restrict__ l_part,
-                   float* __restrict__ acc_part, int n_split) {
-  const int split = blockIdx.x, bh = blockIdx.y;
-  float m[G], l[G], acc[G];
-  const int r0 = split * kBlockS;
-  attend_rows<G, T, false, true>(c.q + (size_t)bh * G * kD, c.rows(bh), r0,
-                                 min(r0 + kBlockS, c.length), false, c.scale, m, l, acc);
-  const size_t base = ((size_t)bh * n_split + split) * G;
-  if (threadIdx.x < kD) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (threadIdx.x == 0) {
-        m_part[base + g] = m[g];
-        l_part[base + g] = l[g];
-      }
-      acc_part[(base + g) * kD + threadIdx.x] = acc[g];
-    }
-  }
-}
-
-// K1, pass 2: grid (B * H_kv), kD threads; merges the splits of each query row and, for a
-// quantized cache, the held-out row.
-template <int G, typename T>
-__global__ void __launch_bounds__(kD)
-flash_combine_kernel(Call<T> c, const float* __restrict__ m_part,
-                     const float* __restrict__ l_part, const float* __restrict__ acc_part,
-                     int n_split) {
-  const int bh = blockIdx.x, d = threadIdx.x;
-  float s_new[G] = {}, v_new = 0.f;
-  if constexpr (kQuantized<T>) {
-    __shared__ float red[kD / 32][G];
-    const float kn = __bfloat162float(c.k_new[(size_t)bh * kD + d]);
-    v_new = __bfloat162float(c.v_new[(size_t)bh * kD + d]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float t = warp_sum(__bfloat162float(c.q[((size_t)bh * G + g) * kD + d]) * kn);
-      if ((d & 31) == 0) red[d >> 5][g] = t;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float t = red[0][g];
-#pragma unroll
-      for (int w = 1; w < kD / 32; ++w) t += red[w][g];
-      s_new[g] = t * c.scale;
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float mx = kQuantized<T> ? s_new[g] : -INFINITY;
-    for (int i = 0; i < n_split; ++i) mx = fmaxf(mx, m_part[((size_t)bh * n_split + i) * G + g]);
-    float l = 0.f, o = 0.f;
-    if constexpr (kQuantized<T>) {
-      const float w = expf(s_new[g] - mx);
-      l = w;
-      o = v_new * w;
-    }
-    for (int i = 0; i < n_split; ++i) {
-      const size_t idx = ((size_t)bh * n_split + i) * G + g;
-      const float w = expf(m_part[idx] - mx);
-      l += l_part[idx] * w;
-      o += acc_part[idx * kD + d] * w;
-    }
-    c.out[((size_t)bh * G + g) * kD + d] = __float2bfloat16(o / l);
-  }
-}
-
-// K2: grid (n, B * H_kv), launched as clusters of n CTAs along x, one cluster per (batch
-// row, kv head).  Rank r attends cache rows [r * chunk, min((r + 1) * chunk, length)) (rank
-// 0 also the held-out row of a quantized cache).  Each rank owns a slice of `width` of the
-// 128 output columns; rank r stores its m and l into every rank's shared memory and each
-// slice of its acc into the rank that owns it (the exchange area, `xchg` bytes into the
-// dynamic shared memory, past the stage), then arrives on the cluster barrier with release
-// semantics and waits on it (acquire): each rank then combines the n partials of its own
-// columns in rank order from its own shared memory.  An earlier relaxed barrier phase,
-// waited on only just before the remote stores, makes sure every rank has started.  One
-// CTA (n = 1) writes its output directly.
-template <int G, typename T>
-__global__ void __launch_bounds__(kThreads)
-cluster_pass_kernel(Call<T> c, int chunk, int xchg) {
+// One cluster per (batch row, kv head): grid (n, B * H_kv), clusters of n CTAs along x.
+// Rank r attends cache rows [r * chunk, min((r + 1) * chunk, length)) (rank 0 also the
+// held-out row of a quantized cache).  Each rank owns a slice of `width` of the 128 output
+// columns; rank r stores its m and l into every rank's shared memory and each slice of its
+// acc into the rank that owns it (the exchange area, `xchg` bytes into the dynamic shared
+// memory, past the stages), then arrives on the cluster barrier with release semantics and
+// waits on it (acquire): each rank then combines the n partials of its own columns in rank
+// order from its own shared memory.  An earlier relaxed barrier phase, waited on only just
+// before the remote stores, makes sure every rank has started.  One CTA (n = 1) writes its
+// output directly.
+template <int G, typename T, bool kFlash>
+__device__ __forceinline__ void cluster_attend(const Call<T>& c, int chunk, int xchg) {
   const int n = gridDim.x, rank = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
   if (n > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int r0 = min(rank * chunk, c.length), r1 = min(r0 + chunk, c.length);
   float m[G], l[G], acc[G];
-  attend_rows<G, T, kQuantized<T>, false>(c.q + (size_t)bh * G * kD, c.rows(bh), r0, r1,
-                                          rank == 0, c.scale, m, l, acc);
+  constexpr int kStageRows = kFlash ? kFlashStageRows<T> : kBlockS;
+  attend_rows<G, T, kQuantized<T>, kStageRows, kFlash ? kFlashRing : 1>(
+      c.q + (size_t)bh * G * kD, c.rows(bh), r0, r1, rank == 0, c.scale, m, l, acc);
   bf16* out = c.out + (size_t)bh * G * kD;
   if (n == 1) {
     if (tid < kD) {
@@ -521,81 +492,108 @@ cluster_pass_kernel(Call<T> c, int chunk, int xchg) {
   }
 }
 
-// Lets `kernel` take its staging buffer (up to 128 KB) of dynamic shared memory, above the
-// 48 KB default; set once per kernel (a function-local static is initialised once).
-template <typename Kernel>
-cudaError_t allow_stage(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// K2: each CTA stages its chunk (at most one 256-row block) whole.
+template <int G, typename T>
+__global__ void __launch_bounds__(kThreads) cluster_pass_kernel(Call<T> c, int chunk, int xchg) {
+  cluster_attend<G, T, false>(c, chunk, xchg);
 }
 
+// K1: each CTA streams its chunk through the ring of 32 KB stages.
 template <int G, typename T>
-int launch_flash(const Call<T>& c, void* m_part, void* l_part, void* acc_part, int BH,
-                 int n_split, cudaStream_t stream) {
-  static const cudaError_t attr = allow_stage(flash_split_kernel<G, T>, kStageBytes<T>);
-  if (attr != cudaSuccess) return attr;
-  if (n_split > 0) {  // a quantized cache at pos 0 has no cache rows: only the held-out row
-    flash_split_kernel<G, T><<<dim3(n_split, BH), kThreads, kStageBytes<T>, stream>>>(
-        c, static_cast<float*>(m_part), static_cast<float*>(l_part),
-        static_cast<float*>(acc_part), n_split);
-    const cudaError_t err = cudaGetLastError();
+__global__ void __launch_bounds__(kThreads) flash_cluster_kernel(Call<T> c, int chunk, int xchg) {
+  cluster_attend<G, T, true>(c, chunk, xchg);
+}
+
+// A launch of K1 (kFlash) or K2: the kernel, its stage, ring and cluster limit.
+template <int G, typename T, bool kFlash>
+struct Plan {
+  static constexpr int kStageRows = kFlash ? kFlashStageRows<T> : kBlockS;
+  static constexpr int kRing = kFlash ? kFlashRing : 1;
+  static constexpr int kMaxN = kFlash ? kMaxFlashCluster : kMaxCluster;
+  // the exchange area of n ranks, at most G * (3 * kMaxN + kD) floats (n * width <= kD + n)
+  static constexpr int kMaxSmem =
+      (kFlash ? kRing * kSlotBytes : kStageBytes<T>) + G * (3 * kMaxN + kD) * (int)sizeof(float);
+
+  static void (*kernel())(Call<T>, int, int) {
+    if constexpr (kFlash) return flash_cluster_kernel<G, T>;
+    else return cluster_pass_kernel<G, T>;
+  }
+
+  // Where the exchange area starts: past the ring slots one rank of `chunk` rows uses, and
+  // at least the row-group partial sums (16-byte multiples).
+  static int xchg(int chunk) {
+    const int slot_rows = std::min(kStageRows, round_up(chunk, kRowsPerPass));
+    const int slots = std::min(kRing, (chunk + kStageRows - 1) / kStageRows);
+    return std::max(slots * 2 * slot_rows * kD * (int)sizeof(T), kPartBytes<G>);
+  }
+
+  // Lets the kernel take its stages above the 48 KB default and (K1) clusters above the
+  // portable 8 CTAs; set once per kernel (a function-local static is initialised once).
+  static cudaError_t allow() {
+    static const cudaError_t err = [] {
+      cudaError_t e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kMaxSmem);
+      if (e == cudaSuccess && kFlash)
+        e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      return e;
+    }();
+    return err;
+  }
+
+  // The launch of clusters of n CTAs of `chunk` rows over BH pairs; refuses a plan that
+  // leaves rows out or passes the cluster limit.
+  static cudaError_t config(int BH, int length, int n, int chunk, cudaStream_t stream,
+                            cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster_dim,
+                            int& xchg_bytes) {
+    if (n < 1 || n > kMaxN || chunk < 0 || (long long)n * chunk < length || BH < 1)
+      return cudaErrorInvalidValue;
+    const cudaError_t attr = allow();
+    if (attr != cudaSuccess) return attr;
+    xchg_bytes = xchg(chunk);
+    const int width = (kD + n - 1) / n;
+    cluster_dim.id = cudaLaunchAttributeClusterDimension;
+    cluster_dim.val.clusterDim.x = n;
+    cluster_dim.val.clusterDim.y = 1;
+    cluster_dim.val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = dim3(n, BH);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = xchg_bytes + (n > 1 ? n * G * (2 + width) * (int)sizeof(float) : 0);
+    cfg.stream = stream;
+    cfg.attrs = &cluster_dim;
+    cfg.numAttrs = 1;
+    return cudaSuccess;
+  }
+
+  static int launch(const Call<T>& c, int BH, int n, int chunk, cudaStream_t stream) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute cluster_dim;
+    int xchg_bytes;
+    cudaError_t err = config(BH, c.length, n, chunk, stream, cfg, cluster_dim, xchg_bytes);
     if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel(), c, chunk, xchg_bytes);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
-  flash_combine_kernel<G, T><<<BH, kD, 0, stream>>>(
-      c, static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), n_split);
-  return cudaGetLastError();
-}
 
-// K2's launch: clusters of n CTAs (1 to 8, the portable limit) of `chunk` rows each
-// (kernels/decode_attention.py cluster_plan); dynamic shared memory for the K and V stages of
-// one chunk (at most one block) and at least the row-group partial sums.
-template <int G, typename T>
-int launch_single(const Call<T>& c, int BH, int n, int chunk, cudaStream_t stream) {
-  if (n < 1 || n > kMaxCluster || chunk < 0 || (long long)n * chunk < c.length)
-    return cudaErrorInvalidValue;
-  static const cudaError_t attr = allow_stage(
-      cluster_pass_kernel<G, T>, kStageBytes<T> + kMaxCluster * G * (2 + kD) * (int)sizeof(float));
-  if (attr != cudaSuccess) return attr;
-  const int stage_rows = min(kBlockS, (chunk + kRowsPerPass - 1) / kRowsPerPass * kRowsPerPass);
-  const int xchg = max(2 * stage_rows * kD * (int)sizeof(T), kPartBytes<G>);  // 16-byte multiple
-  const int width = (kD + n - 1) / n;
-  const int smem = xchg + (n > 1 ? n * G * (2 + width) * (int)sizeof(float) : 0);
-  cudaLaunchAttribute cluster_dim[1];
-  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
-  cluster_dim[0].val.clusterDim.x = n;
-  cluster_dim[0].val.clusterDim.y = 1;
-  cluster_dim[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n, BH);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  config.attrs = cluster_dim;
-  config.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&config, cluster_pass_kernel<G, T>, c, chunk, xchg);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-template <typename T>
-int flash_by_group(const Call<T>& c, void* m_part, void* l_part, void* acc_part, int BH, int G,
-                   int n_split, cudaStream_t st) {
-  switch (G) {
-    case 1: return launch_flash<1, T>(c, m_part, l_part, acc_part, BH, n_split, st);
-    case 2: return launch_flash<2, T>(c, m_part, l_part, acc_part, BH, n_split, st);
-    case 4: return launch_flash<4, T>(c, m_part, l_part, acc_part, BH, n_split, st);
-    case 8: return launch_flash<8, T>(c, m_part, l_part, acc_part, BH, n_split, st);
-    default: return cudaErrorInvalidValue;
+  // How many clusters of this plan the card holds at once (0: it cannot launch them).
+  static int max_active(int n, int chunk, int* clusters) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute cluster_dim;
+    int xchg_bytes;
+    const cudaError_t err = config(1, 0, n, chunk, nullptr, cfg, cluster_dim, xchg_bytes);
+    if (err != cudaSuccess) return err;
+    cfg.gridDim = dim3(n, 1);
+    return cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg);
   }
-}
+};
 
-template <typename T>
-int single_by_group(const Call<T>& c, int BH, int G, int n, int chunk, cudaStream_t st) {
+template <bool kFlash, typename T>
+int launch_by_group(const Call<T>& c, int BH, int G, int n, int chunk, cudaStream_t st) {
   switch (G) {
-    case 1: return launch_single<1, T>(c, BH, n, chunk, st);
-    case 2: return launch_single<2, T>(c, BH, n, chunk, st);
-    case 4: return launch_single<4, T>(c, BH, n, chunk, st);
-    case 8: return launch_single<8, T>(c, BH, n, chunk, st);
+    case 1: return Plan<1, T, kFlash>::launch(c, BH, n, chunk, st);
+    case 2: return Plan<2, T, kFlash>::launch(c, BH, n, chunk, st);
+    case 4: return Plan<4, T, kFlash>::launch(c, BH, n, chunk, st);
+    case 8: return Plan<8, T, kFlash>::launch(c, BH, n, chunk, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -610,50 +608,67 @@ Call<T> make_call(const void* q, const void* k, const void* v, const void* ks, c
           static_cast<bf16*>(out), S, length, scale};
 }
 
+// Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
+template <bool kFlash>
+int launch_quantized(int storage, const void* q, const void* k, const void* v,
+                     const void* k_scale, const void* v_scale, const void* k_new,
+                     const void* v_new, void* out, int B, int Hkv, int G, int S, int pos, int n,
+                     int chunk, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (storage == 1)
+    return launch_by_group<kFlash>(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S,
+                                                 pos, scale),
+                                   B * Hkv, G, n, chunk, st);
+  if (storage == 2)
+    return launch_by_group<kFlash>(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new,
+                                                     out, S, pos, scale),
+                                   B * Hkv, G, n, chunk, st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int max_active_by_group(int G, int n, int chunk, int* clusters) {
+  switch (G) {
+    case 1: return Plan<1, T, true>::max_active(n, chunk, clusters);
+    case 2: return Plan<2, T, true>::max_active(n, chunk, clusters);
+    case 4: return Plan<4, T, true>::max_active(n, chunk, clusters);
+    case 8: return Plan<8, T, true>::max_active(n, chunk, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q [B, 1, H, D], k/v [B, H_kv, S, D], out [B, 1, H, D]: bf16, contiguous, D = 128.
-// Scratch: m_part/l_part [B*H_kv, n_split, G], acc_part [B*H_kv, n_split, G, D] fp32.
+// K1: clusters of n CTAs (up to 16) of `chunk` rows (n * chunk >= length).
 extern "C" int zt_flash_decode_attention(const void* q, const void* k, const void* v, void* out,
-                                         void* m_part, void* l_part, void* acc_part, int B,
-                                         int Hkv, int G, int S, int length, int n_split,
-                                         float scale, void* stream) {
-  const Call<bf16> c = make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, S,
-                                       length, scale);
-  return flash_by_group(c, m_part, l_part, acc_part, B * Hkv, G, n_split,
-                        static_cast<cudaStream_t>(stream));
+                                         int B, int Hkv, int G, int S, int length, int n,
+                                         int chunk, float scale, void* stream) {
+  return launch_by_group<true>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out,
+                                               S, length, scale),
+                               B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
 }
 
-// K2: clusters of n CTAs of `chunk` rows (n * chunk >= length).
+// K2: clusters of n CTAs (up to 8) of `chunk` rows (n * chunk >= length).
 extern "C" int zt_decode_attention_single(const void* q, const void* k, const void* v, void* out,
                                           int B, int Hkv, int G, int S, int length, int n,
                                           int chunk, float scale, void* stream) {
-  const Call<bf16> c = make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, S,
-                                       length, scale);
-  return single_by_group(c, B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
+  return launch_by_group<false>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                                                out, S, length, scale),
+                                B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
 }
 
 // Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
 // k/v [B, H_kv, S, D] of that type; k_new/v_new [B, 1, H_kv, D] bf16, the current token's,
-// held out; cache rows [0, pos) are attended (pos may be 0).  Scratch as above, n_split =
-// ceil(pos / 256).
+// held out; cache rows [0, pos) are attended (pos may be 0).
 extern "C" int zt_flash_decode_attention_q(int storage, const void* q, const void* k,
                                            const void* v, const void* k_scale,
                                            const void* v_scale, const void* k_new,
-                                           const void* v_new, void* out, void* m_part,
-                                           void* l_part, void* acc_part, int B, int Hkv, int G,
-                                           int S, int pos, int n_split, float scale,
+                                           const void* v_new, void* out, int B, int Hkv, int G,
+                                           int S, int pos, int n, int chunk, float scale,
                                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (storage == 1)
-    return flash_by_group(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S, pos,
-                                        scale),
-                          m_part, l_part, acc_part, B * Hkv, G, n_split, st);
-  if (storage == 2)
-    return flash_by_group(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new, out, S,
-                                            pos, scale),
-                          m_part, l_part, acc_part, B * Hkv, G, n_split, st);
-  return cudaErrorInvalidValue;
+  return launch_quantized<true>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv, G,
+                                S, pos, n, chunk, scale, stream);
 }
 
 extern "C" int zt_decode_attention_single_q(int storage, const void* q, const void* k,
@@ -662,14 +677,15 @@ extern "C" int zt_decode_attention_single_q(int storage, const void* q, const vo
                                             const void* v_new, void* out, int B, int Hkv, int G,
                                             int S, int pos, int n, int chunk, float scale,
                                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (storage == 1)
-    return single_by_group(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S, pos,
-                                         scale),
-                           B * Hkv, G, n, chunk, st);
-  if (storage == 2)
-    return single_by_group(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new, out, S,
-                                             pos, scale),
-                           B * Hkv, G, n, chunk, st);
+  return launch_quantized<false>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv,
+                                 G, S, pos, n, chunk, scale, stream);
+}
+
+// K1's plan check: how many clusters of n CTAs of `chunk` rows (storage 0 = bf16, 1 = f8,
+// 2 = int8; G query rows a kv head) the card holds at once, into *clusters.
+extern "C" int zt_flash_max_active_clusters(int storage, int G, int n, int chunk, int* clusters) {
+  if (storage == 0) return max_active_by_group<bf16>(G, n, chunk, clusters);
+  if (storage == 1) return max_active_by_group<f8>(G, n, chunk, clusters);
+  if (storage == 2) return max_active_by_group<int8_t>(G, n, chunk, clusters);
   return cudaErrorInvalidValue;
 }

@@ -22,16 +22,17 @@ import torch
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 
-BLOCK_S = 256  # cache rows per split; compiled into the kernel
+BLOCK_S = 256  # the longest cache K2 takes (staged whole); longer ones go to K1
 HEAD_DIM = 128  # compiled into the kernel
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernel is instantiated for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "zt_flash_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "zt_flash_decode_attention": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "zt_flash_decode_attention_q": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
+    "zt_flash_decode_attention_q": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    "zt_flash_max_active_clusters": [_I, _I, _I, _I, _P],
 }
 # quantized cache storage: the kernels' storage code and the launch-count suffix
 STORAGE = {torch.float8_e4m3fn: (1, "f8"), torch.int8: (2, "int8")}
@@ -40,6 +41,7 @@ CHUNK_ROWS = 32  # the fewest cache rows worth a CTA of its own in a cluster
 ONE_CTA_ROWS = 64  # up to here one CTA a pair beats a cluster's fixed cost (--sweep)
 ROWS_PER_PASS = 16  # cache rows a CTA covers at once (16 lanes a row); chunks are multiples
 CTAS_PER_SM = 2  # the grid K2's plan stops splitting at
+MAX_FLASH_CLUSTER = 16  # K1's CTAs per cluster, the largest (non-portable) size
 
 
 def cluster_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
@@ -59,6 +61,27 @@ def cluster_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
         n //= 2
     chunk = -(-length // n)
     chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
+    return (max(1, -(-length // chunk)) if chunk else 1), chunk
+
+
+def flash_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
+    """K1's launch plan: ``(n, chunk)``, clusters of ``n`` CTAs (1 to 16), one
+    per (batch row, kv head), rank ``r`` attending cache rows ``[r * chunk,
+    min((r + 1) * chunk, length))`` in stages.  ``n`` doubles while the grid
+    stays within one CTA per SM, so that few pairs still fill the card, and
+    is cut to one CTA per ``ONE_CTA_ROWS`` rows; ``chunk`` is rounded up to a
+    multiple of 16 rows and ``n`` cut to the ranks that hold rows.  Once the
+    pairs alone fill the card, one CTA a pair streams all its rows: the
+    cluster's barriers cost more than they save there (``chip_smoke.py
+    --sweep``).  Batch 1 with CFG (8 pairs) at 2000 rows: 16 CTAs of 128;
+    at 512 rows 8 CTAs of 64; batch 64 with CFG (512 pairs): one CTA.
+    ``length`` 0 (a quantized cache at pos 0, the held-out row only): one
+    CTA with no cache rows."""
+    n = 1
+    while n < MAX_FLASH_CLUSTER and 2 * n * bh_kv <= sms:
+        n *= 2
+    n = max(1, min(n, length // ONE_CTA_ROWS))
+    chunk = -(-(-(-length // n)) // ROWS_PER_PASS) * ROWS_PER_PASS
     return (max(1, -(-length // chunk)) if chunk else 1), chunk
 
 
@@ -144,32 +167,39 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> tu
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           length: int, block_s: int = BLOCK_S) -> torch.Tensor:
-    """K1: split over 256-row cache blocks, one CTA per (block, row, kv head),
-    then a combine pass.  CPU tensors take the plain version."""
+                           length: int) -> torch.Tensor:
+    """K1: one thread-block cluster of up to 16 CTAs per (row, kv head)
+    (:func:`flash_plan`), each CTA streaming its chunk of the valid rows
+    through a ring of stages, the partial softmaxes combined through
+    distributed shared memory; one launch, no scratch.  CPU tensors take the
+    plain version."""
     length = int(length)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, length)
-    if block_s != BLOCK_S:
-        raise ValueError(f"the kernel is compiled for block_s={BLOCK_S}")
     B, H_kv, G, S = _check(q, k_cache, v_cache, length)
-    n_split = -(-length // BLOCK_S)
-    # per-split (m, l) [B*H_kv, n_split, G] each and acc [B*H_kv, n_split, G, D], fp32,
-    # in one allocation
-    n = B * H_kv * n_split * G
-    scratch = torch.empty(n * (2 + HEAD_DIM), dtype=torch.float32, device=q.device)
-    m_ptr = scratch.data_ptr()
+    n, chunk = flash_plan(length, B * H_kv, sm_count(q.device.index))
     out = torch.empty_like(q)
     lib = library("decode_attention", _SIGNATURES)
     rc = lib.zt_flash_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        m_ptr, m_ptr + 4 * n, m_ptr + 8 * n,
-        B, H_kv, G, S, length, n_split, attention_scale(HEAD_DIM),
+        B, H_kv, G, S, length, n, chunk, attention_scale(HEAD_DIM),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(rc, "flash_decode_attention")
     launch_counts["flash_decode_attention"] += 1
     return out
+
+
+def max_active_clusters(storage: torch.dtype, G: int, n: int, chunk: int) -> int:
+    """How many of K1's clusters of ``n`` CTAs of ``chunk`` rows, over a cache
+    of ``storage`` (bf16, f8 or int8) with ``G`` query heads a kv head, the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``; 0: it
+    cannot launch them)."""
+    code = 0 if storage == torch.bfloat16 else STORAGE[storage][0]
+    clusters = ctypes.c_int(0)
+    check(library("decode_attention", _SIGNATURES).zt_flash_max_active_clusters(
+        code, G, n, chunk, ctypes.addressof(clusters)), "flash_max_active_clusters")
+    return clusters.value
 
 
 def decode_attention_single(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -264,9 +294,10 @@ def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
 
 def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
                                     k_scale=None, v_scale=None) -> torch.Tensor:
-    """K1 over an f8 or int8 cache with the current row held out: one CTA per
-    (256-row block of [0, pos), row, kv head), and the combine pass adds the
-    held-out row.  CPU tensors take the plain version."""
+    """K1 over an f8 or int8 cache with the current row held out: one cluster
+    per (row, kv head) streams [0, pos) over its CTAs (:func:`flash_plan`),
+    rank 0 starting its online softmax from the held-out row.  CPU tensors
+    take the plain version."""
     pos = int(pos)
     if not q.is_cuda:
         return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
@@ -274,17 +305,13 @@ def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
     code, suffix = STORAGE[k_cache.dtype]
-    n_split = -(-pos // BLOCK_S)
-    n = B * H_kv * n_split * G
-    scratch = torch.empty(max(n, 1) * (2 + HEAD_DIM), dtype=torch.float32, device=q.device)
-    m_ptr = scratch.data_ptr()
+    n, chunk = flash_plan(pos, B * H_kv, sm_count(q.device.index))
     out = torch.empty_like(q)
     lib = library("decode_attention", _SIGNATURES)
     rc = lib.zt_flash_decode_attention_q(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), m_ptr, m_ptr + 4 * n, m_ptr + 8 * n,
-        B, H_kv, G, S, pos, n_split, attention_scale(HEAD_DIM),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos, n, chunk,
+        attention_scale(HEAD_DIM), torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(rc, f"flash_decode_attention_{suffix}")
     launch_counts[f"flash_decode_attention_{suffix}"] += 1
