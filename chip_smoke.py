@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    against its plain PyTorch version on the same inputs at flagship shapes,
    with the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
-   after, and each failing if a kernel of that path did not launch:
+   after (a CUDA graph's launches counted at every replay), each failing if
+   a kernel of that path did not launch or if a generate's decode did not
+   run as CUDA-graph replays:
    - transformer: text -> codes -> 44.1 kHz wav on the full-width flagship
      transformer (random bf16 weights from a seed) and the full DAC (random
      fp32), at batch 1 (twice, same seed: identical codes) and at batch 4,
@@ -28,10 +30,16 @@ Phases, each of which fails the run (non-zero exit) on error:
      rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7;
    - hybrid int4: that model after ``quantize_int4()``, one batch-1 generate
      of 130 frames; K6, K7, K8.
-   The bf16 and quantized transformer paths and the bf16 hybrid path are
-   each followed by a profile of their batch-1 decode step (device busy and
-   idle share, top kernels, the port's kernels' ms per step); the int8 path
-   also by one at batch 64 with the f8 KV cache (K4 at 128 rows).
+   Each path is followed by a ``[graph …]`` phase: the private eager decode
+   loop and the CUDA graphs on one batch-1 generate (470 new tokens, through
+   all three bands of cache lengths; 130 on the hybrid int4), same seed, EOS
+   banned: their codes must be equal bit for bit; wall ms per step of each,
+   capture time and graphs captured.  The bf16 and quantized transformer
+   paths and the bf16 hybrid path are each followed by a profile of their
+   batch-1 decode step, eager and under the graphs (the steady-state step's
+   wall and device busy time and idle share, top kernels, the port's
+   kernels' ms per step); the int8 path also by one at batch 64 with the f8
+   KV cache (K4 at 128 rows).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
@@ -41,12 +49,15 @@ Phases, each of which fails the run (non-zero exit) on error:
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
 and then times K8 and K4 over their contraction splits, K7 over its slab
 sizes, K2 and K1 over their cluster sizes by cache length and K5 over its
-tile shapes by DAC width instead (how their defaults were chosen).
+tile shapes by DAC width instead (how their defaults were chosen; K2's
+also with its band's own launch).
 
 ``python3 chip_smoke.py --times [--port DIR]`` runs phases 1-2 and only the
 timed rows of K1, K2 and K5 with a breakdown of a K1 call by launch; with
 ``--port DIR`` it imports the port from DIR, a checkout of another commit,
-so that two commits' kernels are timed by the same code on one card.
+so that two commits' kernels are timed by the same code on one card (a
+checkout whose K1/K2 take the length on the card, as this one's do; an older
+checkout is timed by its own copy of this script, run from DIR).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -92,6 +103,9 @@ INT4_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_f8", "decode_atten
                                       "int4_matmul")
 HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul")
 HYBRID_INT4_NEW_TOKENS = 130
+# the [graph] phases: 470 new tokens after the smoke's 54-row prefix take the cache past 512
+# rows, through K2's band and both of K1's
+GRAPH_NEW_TOKENS = 470
 # the flagship transformer's matmul weights [din, dout] (the heads: 9 x 1152 columns)
 FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384),
                     "w2": (8192, 2048), "heads": (2048, 10368)}
@@ -117,7 +131,7 @@ K1_CHECK_BATCHES = (2, 8, 128)
 STATE_STEP_EXTRA_SHAPES = ((130, 64, 128), (128, 50, 128), (128, 64, 64))
 # the batch-64 int8 profile: bench.py's rtf_batch64 configuration (int8 weights, f8 KV
 # cache, CFG: 128 backbone rows), EOS banned so that every step runs all rows
-B64_BATCH, B64_NEW_TOKENS = 64, 32
+B64_BATCH = 64
 
 
 def fail(msg: str) -> None:
@@ -129,6 +143,18 @@ def bf16_ulp(x: float) -> float:
     import math
 
     return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
+
+
+def on_card(length: int, held_out: bool = False) -> tuple:
+    """A cache length as the decode step hands it to K1/K2: an int32 on the
+    card, and the band of the attended length (one more with the current row
+    held out) that fixes the launch."""
+    import torch
+
+    from zonos_tpu_torch.kernels.decode_attention import band_of
+
+    return (torch.full((), length, dtype=torch.int32, device="cuda"),
+            band_of(length + held_out))
 
 
 def device_ms(fn, calls: int = 20, reps: int = 21, warmup: int = 3) -> tuple[float, float]:
@@ -226,7 +252,7 @@ def check_decode_attention(gen) -> dict:
             tol = 2 * bf16_ulp(float(ref.abs().max()))
             for name, fn in (("flash_decode_attention", flash_decode_attention),
                              ("decode_attention_single", decode_attention_single)):
-                got = fn(q, k, v, length)
+                got = fn(q, k, v, *on_card(length))
                 torch.cuda.synchronize()
                 err = float((got.float() - ref).abs().max())
                 if not err <= tol:
@@ -241,7 +267,7 @@ def check_decode_attention(gen) -> dict:
         v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
         for length in K2_CHECK_LENGTHS:
             ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
-            got = decode_attention_single(q, k, v, length)
+            got = decode_attention_single(q, k, v, *on_card(length))
             torch.cuda.synchronize()
             err = float((got.float() - ref).abs().max())
             if not err <= 2 * bf16_ulp(float(ref.abs().max())):
@@ -276,7 +302,7 @@ def check_flash_attention(gen, worst: dict) -> None:
                     for _ in range(2))
             for length in lengths:
                 ref = decode_attention_plain(q.float(), k.float(), v.float(), length)
-                got = flash_decode_attention(q, k, v, length)
+                got = flash_decode_attention(q, k, v, *on_card(length))
                 torch.cuda.synchronize()
                 err = float((got.float() - ref).abs().max())
                 if not err <= 2 * bf16_ulp(float(ref.abs().max())):
@@ -290,7 +316,9 @@ def check_flash_attention(gen, worst: dict) -> None:
                 for pos in (K1_CHECK_POS if S == 2048 else (4095,)):
                     ref = decode_attention_split_plain(q.float(), k, v, k_new.float(),
                                                        v_new.float(), pos, ks, vs)
-                    got = flash_decode_attention_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+                    pos_t, band = on_card(pos, held_out=True)
+                    got = flash_decode_attention_held_out(q, k, v, k_new, v_new, pos_t, ks, vs,
+                                                          band=band)
                     torch.cuda.synchronize()
                     err = float((got.float() - ref).abs().max())
                     tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
@@ -312,13 +340,13 @@ def check_fused_sample(gen) -> float:
     import torch
 
     from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_scores_plain
-    from zonos_tpu_torch.ops.sampling import gumbel_noise
+    from zonos_tpu_torch.ops.sampling import gumbel_of_uniform
 
     B, K, V, valid = 8, 9, 1152, 1025
     worst = 0
     logits = torch.randn((B, K, V), generator=gen, device="cuda") * 3.0
     logits[..., valid:] = float("-inf")
-    noise = gumbel_noise((B, K, V), gen, "cuda")
+    noise = gumbel_of_uniform(torch.rand((B, K, V), generator=gen, device="cuda"))
     for min_p in (0.0, 0.1):
         kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=min_p, temperature=1.0)
         scores = fused_sample_scores_plain(logits, noise, **kw)
@@ -534,9 +562,10 @@ def check_decode_attention_quantized(gen) -> dict:
                 ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(),
                                                    pos, ks, vs)
                 tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
+                pos_t, band = on_card(pos, held_out=True)
                 for name, fn in (("flash_decode_attention", flash_decode_attention_held_out),
                                  ("decode_attention_single", decode_attention_single_held_out)):
-                    got = fn(q, k, v, k_new, v_new, pos, ks, vs)
+                    got = fn(q, k, v, k_new, v_new, pos_t, ks, vs, band=band)
                     torch.cuda.synchronize()
                     err = float((got.float() - ref).abs().max())
                     if not err <= tol:
@@ -557,7 +586,9 @@ def check_decode_attention_quantized(gen) -> dict:
                 pos = length - 1
                 ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(),
                                                    pos, ks, vs)
-                got = decode_attention_single_held_out(q, k, v, k_new, v_new, pos, ks, vs)
+                pos_t, band = on_card(pos, held_out=True)
+                got = decode_attention_single_held_out(q, k, v, k_new, v_new, pos_t, ks, vs,
+                                                       band=band)
                 torch.cuda.synchronize()
                 err = float((got.float() - ref).abs().max())
                 tol = (4 if storage == "f8" else 2) * bf16_ulp(float(ref.abs().max()))
@@ -693,6 +724,55 @@ def quantize_model(kind: str, model, mode: str) -> None:
           f"{nbytes / 1e9:.3f} GB of parameters", flush=True)
 
 
+def check_replayed(tag: str, stats: dict) -> None:
+    """A generate on the card ran its decode steps as CUDA-graph replays: at
+    least one graph captured, and every step after the eager first one a
+    replay."""
+    if not stats or stats["graphs"] < 1:
+        fail(f"{tag}: generate captured no CUDA graph ({stats})")
+    print(f"{tag} decode: {stats['steps']} steps, {stats['graphs']} CUDA graphs captured in "
+          f"{stats['capture_s'] * 1e3:.1f} ms, every step after the first a replay", flush=True)
+
+
+def phase_graph(card: str, kind: str, model, prefix, new_tokens: int) -> dict:
+    """``[graph kind]``: the private eager decode loop and the CUDA graphs on
+    one batch-1 generate with the same seed (default sampling, EOS banned so
+    that every run reaches the same bands): the codes must be equal bit for
+    bit.  Prints the wall ms per decode step of each, the capture time and
+    the graphs captured."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    tag = f"[graph {kind}]"
+    sampling = SamplingParams(ban_eos=True)
+
+    def run(graphs: bool):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = model._generate(prefix, new_tokens, 2.0, 1, sampling, 7, None, graphs=graphs)
+        torch.cuda.synchronize()
+        return codes, time.perf_counter() - t, dict(model.decode_stats)
+
+    eager, t_eager, st_eager = run(False)
+    graph, t_graph, st_graph = run(True)
+    if len(eager) != len(graph) or not all(a.shape == b.shape and np.array_equal(a, b)
+                                           for a, b in zip(eager, graph)):
+        fail(f"{tag}: the CUDA graphs' codes differ from the eager loop's")
+    check_replayed(tag, st_graph)
+    steps = st_graph["steps"]
+    out = {"steps": steps, "eager_ms": t_eager * 1e3 / steps, "graph_ms": t_graph * 1e3 / steps,
+           "graph_ms_without_capture": (t_graph - st_graph["capture_s"]) * 1e3 / steps,
+           "capture_ms": st_graph["capture_s"] * 1e3, "graphs": st_graph["graphs"]}
+    print(f"{tag} batch 1, {new_tokens} new tokens ({steps} decode steps + prefill): codes of "
+          f"the eager loop and the graphs equal bit for bit ({eager[0].shape[1]} frames); wall "
+          f"ms/step eager {out['eager_ms']:.2f}, graphs {out['graph_ms']:.2f} "
+          f"({out['graph_ms_without_capture']:.2f} without the capture); {out['graphs']} graphs "
+          f"captured in {out['capture_ms']:.1f} ms ({card})", flush=True)
+    return out
+
+
 def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
                     new_tokens: int = MAX_NEW_TOKENS, batch_kv: str | None = None,
                     forbid: tuple = ()):
@@ -714,6 +794,7 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
         t = time.perf_counter()
         codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=rows, seed=seed)
         torch.cuda.synchronize()
+        check_replayed(tag, model.decode_stats)
         return codes, time.perf_counter() - t
 
     def check_codes(codes, rows):
@@ -826,6 +907,7 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     counts = dict(launch_counts)
+    check_replayed(tag, model.decode_stats)
     c = codes[0]
     if len(codes) != 1 or c.shape[0] != 9 or not 1 <= c.shape[1] <= new_tokens or \
             c.min() < 0 or c.max() >= 1024:
@@ -853,62 +935,92 @@ _CATEGORIES = (
 )
 
 
-def phase_profile(kind: str, model, prefix, card: str, new_tokens: int = 32, batch: int = 1,
-                  sampling=None) -> None:
-    """Where a decode step's time goes: one short generate under
-    torch.profiler for the device's kernel time, one without it for the
-    wall time.  Prints the device busy share, the top kernels and the port's
-    kernels' ms per step (with K4's share of the busy time).  Only the
-    device's activity is traced: the host's op events cost more to collect
-    than the run they describe."""
+def phase_profile(kind: str, model, prefix, card: str, batch: int = 1, sampling=None) -> None:
+    """Where a decode step's time goes, for the eager loop and for the CUDA
+    graphs.  A decode step in the steady state: the wall time of a generate
+    of 96 new tokens (128 under the graphs, whose steps are cheap) less that
+    of one of 32, and the device-busy time of one of 24 less one of 8, each
+    over the steps between them (the cache stays in K2's band, so each
+    generate captures one graph, and the prefill, the eager first step and
+    the capture cancel).  The wall times are of runs without the profiler
+    (tracing a graph's replays slows them) and without the captures; the
+    device-busy time is torch.profiler's kernel time (device activity only:
+    the host's op events cost more to collect than the run they describe;
+    its post-processing grows with the kernels traced and took most of this
+    phase's time at longer traces, so the traced runs are short).  Then the top kernels and the port's kernels' ms per step of the
+    24-token generate (with K3's time a launch and K4's share of the busy
+    time)."""
+    for graphs, more_tokens in ((False, 96), (True, 128)):
+        _profile_run(kind, model, prefix, card, 32, more_tokens, batch, sampling, graphs)
+
+
+def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_tokens: int,
+                 batch: int, sampling, graphs: bool) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def run():
+    def run(tokens: int) -> tuple[float, int]:
+        """(wall ms without the captures, decode steps) of one generate."""
         torch.cuda.synchronize()
         t = time.perf_counter()
-        model.generate(prefix, max_new_tokens=new_tokens, batch_size=batch,
-                       sampling_params=sampling, seed=[3 + i for i in range(batch)])
+        model._generate(prefix, tokens, 2.0, batch, sampling,
+                        [3 + i for i in range(batch)], None, graphs=graphs)
         torch.cuda.synchronize()
-        return time.perf_counter() - t
+        stats = model.decode_stats
+        return (time.perf_counter() - t - stats["capture_s"]) * 1e3, stats["steps"]
 
-    run()
-    wall = run()
-    steps = new_tokens + 8  # decode steps after the prefill (the delay adds 8)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    tag = f"[profile {kind}]"
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        print(f"{tag} device busy time not measured (the profiler saw no kernels)", flush=True)
+    def profiled(tokens: int) -> tuple[float, int, float, list]:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall, steps = run(tokens)
+        kernels = [e for e in prof.key_averages() if e.device_type ==
+                   torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        return wall, steps, sum(e.self_device_time_total for e in kernels) / 1e3, kernels
+
+    run(8)  # a new batch's shapes: libraries pick their kernels before anything is timed
+    (wall1, steps1), (wall2, steps2) = run(new_tokens), run(more_tokens)
+    traced1, traced_steps1, busy1, _ = profiled(8)
+    traced2, traced_steps2, busy2, kernels = profiled(24)
+    tag = f"[profile {kind}{' graphs' if graphs else ' eager'}]"
+    if busy2 <= 0:
+        print(f"{tag} device busy time not measured (the profiler saw no kernels) ({card})",
+              flush=True)
         return
+    wall = (wall2 - wall1) / (steps2 - steps1)
+    busy = (busy2 - busy1) / (traced_steps2 - traced_steps1)
+    print(f"{tag} batch-{batch} decode step in the steady state: wall {wall:.2f} ms/step "
+          f"({more_tokens} less {new_tokens} new tokens, {steps2 - steps1} steps), device busy "
+          f"{busy:.2f} ms/step (24 less 8, {traced_steps2 - traced_steps1} steps) = "
+          f"{100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% idle (wall under the "
+          f"profiler {(traced2 - traced1) / (traced_steps2 - traced_steps1):.2f}); the whole "
+          f"{more_tokens}-token generate (prefill, {steps2} steps): wall {wall2 / steps2:.2f} "
+          f"ms/step without the captures ({card})", flush=True)
+    n = traced_steps2  # the per-step figures below: the 24-token generate, prefill included
     by_cat: dict[str, float] = {}
     for e in kernels:
         cat = next((c for c, keys in _CATEGORIES if any(k in e.key for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
-    print(f"{tag} batch-{batch} generate, {new_tokens} new tokens ({steps} decode steps + "
-          f"prefill): wall {wall * 1e3 / steps:.2f} ms/step, device busy {busy_ms / steps:.2f} "
-          f"ms/step = {100 * busy_ms / (wall * 1e3):.1f}% busy, "
-          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}% idle ({card})", flush=True)
-    print(f"{tag} device ms/step by category: " + ", ".join(
-        f"{c} {v / steps:.3f}" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"{tag} device ms/step by category (24 tokens, {n} steps): " + ", ".join(
+        f"{c} {v / n:.3f}" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"{tag}   {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
-              f"x{e.count / steps:.1f}/step  {e.key[:90]}", flush=True)
+        print(f"{tag}   {e.self_device_time_total / 1e3 / n:.4f} ms/step  "
+              f"x{e.count / n:.1f}/step  {e.key[:90]}", flush=True)
     per_kernel: dict[str, list[float]] = {}
     for e in kernels:
         label = next((k for frag, k in _PORT_KERNELS if frag in e.key), None)
         if label is not None:
-            ms_n = per_kernel.setdefault(label, [0.0, 0.0])
-            ms_n[0] += e.self_device_time_total / 1e3 / steps
-            ms_n[1] += e.count / steps
+            ms_n = per_kernel.setdefault(label, [0.0, 0])
+            ms_n[0] += e.self_device_time_total / 1e3
+            ms_n[1] += e.count
     print(f"{tag} port kernels, device ms/step (launches/step): " + ", ".join(
-        f"{k} {v[0]:.4f} (x{v[1]:.1f})" for k, v in sorted(per_kernel.items())), flush=True)
+        f"{k} {v[0] / n:.4f} (x{v[1] / n:.1f})" for k, v in sorted(per_kernel.items())),
+        flush=True)
+    if "K3" in per_kernel:
+        print(f"{tag} K3 {per_kernel['K3'][0] * 1e3 / per_kernel['K3'][1]:.2f} us a launch "
+              f"inside the step (CUPTI)", flush=True)
     if "K4" in per_kernel:
-        print(f"{tag} K4 {per_kernel['K4'][0]:.4f} ms/step = "
-              f"{100 * per_kernel['K4'][0] * steps / busy_ms:.1f}% of device busy", flush=True)
+        print(f"{tag} K4 {per_kernel['K4'][0] / n:.4f} ms/step = "
+              f"{100 * per_kernel['K4'][0] / busy2:.1f}% of device busy", flush=True)
 
 
 def phase_profile_batch64(model, card: str) -> None:
@@ -921,8 +1033,8 @@ def phase_profile_batch64(model, card: str) -> None:
     prefix = model.prepare_conditioning(make_cond_dict(text=texts, speaker=None))
     model.set_storage(kv="f8")
     try:
-        phase_profile("transformer int8 b64", model, prefix, card, new_tokens=B64_NEW_TOKENS,
-                      batch=B64_BATCH, sampling=SamplingParams(ban_eos=True))
+        phase_profile("transformer int8 b64", model, prefix, card, batch=B64_BATCH,
+                      sampling=SamplingParams(ban_eos=True))
     finally:
         model.set_storage()
 
@@ -1044,10 +1156,11 @@ def time_decode_attention_quantized(gen, name: str, storage: str, length: int,
             for _ in range(8)]
     cycle = itertools.cycle(sets)
     pos = length - 1
+    pos_t, band = on_card(pos, held_out=True)
 
-    def call(f):
+    def call(f, **kw):
         k, v, ks, vs, q, k_new, v_new = next(cycle)
-        return f(q, k, v, k_new, v_new, pos, ks, vs)
+        return f(q, k, v, k_new, v_new, pos_t, ks, vs, **kw)
 
     nbytes = (2 * B * Hkv * pos * D * (1 + (4 / D if storage == "int8" else 0))
               + 2 * (2 * B * H * D + 2 * B * Hkv * D))
@@ -1055,7 +1168,7 @@ def time_decode_attention_quantized(gen, name: str, storage: str, length: int,
     return {"name": f"{name}_{storage}", **_launches(f"{name}_{storage}", counts),
             "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] {storage}, length {length} "
                      f"(pos {pos} + the held-out row), L2 cold",
-            **_times(lambda: call(fn), lambda: call(decode_attention_split_plain)),
+            **_times(lambda: call(fn, band=band), lambda: call(decode_attention_split_plain)),
             **_bound(flops, nbytes), "library_ms": None}
 
 
@@ -1150,7 +1263,8 @@ def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
     mask = (torch.arange(S, device="cuda") < length)[None, None, None, :]
     lib_ref = F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=mask,
                                              enable_gqa=True).transpose(1, 2).float()
-    if not float((lib_ref - fn(q, k, v, length).float()).abs().max()) <= 4 * bf16_ulp(
+    length_t, band = on_card(length)
+    if not float((lib_ref - fn(q, k, v, length_t, band).float()).abs().max()) <= 4 * bf16_ulp(
             float(lib_ref.abs().max())):
         fail(f"library call disagrees with {name}")
     cycle = itertools.cycle(sets)
@@ -1170,8 +1284,8 @@ def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
         **_launches(name, counts),
         "max_abs_err": errs.get(name),
         "shape": f"q [{B},1,{H},{D}] bf16, k/v [{B},{Hkv},{S},{D}] bf16, length {length}",
-        **_times(lambda: fn(*next(cycle), length),
-                 lambda: decode_attention_plain(*next(cycle), length)),
+        **_times(lambda: fn(*next(cycle), length_t, band),
+                 lambda: decode_attention_plain(*next(cycle), length_t)),
         **_bound(flops, nbytes),
         "library_ms": device_ms(library_call)[0],
         "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
@@ -1241,13 +1355,13 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
     import torch
 
     from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
-    from zonos_tpu_torch.ops.sampling import gumbel_noise
+    from zonos_tpu_torch.ops.sampling import gumbel_of_uniform
 
     out = [time_decode_attention(gen, key, counts, errs) for key in ("K1", "K2")]
     Bs, K, V = 1, 9, 1152  # batch 1: sampling runs on the CFG-blended logits
     logits = torch.randn((Bs, K, V), generator=gen, device="cuda") * 3.0
     logits[..., 1025:] = float("-inf")
-    noise = gumbel_noise((Bs, K, V), gen, "cuda")
+    noise = gumbel_of_uniform(torch.rand((Bs, K, V), generator=gen, device="cuda"))
     kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=0.0, temperature=1.0)
     nbytes = 2 * Bs * K * V * 4 + Bs * K * 8
     out.append({
@@ -1418,11 +1532,14 @@ def phase_sweep(gen, card: str) -> None:
 
 
 def k2_sweep(gen, card: str) -> None:
-    """K2 (bf16, q [2,1,16,128], batch 1 with CFG) over cache lengths for
-    clusters whose CTAs take at least 32, 64, 128 or 256 rows (256: one CTA a
-    pair, the first port's layout), launched through the C entry point with
-    each split: how ``CHUNK_ROWS`` and ``ONE_CTA_ROWS`` were chosen; device us
-    per call, L2 cold."""
+    """K2 (bf16, q [2,1,16,128], batch 1 with CFG) over cache lengths, launched
+    through the C entry point with each split the CTAs compute from the
+    length: a CTA for every 16, 32, 64 or 128 rows (``min_rows``; one CTA up
+    to twice that), in a grid of just the CTAs used and in the band's grid of
+    8 (the idle CTAs' cost), each with the shared memory of its own chunk;
+    then the band's own launch (the shared memory of the band's longest
+    chunk): how ``CHUNK_ROWS`` was chosen and what the band plan costs;
+    device us per call, L2 cold."""
     import torch
 
     from zonos_tpu_torch.kernels import decode_attention as da
@@ -1430,12 +1547,17 @@ def k2_sweep(gen, card: str) -> None:
 
     lib = library("decode_attention", da._SIGNATURES)
 
-    def launch(q, k, v, length, n, chunk):
+    def launch(q, k, v, rows, length, n, min_rows, band=None):
         out = torch.empty_like(q)
+        lo, hi, chunk_max = length, length, da.rank_rows(length, n, min_rows)[1]
+        if band is not None:
+            plan = da.band_plan("K2", band, q.shape[0] * k.shape[1], k.shape[2], False)
+            lo, hi, chunk_max = plan.lo, plan.hi, plan.chunk_max
         check(lib.zt_decode_attention_single(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0], k.shape[1],
-            q.shape[2] // k.shape[1], k.shape[2], length, n, chunk, da.attention_scale(128),
-            torch.cuda.current_stream().cuda_stream), "K2 sweep")
+            q.shape[2] // k.shape[1], k.shape[2], rows.data_ptr(), lo, hi, n, chunk_max,
+            min_rows, da.attention_scale(128), torch.cuda.current_stream().cuda_stream),
+            "K2 sweep")
         return out
 
     sets = [tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
@@ -1443,18 +1565,18 @@ def k2_sweep(gen, card: str) -> None:
             for _ in range(8)]
     cycle = itertools.cycle(sets)
     for length in (16, 32, 48, 64, 96, 128, 192, 256):
-        row, plans = {}, set()
-        for rows in (32, 64, 128, 256):
-            n = min(da.MAX_CLUSTER, -(-length // rows))
-            chunk = -(-(-(-length // n)) // da.ROWS_PER_PASS) * da.ROWS_PER_PASS
-            plan = (-(-length // chunk), chunk)
-            if plan not in plans:
-                plans.add(plan)
-                us = device_ms(lambda: launch(*next(cycle), length, *plan))[0] * 1e3
-                row[f"{rows} ({plan[0]} CTAs)"] = us
-        print(f"[sweep] K2 bf16 length {length}, us by fewest rows a CTA: " + ", ".join(
+        rows, band = on_card(length)
+        row = {}
+        for min_rows in (16, 32, 64, 128):
+            used, chunk = da.rank_rows(length, da.MAX_CLUSTER, min_rows)
+            for n in sorted({used, da.MAX_CLUSTER}):
+                us = device_ms(lambda: launch(*next(cycle), rows, length, n, min_rows))[0] * 1e3
+                row[f"{min_rows} ({used} of {n} CTAs)"] = us
+        row["the band's launch"] = device_ms(lambda: launch(
+            *next(cycle), rows, length, da.MAX_CLUSTER, da.CHUNK_ROWS, band))[0] * 1e3
+        print(f"[sweep] K2 bf16 length {length}, us by rows a CTA: " + ", ".join(
             f"{k}: {us:.2f}" for k, us in row.items())
-            + f" (default {da.cluster_plan(length, 8)}; {card})", flush=True)
+            + f" (default {da.CHUNK_ROWS} in a grid of {da.MAX_CLUSTER}; {card})", flush=True)
 
 
 def k1_sweep(gen, card: str) -> None:
@@ -1462,8 +1584,8 @@ def k1_sweep(gen, card: str) -> None:
     (bf16, q [2,1,16,128]) and batch 64 with CFG (f8 with the held-out row, q
     [128,1,16,128]) for clusters of 1, 2, 4, 8 and 16 CTAs, launched through the C
     entry points, and how many such clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``): how ``flash_plan`` was chosen;
-    device us per call, L2 cold."""
+    (``cudaOccupancyMaxActiveClusters``): how ``grid_cap`` was chosen; device
+    us per call, L2 cold."""
     import torch
 
     from zonos_tpu_torch.kernels import decode_attention as da
@@ -1472,20 +1594,19 @@ def k1_sweep(gen, card: str) -> None:
     lib = library("decode_attention", da._SIGNATURES)
     scale = da.attention_scale(128)
 
-    def launch(q, k, v, k_new, v_new, length, n, chunk):
+    def launch(q, k, v, k_new, v_new, rows, length, n, chunk):
         out = torch.empty_like(q)
         B, _, H, _ = q.shape
         Hkv, S = k.shape[1], k.shape[2]
         stream = torch.cuda.current_stream().cuda_stream
+        plan = (rows.data_ptr(), length, length, n, chunk, da.ONE_CTA_ROWS, scale, stream)
         if k_new is None:
             rc = lib.zt_flash_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                               out.data_ptr(), B, Hkv, H // Hkv, S, length, n,
-                                               chunk, scale, stream)
+                                               out.data_ptr(), B, Hkv, H // Hkv, S, *plan)
         else:
             rc = lib.zt_flash_decode_attention_q(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), 0,
                                                  0, k_new.data_ptr(), v_new.data_ptr(),
-                                                 out.data_ptr(), B, Hkv, H // Hkv, S, length, n,
-                                                 chunk, scale, stream)
+                                                 out.data_ptr(), B, Hkv, H // Hkv, S, *plan)
         check(rc, "K1 sweep")
         return out
 
@@ -1503,16 +1624,17 @@ def k1_sweep(gen, card: str) -> None:
         cycle = itertools.cycle(sets)
         pairs = sets[0][0].shape[0] * 4
         for length in (512, 1000, 2000, 4000):
+            rows, band = on_card(length)
             row = {}
             for n in (1, 2, 4, 8, 16):
-                chunk = -(-(-(-length // n)) // da.ROWS_PER_PASS) * da.ROWS_PER_PASS
-                plan = (-(-length // chunk), chunk)
-                us = device_ms(lambda: launch(*next(cycle), length, *plan))[0] * 1e3
-                fits = da.max_active_clusters(storage, 4, *plan)
-                row[f"{plan[0]} CTAs of {chunk}"] = f"{us:.2f} ({fits} clusters fit)"
+                used, chunk = da.rank_rows(length, n, da.ONE_CTA_ROWS)
+                us = device_ms(lambda: launch(*next(cycle), rows, length, n, chunk))[0] * 1e3
+                fits = da.max_active_clusters(storage, 4, n, chunk)
+                row[f"{used} CTAs of {chunk}"] = f"{us:.2f} ({fits} clusters fit)"
+            plan = da.band_plan("K1", band, pairs, S, False, sm_count(0))
             print(f"[sweep] K1 {label} length {length}, us by cluster: " + ", ".join(
                 f"{k}: {v}" for k, v in row.items())
-                + f" (default {da.flash_plan(length, pairs, sm_count(0))}; {card})", flush=True)
+                + f" (default {plan.n} CTAs; {card})", flush=True)
 
 
 def k5_sweep(gen, card: str, frames: int = 86) -> None:
@@ -1585,12 +1707,14 @@ def k1_breakdown(gen, card: str, calls: int = 40) -> None:
             if storage is None:
                 q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
                            for shape in ((B, 1, 16, 128), (B, 4, 2048, 128), (B, 4, 2048, 128)))
-                sets.append(lambda q=q, k=k, v=v: flash_decode_attention(q, k, v, 2000))
+                sets.append(lambda q=q, k=k, v=v, at=on_card(2000):
+                            flash_decode_attention(q, k, v, *at))
             else:
                 k, v, ks, vs = quantized_cache(gen, storage, B)
                 q, k_new, v_new = held_out_inputs(gen, B)
-                sets.append(lambda a=(q, k, v, k_new, v_new, 1999, ks, vs):
-                            flash_decode_attention_held_out(*a))
+                pos_t, band = on_card(1999, held_out=True)
+                sets.append(lambda a=(q, k, v, k_new, v_new, pos_t, ks, vs), b=band:
+                            flash_decode_attention_held_out(*a, band=b))
         cycle = itertools.cycle(sets)
         ms = device_ms(lambda: next(cycle)())[0]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1679,12 +1803,15 @@ def main(argv: list[str]) -> int:
           flush=True)
     counts = {}
 
+    graph = {}
+
     def path(kind, model, batch, expect, new_tokens, **kw):
         counts[kind], prefix = phase_main_path(card, kind, model, dac, batch, expect, new_tokens,
                                                **kw)
         print(f"[time] {kind} path done {time.perf_counter() - t0:.1f} s", flush=True)
+        graph[kind] = phase_graph(card, kind, model, prefix, GRAPH_NEW_TOKENS)
         phase_profile(kind, model, prefix, card)
-        print(f"[time] {kind} profile done {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"[time] {kind} graph and profile done {time.perf_counter() - t0:.1f} s", flush=True)
         return prefix
 
     model = load_model("transformer")
@@ -1705,9 +1832,12 @@ def main(argv: list[str]) -> int:
     prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
     quantize_model("hybrid", model, "int4")
     counts["hybrid int4"] = phase_hybrid_quantized(card, model, prefix, HYBRID_INT4_KERNELS)
+    graph["hybrid int4"] = phase_graph(card, "hybrid int4", model, prefix,
+                                       HYBRID_INT4_NEW_TOKENS)
     print(f"[time] hybrid int4 path done {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
+    print(json.dumps({"graph": graph, "card": card}), flush=True)
     kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1)
     for entry in kernels:  # one JSON line per kernel, each with the card it ran on
         print(json.dumps({**entry, "card": card}), flush=True)

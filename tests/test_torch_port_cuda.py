@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the decode
+step's CUDA graphs against the eager loop, on the card.
 
 Marked ``cuda``; each test skips (from its fixture) where no card is
 present.  On a machine with one: ``python -m pytest -m cuda
@@ -35,7 +36,7 @@ from zonos_tpu_torch.kernels.ssm_state import (
 )
 from zonos_tpu_torch.models.backbone import quantize_kv_rows
 from zonos_tpu_torch.ops.quant import quantize_weight_int4, quantize_weight_int8
-from zonos_tpu_torch.ops.sampling import gumbel_noise
+from zonos_tpu_torch.ops.sampling import gumbel_of_uniform
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +73,7 @@ def test_decode_attention_kernel_rejects_fp32(gen):
 def test_fused_sample_kernel_matches_plain(gen, min_p):
     logits = torch.randn((4, 9, 1152), generator=gen, device="cuda") * 3
     logits[..., 1025:] = float("-inf")
-    noise = gumbel_noise((4, 9, 1152), gen, "cuda")
+    noise = gumbel_of_uniform(torch.rand((4, 9, 1152), generator=gen, device="cuda"))
     kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=min_p)
     assert torch.equal(fused_sample(logits, noise, **kw), fused_sample_plain(logits, noise, **kw))
 
@@ -387,15 +388,16 @@ def test_flash_plan_fits_the_card(gen, storage):
     at 8 a CTA's registers fill an SM, and at least one cluster fits), and a
     full wave of the batch-64 plan's."""
     from zonos_tpu_torch.kernels._build import sm_count
-    from zonos_tpu_torch.kernels.decode_attention import flash_plan, max_active_clusters
+    from zonos_tpu_torch.kernels.decode_attention import band_of, band_plan, max_active_clusters
 
     sms = sm_count(torch.cuda.current_device())
     for G in (1, 2, 4, 8):
-        for length in (2000, 4095):
-            n, chunk = flash_plan(length, 8, sms)
-            assert n == 16 and max_active_clusters(storage, G, n, chunk) >= (8 if G <= 4 else 1)
-        n, chunk = flash_plan(1999, 512, sms)
-        assert max_active_clusters(storage, G, n, chunk) * n >= sms
+        for S in (2048, 4096):  # the band past 512 rows, cut at the cache's end
+            plan = band_plan("K1", band_of(S), 8, S, False, sms)
+            assert plan.n == 16
+            assert max_active_clusters(storage, G, plan.n, plan.chunk_max) >= (8 if G <= 4 else 1)
+        plan = band_plan("K1", band_of(2000), 512, 2048, True, sms)
+        assert max_active_clusters(storage, G, plan.n, plan.chunk_max) * plan.n >= sms
 
 
 def test_decode_attention_held_out_rejects_bf16_cache(gen):
@@ -593,7 +595,7 @@ def _k3_case(gen):
 
     V = 12352  # past the kernel's 12,288
     logits = torch.randn((2, 9, V), generator=gen, device="cuda") * 3
-    noise = gumbel_noise((2, 9, V), gen, "cuda")
+    noise = gumbel_of_uniform(torch.rand((2, 9, V), generator=gen, device="cuda"))
     p = SamplingParams(min_p=0.1)
     ref = fused_sample_plain(logits, noise, linear=p.linear, conf=p.conf, quad=p.quad,
                              min_p=p.min_p, temperature=p.temperature)
@@ -712,3 +714,172 @@ def test_fp32_generate_on_the_card_gives_the_cpu_codes(gen):
         codes.append(model.generate(prefix, max_new_tokens=24, seed=0, sampling_params=greedy))
     assert len(codes[0]) == len(codes[1]) == 1
     assert np.array_equal(codes[0][0], codes[1][0])
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 with the length on the card, over every band a 30 s generate reaches
+# ---------------------------------------------------------------------------
+
+# each band's edges and lengths inside it, up to ~2700 rows (30 s of audio after a prefix)
+BAND_LENGTHS = [1, 2, 64, 65, 200, 256, 257, 300, 511, 512, 513, 1000, 1665, 2047, 2700]
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f8", "int8"])
+@pytest.mark.parametrize("B", [2, 8])
+def test_kernels_read_the_length_from_the_card(gen, B, storage):
+    """The kernel of each band (K2 up to 256, K1 beyond), given the length as
+    an int32 on the card with its band, at the band's edges and inside it:
+    within 2 bf16 ulps of max|ref| of the plain version over a bf16 or int8
+    cache, 4 over f8 (as above).  A length past the band (and the cache) on
+    the card is clamped: no row past the cache's end is read."""
+    from zonos_tpu_torch.kernels.decode_attention import Band, band_of
+    from zonos_tpu_torch.ops.attention import decode_attention, decode_attention_held_out
+
+    S = 2752
+    q = torch.randn((B, 1, 16, 128), generator=gen, device="cuda").bfloat16()
+    if storage == "bf16":
+        k, v = (torch.randn((B, 4, S, 128), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+    else:
+        k, v, ks, vs = _quantized_cache(gen, storage, B=B, S=S)
+        k_new, v_new = (torch.randn((B, 1, 4, 128), generator=gen, device="cuda").bfloat16()
+                        for _ in range(2))
+    ulps = 4 if storage == "f8" else 2
+    for length in BAND_LENGTHS + [S + 100]:
+        band = band_of(min(length, S)) if length <= S else Band(513, None)
+        rows = torch.full((), length - (storage != "bf16"), dtype=torch.int32, device="cuda")
+        attended = min(length, S)
+        if storage == "bf16":
+            got = decode_attention(q, k, v, rows, band)
+            ref = decode_attention_plain(q.float(), k.float(), v.float(), attended)
+        else:
+            got = decode_attention_held_out(q, k, v, k_new, v_new, rows, ks, vs, band=band)
+            ref = decode_attention_split_plain(q.float(), k, v, k_new.float(), v_new.float(),
+                                               attended - 1, ks, vs)
+        assert (got.float() - ref).abs().max() <= _bf16_ulps(ref, ulps), length
+
+
+# ---------------------------------------------------------------------------
+# the decode step: keyed noise, no sync, CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_TEXTS = ["Hello world.", "Good morning, how are you?", "The quick brown fox.",
+               "Speech synthesis is wonderful."]
+# the kernels' widths at a small depth: head_dim 128, K4/K8's multiples of 16 and 128
+GRAPH_TRANSFORMER = {"d_model": 512, "n_layer": 2, "attn_mlp_d_intermediate": 1024,
+                     "attn_cfg": {"num_heads": 4, "num_heads_kv": 2}}
+GRAPH_HYBRID = {"d_model": 512, "n_layer": 3, "attn_layer_idx": [1],
+                "attn_mlp_d_intermediate": 1024,
+                "ssm_cfg": {"layer": "Mamba2", "d_state": 128, "expand": 2, "headdim": 64,
+                            "d_conv": 4, "ngroups": 1},
+                "attn_cfg": {"num_heads": 4, "num_heads_kv": 2, "head_dim": 128,
+                             "rotary_emb_dim": 64}}
+GRAPH_CASES = {  # name -> (backbone, weights, KV cache storage)
+    "transformer bf16": ("transformer", None, None),
+    "transformer int8, int8 KV": ("transformer", "int8", "int8"),
+    "transformer int4, f8 KV": ("transformer", "int4", "f8"),
+    "hybrid bf16": ("hybrid", None, None),
+}
+GRAPH_NEW_TOKENS = 520  # past 512 cache rows after a short prefix: K2's band and both of K1's
+
+
+def _graph_model(case: str):
+    from zonos_tpu_torch import Zonos, ZonosConfig
+    from zonos_tpu_torch.config import HYBRID_CONFIG_DICT, TRANSFORMER_CONFIG_DICT
+
+    kind, weights, kv = GRAPH_CASES[case]
+    d = copy.deepcopy(TRANSFORMER_CONFIG_DICT if kind == "transformer" else HYBRID_CONFIG_DICT)
+    d["backbone"].update(copy.deepcopy(GRAPH_TRANSFORMER if kind == "transformer"
+                                       else GRAPH_HYBRID))
+    model = Zonos(ZonosConfig.from_dict(d), seed=0)
+    if weights is not None:
+        getattr(model, f"quantize_{weights}")()
+    return model.set_storage(kv=kv)
+
+
+@pytest.mark.parametrize("sampling", ["greedy", "default"])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replay_equals_the_eager_loop(gen, case, batch, sampling):
+    """``generate`` (CUDA-graph replays) and the private eager loop give the
+    same codes bit for bit, with the same seed."""
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    model = _graph_model(case)
+    prefix = model.prepare_conditioning(make_cond_dict(text=GRAPH_TEXTS[:batch], speaker=None))
+    params = SamplingParams.greedy() if sampling == "greedy" else None
+    seeds = [11 + i for i in range(batch)]
+    graph = model.generate(prefix, max_new_tokens=96, batch_size=batch,
+                           sampling_params=params, seed=seeds)
+    assert model.decode_stats["graphs"] >= 1
+    eager = model._generate(prefix, 96, 2.0, batch, params, seeds, None, graphs=False)
+    assert model.decode_stats["graphs"] == 0
+    assert len(graph) == len(eager) == batch
+    for g, e in zip(graph, eager):
+        assert g.shape == e.shape and np.array_equal(g, e)
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replay_through_every_band(gen, case):
+    """One batch-1 generate past 512 cache rows (EOS banned, so that it runs
+    its whole budget): one graph for each of the three bands, the kernels'
+    launches counted through the replays, and the eager loop's codes."""
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.kernels import reset_launch_counts
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    model = _graph_model(case)
+    prefix = model.prepare_conditioning(make_cond_dict(text=GRAPH_TEXTS[0], speaker=None))
+    params = SamplingParams(ban_eos=True)
+    reset_launch_counts()
+    graph = model.generate(prefix, max_new_tokens=GRAPH_NEW_TOKENS, sampling_params=params,
+                           seed=5)
+    counts = dict(launch_counts)
+    stats = dict(model.decode_stats)
+    assert stats["graphs"] == 3 and stats["steps"] == GRAPH_NEW_TOKENS + 8
+    suffix = {"int8": "_int8", "f8": "_f8", None: ""}[GRAPH_CASES[case][2]]
+    k2, k1 = f"decode_attention_single{suffix}", f"flash_decode_attention{suffix}"
+    layers = 1 if case.startswith("hybrid") else 2  # attention layers
+    pos0 = prefix.shape[1] + 1
+    # every step a launch of each attention layer: K2 while pos + 1 <= 256, then K1
+    assert counts[k2] == layers * (256 - pos0)
+    assert counts[k1] == layers * (stats["steps"] - (256 - pos0))
+    assert counts["fused_sample"] == 2 * stats["steps"] + 1
+    eager = model._generate(prefix, GRAPH_NEW_TOKENS, 2.0, 1, params, 5, None, graphs=False)
+    assert np.array_equal(graph[0], eager[0])
+
+
+def test_eager_decode_step_does_not_synchronize(gen, monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` every eager decode step
+    of the int8 model with the int8 KV cache (K1, K2, K3, K4) runs: none
+    waits for the card."""
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.models import tts
+
+    model = _graph_model("transformer int8, int8 KV")
+    prefix = model.prepare_conditioning(make_cond_dict(text=GRAPH_TEXTS[:2], speaker=None))
+    step = tts.Zonos._decode_step
+    steps = []
+
+    def guarded(self, run, band):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(self, run, band)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        steps.append(band)
+
+    monkeypatch.setattr(tts.Zonos, "_decode_step", guarded)
+    model._generate(prefix, 260, 2.0, 2, None, [1, 2], None, graphs=False)
+    assert {band.kernel for band in steps} == {"K1", "K2"}
+
+
+def test_keyed_noise_bits_on_the_card_equal_the_cpu_bits(gen):
+    from zonos_tpu_torch.ops.sampling import element_counters, keyed_bits, row_keys
+
+    seeds = torch.tensor([0, 1, 423, 2**40 + 7, -5])
+    bits = [keyed_bits(row_keys(seeds.to(dev)), torch.tensor(123, device=dev),
+                       torch.arange(3, device=dev), element_counters(9 * 1152, dev)).cpu()
+            for dev in ("cpu", "cuda")]
+    assert torch.equal(bits[0], bits[1])

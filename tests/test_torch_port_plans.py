@@ -1,11 +1,13 @@
 """Launch plans and arithmetic of K7, K2, K1 and K5 that the CPU can check.
 
 K7 (the Mamba2 decode-state step) cuts each bh row's state into slabs
-(``slab_plan``) and widens f8 through f16; K2 (one-pass decode attention)
-splits a cache's rows over the CTAs of a thread-block cluster
-(``cluster_plan``) and combines their partial softmaxes in rank order; K1
-(decode attention past 256 rows) does the same over clusters of up to 16
-CTAs (``flash_plan``), each CTA walking its chunk in stages carried online.
+(``slab_plan``) and widens f8 through f16; K2 (one-pass decode attention,
+the band of lengths up to 256) splits a cache's rows over the CTAs of a
+thread-block cluster and combines their partial softmaxes in rank order; K1
+(decode attention, the bands past 256) does the same over clusters of up to
+16 CTAs, each CTA walking its chunk in stages carried online.  The host fixes
+each band's cluster size (``band_plan``); each CTA computes its rows from
+the length on the card (``rank_rows``), some CTAs getting none.
 K5 (the DAC snake-conv) computes tiles chosen by shape (``conv_plan``) over
 chunks of 8 input channels and a halo window.  The kernels run only on the
 card; here the plans are checked for coverage and a numpy or torch model of
@@ -36,15 +38,19 @@ import torch
 from zonos_tpu.models.dac.codec import _res_unit as jax_res_unit
 from zonos_tpu.ops.attention import decode_attention as jax_decode_attention
 from zonos_tpu_torch.kernels.decode_attention import (
+    BANDS,
     MAX_CLUSTER,
     MAX_FLASH_CLUSTER,
     ONE_CTA_ROWS,
     ROWS_PER_PASS,
+    Band,
+    BandPlan,
     attention_scale,
-    cluster_plan,
+    band_of,
+    band_plan,
     decode_attention_plain,
     decode_attention_split_plain,
-    flash_plan,
+    rank_rows,
 )
 from zonos_tpu_torch.kernels.snake_conv import (
     TILES,
@@ -120,28 +126,63 @@ def test_f8_integer_decode_equals_torch_cast():
 # ---------------------------------------------------------------------------
 
 
+def _split(kernel: str, length: int, bh_kv: int, S: int = 4096,
+           held_out: bool = False) -> tuple[int, int, int]:
+    """(grid, used, chunk): the cluster size of the band holding ``length``
+    cache rows (one more attended with the held-out row) and the split the
+    CTAs compute on the card."""
+    plan = band_plan(kernel, band_of(length + held_out), bh_kv, S, held_out, SMS)
+    used, chunk = rank_rows(length, plan.n, plan.min_rows)
+    assert plan.lo <= length <= plan.hi and chunk <= plan.chunk_max
+    return plan.n, used, chunk
+
+
+def _covers_once(length: int, grid: int, used: int, chunk: int) -> None:
+    """Every row in exactly one rank; the ranks past ``used`` hold none."""
+    assert 1 <= used <= grid and chunk % ROWS_PER_PASS == 0
+    seen = np.zeros(length, np.int64)
+    for rank in range(used):
+        r0 = min(rank * chunk, length)
+        seen[r0:min(r0 + chunk, length)] += 1
+    assert (seen == 1).all(), (length, grid, used, chunk)
+
+
 @pytest.mark.parametrize("bh_kv", [1, 8, 64, 512])
 def test_cluster_plan_covers_every_row_once(bh_kv):
-    for length in range(1, 257):
-        n, chunk = cluster_plan(length, bh_kv, SMS)
-        assert 1 <= n <= MAX_CLUSTER and chunk % ROWS_PER_PASS == 0
-        seen = np.zeros(length, np.int64)
-        for rank in range(n):
-            r0 = min(rank * chunk, length)
-            assert r0 < length  # every rank holds rows
-            seen[r0:min(r0 + chunk, length)] += 1
-        assert (seen == 1).all(), (length, n, chunk)
-    assert cluster_plan(0, bh_kv, SMS) == (1, 0)  # pos 0: the held-out row alone
+    for length in range(0, 257):  # 0: a quantized cache at pos 0, the held-out row alone
+        grid, used, chunk = _split("K2", length, bh_kv, held_out=length == 0)
+        assert grid <= MAX_CLUSTER
+        _covers_once(length, grid, used, chunk)
+    assert _split("K2", 0, bh_kv, held_out=True)[1:] == (1, 0)
 
 
 def test_cluster_plan_at_the_flagship_shapes():
-    """Batch 1 with CFG at 256 rows: 8 CTAs of 32 rows a pair; up to 64 rows
-    one CTA; batch 64 with CFG (512 pairs, one CTA a pair already fills the
-    card): one CTA."""
-    assert cluster_plan(256, 8, SMS) == (8, 32)
-    assert cluster_plan(65, 8, SMS) == (3, 32)
-    assert cluster_plan(64, 8, SMS) == (1, 64)
-    assert cluster_plan(256, 512, SMS) == (1, 256)
+    """Batch 1 with CFG (8 pairs): clusters of 8 over the band up to 256 rows,
+    32 rows a CTA at 256; up to 64 rows one CTA; batch 64 with CFG (512 pairs,
+    one CTA a pair already fills the card): one CTA."""
+    assert band_plan("K2", Band(1, 256), 8, 2048, False, SMS) == BandPlan(8, 32, 1, 256, 64)
+    assert band_plan("K2", Band(1, 256), 8, 2048, True, SMS) == BandPlan(8, 32, 0, 255, 64)
+    assert rank_rows(256, 8, 32) == (8, 32)
+    assert rank_rows(65, 8, 32) == (3, 32)
+    assert rank_rows(64, 8, 32) == (1, 64)
+    assert band_plan("K2", Band(1, 256), 512, 2048, False, SMS).n == 1
+    assert rank_rows(256, 1, 32) == (1, 256)
+
+
+def test_bands_cover_every_length_once():
+    """The bands tile [1, inf): K2's up to 256, K1's beyond; a band past the
+    cache, or a length outside the band given, raises on the host."""
+    assert [band_of(n) for n in (1, 256, 257, 512, 513, 10**6)] == [
+        Band(1, 256), Band(1, 256), Band(257, 512), Band(257, 512), Band(513, None),
+        Band(513, None)]
+    assert [Band(*b).kernel for b in BANDS] == ["K2", "K1", "K1"]
+    with pytest.raises(ValueError):
+        band_of(0)
+    with pytest.raises(ValueError):
+        band_plan("K1", Band(513, None), 8, 512, False, SMS)  # a 512-row cache has no such band
+    with pytest.raises(ValueError):
+        Band(257, 512).check(513)
+    Band(257, 512).check(257)
 
 
 def _attend(qh, k, v, rows, scale, k_scale, v_scale, state):
@@ -201,13 +242,13 @@ def _k2_model(q, k, v, length, n, chunk, k_new=None, v_new=None, k_scale=None,
     return (O / L[..., None]).reshape(B, H, 1, D).transpose(1, 2)
 
 
-def _plans(length: int, bh_kv: int) -> set[tuple[int, int]]:
-    """K2's plan at ``bh_kv`` pairs, and the same rows split over a full
-    cluster of 8 (chunks a multiple of 16 rows, as ``cluster_plan`` rounds
-    them), so that short caches exercise the combine as well."""
-    chunk = -(-(-(-length // MAX_CLUSTER)) // ROWS_PER_PASS) * ROWS_PER_PASS
-    split = ((max(1, -(-length // chunk)) if chunk else 1), chunk)
-    return {cluster_plan(length, bh_kv, SMS), split}
+def _plans(length: int, bh_kv: int, held_out: bool = False) -> set[tuple[int, int]]:
+    """K2's split at ``bh_kv`` pairs, and the same rows over a full cluster of
+    8 (chunks a multiple of 16 rows), so that short caches exercise the
+    combine as well."""
+    _, used, chunk = _split("K2", length, bh_kv, held_out=held_out)
+    full = -(-(-(-length // MAX_CLUSTER)) // ROWS_PER_PASS) * ROWS_PER_PASS
+    return {(used, chunk), (MAX_CLUSTER, full)}
 
 
 def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -246,7 +287,7 @@ def test_k2_model_with_held_out_row_matches_split_plain(pos, storage):
         scales = tuple(torch.from_numpy((rng.random((2, 4, 256)) * 0.02 + 0.005)
                                         .astype(np.float32)) for _ in range(2))
     ref = decode_attention_split_plain(q, k, v, k_new, v_new, pos, *scales)
-    for n, chunk in _plans(pos, 8):
+    for n, chunk in _plans(pos, 8, held_out=True):
         got = _k2_model(q, k, v, pos, n, chunk, k_new, v_new, *scales)
         assert _rel_err(got, ref) <= 1e-6
 
@@ -271,30 +312,82 @@ FLASH_STAGE_ROWS = {"bf16": 64, "f8": 128, "int8": 128}  # csrc: one 32 KB ring 
 
 @pytest.mark.parametrize("bh_kv", [1, 8, 16, 64, 512, 1024])
 def test_flash_plan_covers_every_row_once(bh_kv):
-    for length in list(range(1, 300)) + list(range(300, 4097, 37)) + [4095, 4096]:
-        n, chunk = flash_plan(length, bh_kv, SMS)
-        assert 1 <= n <= MAX_FLASH_CLUSTER and chunk % ROWS_PER_PASS == 0
-        assert n == 1 or chunk >= ONE_CTA_ROWS
-        assert n == 1 or 2 * bh_kv * n <= 2 * SMS  # clusters only while pairs leave SMs idle
-        seen = np.zeros(length, np.int64)
-        for rank in range(n):
-            r0 = min(rank * chunk, length)
-            assert r0 < length  # every rank holds rows
-            seen[r0:min(r0 + chunk, length)] += 1
-        assert (seen == 1).all(), (length, n, chunk)
-    assert flash_plan(0, bh_kv, SMS) == (1, 0)  # pos 0: the held-out row alone
+    for length in list(range(256, 300)) + list(range(300, 4097, 37)) + [4095, 4096]:
+        grid, used, chunk = _split("K1", length, bh_kv, held_out=length == 256)
+        assert grid <= MAX_FLASH_CLUSTER and (used == 1 or chunk >= ONE_CTA_ROWS)
+        assert grid == 1 or 2 * bh_kv * grid <= 2 * SMS  # clusters only while pairs leave SMs idle
+        _covers_once(length, grid, used, chunk)
 
 
 def test_flash_plan_at_the_flagship_shapes():
-    """Batch 1 with CFG (8 pairs) at 2000 rows: 16 CTAs of 128 rows, 128 CTAs
-    on 132 SMs; at 512 rows 8 CTAs of 64; batch 2 with CFG (16 pairs): 8 CTAs
-    a pair; batch 64 with CFG (512 pairs) at pos 1999: one CTA a pair, which
-    streams all 1999 rows."""
-    assert flash_plan(2000, 8, SMS) == (16, 128)
-    assert flash_plan(4095, 8, SMS) == (16, 256)
-    assert flash_plan(512, 8, SMS) == (8, 64)
-    assert flash_plan(2000, 16, SMS) == (8, 256)
-    assert flash_plan(1999, 512, SMS) == (1, 2000)
+    """Batch 1 with CFG (8 pairs): clusters of 8 up to 512 rows and of 16
+    beyond (128 CTAs on 132 SMs); at 2000 rows 16 CTAs of 128, at 512 8 of
+    64; batch 2 with CFG (16 pairs): 8 CTAs a pair; batch 64 with CFG (512
+    pairs) at pos 1999: one CTA a pair, which streams all 1999 rows.  A split
+    may leave its last CTA without rows (1665 rows: 15 x 112 = 1680)."""
+    assert _split("K1", 2000, 8) == (16, 16, 128)
+    assert _split("K1", 4095, 8) == (16, 16, 256)
+    assert _split("K1", 512, 8) == (8, 8, 64)
+    assert _split("K1", 300, 8) == (8, 5, 64)
+    assert _split("K1", 2000, 16) == (8, 8, 256)
+    assert _split("K1", 1999, 512, held_out=True) == (1, 1, 2000)
+    assert _split("K1", 1665, 8) == (16, 16, 112)
+    assert band_plan("K1", Band(513, None), 8, 4096, False, SMS) == BandPlan(16, 64, 513, 4096,
+                                                                             256)
+
+
+# the lengths each band is checked at: its edges, and inside it lengths where the split
+# changes and where its last CTAs get no rows
+BAND_LENGTHS = {(1, 256): (1, 2, 64, 65, 129, 250, 256),
+                (257, 512): (257, 258, 300, 449, 512),
+                (513, None): (513, 1000, 1665, 2047, 2048)}
+
+
+@pytest.mark.parametrize("bh_kv", [8, 512])  # the plans of batch 1 and batch 64 (CFG)
+@pytest.mark.parametrize("band", list(BAND_LENGTHS))
+def test_band_plan_model_matches_plain(band, bh_kv):
+    """Each band's fixed plan over every length checked in it: the kernel's
+    torch model (its grid, the ranks past the split and the empty ones
+    holding no rows) against the plain version in float64."""
+    S = 2048
+    q, k, v = _qkv(np.random.default_rng(band[0] + bh_kv), 2, 16, 4, S)
+    kernel = Band(*band).kernel
+    plan = band_plan(kernel, Band(*band), bh_kv, S, False, SMS)
+    for length in BAND_LENGTHS[band]:
+        used, chunk = rank_rows(length, plan.n, plan.min_rows)
+        assert used <= plan.n and chunk <= plan.chunk_max
+        ref = decode_attention_plain(q.double(), k.double(), v.double(), length)
+        got = _k2_model(q, k, v, length, used, chunk,
+                        stage_rows=FLASH_STAGE_ROWS["bf16"] if kernel == "K1" else None)
+        assert _rel_err(got.double(), ref) <= 1e-6, length
+
+
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+@pytest.mark.parametrize("band", list(BAND_LENGTHS))
+def test_band_plan_model_with_held_out_row_matches_split_plain(band, storage):
+    """The same over a quantized cache: ``pos = length - 1`` cache rows (pos 0
+    included) plus the held-out row, in stages of 128 rows past 256."""
+    S = 2048
+    rng = np.random.default_rng(300 + band[0])
+    q, k, v = _qkv(rng, 2, 16, 4, S)
+    k_new, v_new = (torch.from_numpy(rng.normal(size=(2, 1, 4, 128)).astype(np.float32))
+                    for _ in range(2))
+    scales = (None, None)
+    if storage == "int8":
+        k, v = (torch.from_numpy(rng.integers(-127, 128, size=(2, 4, S, 128)).astype(np.int8))
+                for _ in range(2))
+        scales = tuple(torch.from_numpy((rng.random((2, 4, S)) * 0.02 + 0.005)
+                                        .astype(np.float32)) for _ in range(2))
+    kernel = Band(*band).kernel
+    plan = band_plan(kernel, Band(*band), 8, S, True, SMS)
+    for length in BAND_LENGTHS[band]:
+        pos = length - 1
+        used, chunk = rank_rows(pos, plan.n, plan.min_rows)
+        ref = decode_attention_split_plain(q.double(), k, v, k_new.double(), v_new.double(), pos,
+                                           *(t if t is None else t.double() for t in scales))
+        got = _k2_model(q, k, v, pos, used, chunk, k_new, v_new, *scales,
+                        stage_rows=128 if kernel == "K1" else None)
+        assert _rel_err(got.double(), ref) <= 1e-6, pos
 
 
 @pytest.mark.parametrize("storage", ["bf16", "f8"])  # the stage each cache's K1 walks
@@ -304,7 +397,7 @@ def test_k1_model_matches_plain(length, bh_kv_scale, storage):
     rng = np.random.default_rng(length + bh_kv_scale)
     q, k, v = _qkv(rng, 2, 16, 4, 4096)
     ref = decode_attention_plain(q.double(), k.double(), v.double(), length)
-    n, chunk = flash_plan(length, 8 * bh_kv_scale, SMS)
+    _, n, chunk = _split("K1", length, 8 * bh_kv_scale)
     got = _k2_model(q, k, v, length, n, chunk, stage_rows=FLASH_STAGE_ROWS[storage])
     assert _rel_err(got.double(), ref) <= 1e-6
 
@@ -329,7 +422,7 @@ def test_k1_model_with_held_out_row_matches_split_plain(pos, storage):
     ref = decode_attention_split_plain(q.double(), k, v, k_new.double(), v_new.double(), pos,
                                        *(t if t is None else t.double() for t in scales))
     for bh_kv in (8, 512):
-        n, chunk = flash_plan(pos, bh_kv, SMS)
+        _, n, chunk = _split("K1", pos, bh_kv, held_out=True)
         got = _k2_model(q, k, v, pos, n, chunk, k_new, v_new, *scales, stage_rows=128)
         assert _rel_err(got.double(), ref) <= 1e-6
 
@@ -340,7 +433,7 @@ def test_k1_model_matches_jax(length, G):
     rng = np.random.default_rng(11 * length + G)
     q, k, v = _qkv(rng, 1, 4 * G, 4, 4096)
     ref = jax_decode_attention(q.numpy(), k.numpy(), v.numpy(), jnp.int32(length))
-    n, chunk = flash_plan(length, 4, SMS)
+    _, n, chunk = _split("K1", length, 4)
     got = _k2_model(q, k, v, length, n, chunk, stage_rows=64)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 

@@ -21,25 +21,36 @@
 //   VMEM scratch from one grid step to the next.  On the card CTAs run in parallel and in no
 //   order, and at batch 1 with CFG there are only 2 * 4 = 8 (batch row, kv head) pairs for
 //   132 SMs.  So both kernels split a pair's valid rows over the CTAs of a thread-block
-//   cluster, one cluster per pair (kernels/decode_attention.py cluster_plan for K2,
-//   flash_plan for K1): rank r runs the row routine over its contiguous chunk, then stores
+//   cluster, one cluster per pair (kernels/decode_attention.py band_plan and rank_rows):
+//   rank r runs the row routine over its contiguous chunk, then stores
 //   its (m, l) into every rank and each slice of its acc into the rank that owns those
 //   output columns, through distributed shared memory; after one cluster barrier each rank
 //   combines its columns with the usual log-sum-exp rescaling, in rank order.  One launch,
 //   no global scratch.  Rows at or past `length` are never read, so the bytes read scale
 //   with the valid length, not the allocated S.
-// - K2 (`cluster_pass_kernel`, caches up to 256 rows): clusters of up to 8 CTAs (the
-//   portable limit) of at least 32 rows while the grid stays within two CTAs per SM; a
+// - The length is read from the card, as the Pallas kernels take it as a scalar-prefetch
+//   operand: a decode step is one program with no host read, replayed as a CUDA graph.  The
+//   host fixes the grid per band of lengths (kernels/decode_attention.py band_plan): the
+//   cluster size n and the shared memory the longest chunk of the band needs.  Every CTA
+//   reads the length (clamped to the band, so a wrong value cannot reach past the cache)
+//   and computes the split itself: one CTA up to 2 * min_rows rows, else ceil(length /
+//   min_rows) CTAs at most n, each taking the same multiple of 16 rows.  A rank past the
+//   split, or whose chunk lies past the length, contributes a neutral partial (m = -inf,
+//   l = 0, acc = 0) to the combine, which rank 0's rows (or held-out row) keep finite.  When
+//   the split is one CTA, rank 0 writes the output and the cluster's other CTAs exit at
+//   once, with no cluster barrier on either side.
+// - K2 (`cluster_pass_kernel`, the band of lengths up to 256): clusters of up to 8 CTAs
+//   (the portable limit) of at least 32 rows while the grid stays within two CTAs per SM; a
 //   CTA stages its whole chunk (up to 256 rows) before it computes.  Up to 64 rows one CTA
 //   a pair, where a cluster's barriers and exchange cost more than they save.
-// - K1 (`flash_cluster_kernel`, longer caches): clusters of up to 16 CTAs (a non-portable
-//   size, allowed by a function attribute), so that the 8 pairs of batch 1 with CFG become
-//   128 CTAs on 132 SMs; at batch 64 with CFG (512 pairs) fewer CTAs a pair (kernels/
-//   decode_attention.py flash_plan).  A rank streams its chunk through a ring of two 32 KB
-//   stages (64 rows of bf16 K and V, 128 of f8 or int8), carrying (m, l, acc) online: the
-//   next stage's copies are in flight while the current one is computed.  A CTA takes at
-//   most 64 KB of shared memory, so a 16-CTA cluster fits in a GPC
-//   (zt_flash_max_active_clusters asks the card how many fit).
+// - K1 (`flash_cluster_kernel`, the bands past 256): clusters of up to 16 CTAs (a
+//   non-portable size, allowed by a function attribute) of at least 64 rows, so that the 8
+//   pairs of batch 1 with CFG become 128 CTAs on 132 SMs; at batch 64 with CFG (512 pairs)
+//   fewer CTAs a pair (kernels/decode_attention.py band_plan).  A rank streams its chunk
+//   through a ring of two 32 KB stages (64 rows of bf16 K and V, 128 of f8 or int8),
+//   carrying (m, l, acc) online: the next stage's copies are in flight while the current
+//   one is computed.  A CTA takes at most 64 KB of shared memory, so a 16-CTA cluster fits
+//   in a GPC (zt_flash_max_active_clusters asks the card how many fit).
 // - Copies go by cp.async (every byte of a stage in flight at once), K and V as two groups
 //   so that V lands while the scores are computed; rows at or past `length` are
 //   zero-filled, not read.  16 lanes cover one 128-wide row with one 16-byte (bf16) or
@@ -228,16 +239,17 @@ struct Rows {
 
 // Online softmax over cache rows [r0, r1) of one (batch row, kv head), in stages of up to
 // kStageRows rows, started from the held-out row when kHeldOut and held_out (else m = -inf,
-// l = 0, and nothing at all for an empty range).  q: [G, D] bf16; the cache rows [S, D] of
-// T.  The stages go through a ring of kRing slots of the dynamic shared memory, each slot
-// the K and then the V rows of one stage (a slot holds min(kStageRows, r1 - r0 rounded up
-// to a 16-row pass) rows), copied as two cp.async groups so that V lands while the scores
-// are computed; with kRing > 1 (K1) the copies of stage i + 1 are started before stage i is
-// computed, and the first stage's before anything else.  K2 (kRing = 1) stages its chunk
-// whole.  On return every thread holds the running max m and sum l of each query row, and
-// threads t < D hold out[g] = sum_r p_r * v[r][t].
+// l = 0, and nothing at all for an empty range).  q: this thread's 8 values of each of the
+// G query rows [G, D] bf16, loaded by the caller; the cache rows [S, D] of T.  The stages
+// go through a ring of kRing slots of the dynamic shared memory, each slot the K and then
+// the V rows of one stage (a slot holds min(kStageRows, r1 - r0 rounded up to a 16-row
+// pass) rows), copied as two cp.async groups so that V lands while the scores are computed;
+// with kRing > 1 (K1) the copies of stage i + 1 are started before stage i is computed, and
+// the first stage's before anything else.  K2 (kRing = 1) stages its chunk whole.  On
+// return every thread holds the running max m and sum l of each query row, and threads
+// t < D hold out[g] = sum_r p_r * v[r][t].
 template <int G, typename T, bool kHeldOut, int kStageRows, int kRing>
-__device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Rows<T>& rows,
+__device__ __forceinline__ void attend_rows(const uint4 (&q)[G], const Rows<T>& rows,
                                             int r0, int r1, bool held_out, float scale,
                                             float (&m)[G], float (&l)[G], float (&out)[G]) {
   static_assert(kStageRows <= kThreads && kStageRows % kRowsPerPass == 0,
@@ -273,7 +285,7 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
   float qf[G][8], acc[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    widen8(*reinterpret_cast<const uint4*>(q + g * kD + sub * 8), qf[g]);
+    widen8(q[g], qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
     m[g] = -INFINITY;
@@ -404,7 +416,9 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ q, const Ro
   }
 }
 
-// Pointers of one call; a bf16 cache has no scales and no held-out row.
+// Pointers of one call; a bf16 cache has no scales and no held-out row.  `rows` points at
+// the number of cache rows to attend (an int32 on the card), which the kernel clamps to the
+// band [lo, hi] its launch was planned for; min_rows sets the split (split_ctas).
 template <typename T>
 struct Call {
   const bf16* q;  // [B*H_kv, G, D]
@@ -415,10 +429,11 @@ struct Call {
   const bf16* k_new;  // [B*H_kv, D] (quantized caches)
   const bf16* v_new;
   bf16* out;  // [B*H_kv, G, D]
-  int S, length;
+  const int* rows;
+  int S, lo, hi, min_rows;
   float scale;
 
-  __device__ Rows<T> rows(int bh) const {
+  __device__ Rows<T> rows_of(int bh) const {
     return {k + (size_t)bh * S * kD, v + (size_t)bh * S * kD,
             kScaled<T> ? ks + (size_t)bh * S : nullptr, kScaled<T> ? vs + (size_t)bh * S : nullptr,
             kQuantized<T> ? k_new + (size_t)bh * kD : nullptr,
@@ -426,35 +441,59 @@ struct Call {
   }
 };
 
-// One cluster per (batch row, kv head): grid (n, B * H_kv), clusters of n CTAs along x.
-// Rank r attends cache rows [r * chunk, min((r + 1) * chunk, length)) (rank 0 also the
-// held-out row of a quantized cache).  Each rank owns a slice of `width` of the 128 output
-// columns; rank r stores its m and l into every rank's shared memory and each slice of its
-// acc into the rank that owns it (the exchange area, `xchg` bytes into the dynamic shared
-// memory, past the stages), then arrives on the cluster barrier with release semantics and
-// waits on it (acquire): each rank then combines the n partials of its own columns in rank
-// order from its own shared memory.  An earlier relaxed barrier phase, waited on only just
-// before the remote stores, makes sure every rank has started.  One CTA (n = 1) writes its
-// output directly.
+// The split of `length` rows (kernels/decode_attention.py rank_rows): one CTA up to
+// 2 * min_rows rows, else ceil(length / min_rows) CTAs, at most n.
+__device__ __forceinline__ int split_ctas(int length, int n, int min_rows) {
+  return length <= 2 * min_rows ? 1 : min(n, (length + min_rows - 1) / min_rows);
+}
+
+// One cluster per (batch row, kv head): grid (n, B * H_kv), clusters of n CTAs along x.  Of
+// them the first `used` (split_ctas) attend: rank r cache rows [r * chunk, min((r + 1) *
+// chunk, length)), rank 0 also the held-out row of a quantized cache.  Each used rank owns
+// a slice of `width` of the 128 output columns; rank r stores its m and l into every used
+// rank's shared memory and each slice of its acc into the rank that owns it (the exchange
+// area, `xchg` bytes into the dynamic shared memory, past the stages), then arrives on the
+// cluster barrier with release semantics and waits on it (acquire): each used rank then
+// combines the partials of its own columns in rank order from its own shared memory.  An
+// earlier relaxed barrier phase, waited on only just before the remote stores, makes sure
+// every rank has started.  The ranks past `used` take part in both barrier phases and touch
+// no shared memory.  A split of one CTA writes its output directly.
 template <int G, typename T, bool kFlash>
-__device__ __forceinline__ void cluster_attend(const Call<T>& c, int chunk, int xchg) {
+__device__ __forceinline__ void cluster_attend(const Call<T>& c, int xchg) {
   const int n = gridDim.x, rank = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
-  if (n > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  const int r0 = min(rank * chunk, c.length), r1 = min(r0 + chunk, c.length);
+  // this thread's slice of q, in flight while the length is read (columns (tid % 16) * 8)
+  uint4 q[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    q[g] = *reinterpret_cast<const uint4*>(c.q + ((size_t)bh * G + g) * kD +
+                                           tid % kLanesPerRow * 8);
+  const int length = min(max(*c.rows, c.lo), c.hi);
+  const int used = split_ctas(length, n, c.min_rows);
+  const int chunk = round_up((length + used - 1) / used, kRowsPerPass);
+  if (used == 1 && rank > 0) return;  // every CTA of the cluster agrees: no barrier below
+  if (used > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (rank >= used) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+  const int r0 = min(rank * chunk, length), r1 = min(r0 + chunk, length);
   float m[G], l[G], acc[G];
   constexpr int kStageRows = kFlash ? kFlashStageRows<T> : kBlockS;
   attend_rows<G, T, kQuantized<T>, kStageRows, kFlash ? kFlashRing : 1>(
-      c.q + (size_t)bh * G * kD, c.rows(bh), r0, r1, rank == 0, c.scale, m, l, acc);
+      q, c.rows_of(bh), r0, r1, rank == 0, c.scale, m, l, acc);
   bf16* out = c.out + (size_t)bh * G * kD;
-  if (n == 1) {
+  if (used == 1) {
     if (tid < kD) {
 #pragma unroll
       for (int g = 0; g < G; ++g) out[g * kD + tid] = __float2bfloat16(acc[g] / l[g]);
     }
     return;
   }
-  // the exchange area: m [n][G], l [n][G], acc [n][G][width] fp32 (width columns a rank)
-  const int width = (kD + n - 1) / n;
+  // the exchange area: m [n][G], l [n][G] (the first `used` rows filled), acc [used][G]
+  // [width] fp32 (width columns a rank), at most G * (3 * n + kD) floats
+  const int width = (kD + used - 1) / used;
   extern __shared__ __align__(16) unsigned char dyn[];
   float* xm = reinterpret_cast<float*>(dyn + xchg);
   float* xl = xm + n * G;
@@ -466,7 +505,7 @@ __device__ __forceinline__ void cluster_attend(const Call<T>& c, int chunk, int 
 #pragma unroll
     for (int g = 0; g < G; ++g) dst[g * width] = acc[g];
   }
-  if (tid < n) {  // m and l go to every rank
+  if (tid < used) {  // m and l go to every used rank
     float* dm = cluster.map_shared_rank(xm, tid) + rank * G;
     float* dl = cluster.map_shared_rank(xl, tid) + rank * G;
 #pragma unroll
@@ -481,9 +520,9 @@ __device__ __forceinline__ void cluster_attend(const Call<T>& c, int chunk, int 
   for (int i = tid; i < G * cols; i += kThreads) {
     const int g = i / cols, j = i % cols;
     float mx = -INFINITY;
-    for (int r = 0; r < n; ++r) mx = fmaxf(mx, xm[r * G + g]);
+    for (int r = 0; r < used; ++r) mx = fmaxf(mx, xm[r * G + g]);
     float lsum = 0.f, o = 0.f;
-    for (int r = 0; r < n; ++r) {
+    for (int r = 0; r < used; ++r) {
       const float w = expf(xm[r * G + g] - mx);  // 0 for an empty rank
       lsum += xl[r * G + g] * w;
       o += xacc[(r * G + g) * width + j] * w;
@@ -494,14 +533,14 @@ __device__ __forceinline__ void cluster_attend(const Call<T>& c, int chunk, int 
 
 // K2: each CTA stages its chunk (at most one 256-row block) whole.
 template <int G, typename T>
-__global__ void __launch_bounds__(kThreads) cluster_pass_kernel(Call<T> c, int chunk, int xchg) {
-  cluster_attend<G, T, false>(c, chunk, xchg);
+__global__ void __launch_bounds__(kThreads) cluster_pass_kernel(Call<T> c, int xchg) {
+  cluster_attend<G, T, false>(c, xchg);
 }
 
 // K1: each CTA streams its chunk through the ring of 32 KB stages.
 template <int G, typename T>
-__global__ void __launch_bounds__(kThreads) flash_cluster_kernel(Call<T> c, int chunk, int xchg) {
-  cluster_attend<G, T, true>(c, chunk, xchg);
+__global__ void __launch_bounds__(kThreads) flash_cluster_kernel(Call<T> c, int xchg) {
+  cluster_attend<G, T, true>(c, xchg);
 }
 
 // A launch of K1 (kFlash) or K2: the kernel, its stage, ring and cluster limit.
@@ -514,7 +553,7 @@ struct Plan {
   static constexpr int kMaxSmem =
       (kFlash ? kRing * kSlotBytes : kStageBytes<T>) + G * (3 * kMaxN + kD) * (int)sizeof(float);
 
-  static void (*kernel())(Call<T>, int, int) {
+  static void (*kernel())(Call<T>, int) {
     if constexpr (kFlash) return flash_cluster_kernel<G, T>;
     else return cluster_pass_kernel<G, T>;
   }
@@ -528,7 +567,8 @@ struct Plan {
   }
 
   // Lets the kernel take its stages above the 48 KB default and (K1) clusters above the
-  // portable 8 CTAs; set once per kernel (a function-local static is initialised once).
+  // portable 8 CTAs; set once per kernel (a function-local static is initialised once), by
+  // zt_decode_attention_prepare when the library is loaded, so never during a capture.
   static cudaError_t allow() {
     static const cudaError_t err = [] {
       cudaError_t e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,17 +580,16 @@ struct Plan {
     return err;
   }
 
-  // The launch of clusters of n CTAs of `chunk` rows over BH pairs; refuses a plan that
-  // leaves rows out or passes the cluster limit.
-  static cudaError_t config(int BH, int length, int n, int chunk, cudaStream_t stream,
-                            cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster_dim,
-                            int& xchg_bytes) {
-    if (n < 1 || n > kMaxN || chunk < 0 || (long long)n * chunk < length || BH < 1)
+  // The launch of clusters of n CTAs over BH pairs whose longest chunk is chunk_max rows;
+  // refuses a band outside [0, S] and a cluster past the limit.
+  static cudaError_t config(int BH, int S, int lo, int hi, int n, int chunk_max,
+                            cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                            cudaLaunchAttribute& cluster_dim, int& xchg_bytes) {
+    if (n < 1 || n > kMaxN || chunk_max < 0 || BH < 1 || lo < 0 || lo > hi || hi > S)
       return cudaErrorInvalidValue;
     const cudaError_t attr = allow();
     if (attr != cudaSuccess) return attr;
-    xchg_bytes = xchg(chunk);
-    const int width = (kD + n - 1) / n;
+    xchg_bytes = xchg(chunk_max);
     cluster_dim.id = cudaLaunchAttributeClusterDimension;
     cluster_dim.val.clusterDim.x = n;
     cluster_dim.val.clusterDim.y = 1;
@@ -558,20 +597,22 @@ struct Plan {
     cfg = {};
     cfg.gridDim = dim3(n, BH);
     cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = xchg_bytes + (n > 1 ? n * G * (2 + width) * (int)sizeof(float) : 0);
+    cfg.dynamicSmemBytes = xchg_bytes + (n > 1 ? G * (3 * n + kD) * (int)sizeof(float) : 0);
     cfg.stream = stream;
     cfg.attrs = &cluster_dim;
     cfg.numAttrs = 1;
     return cudaSuccess;
   }
 
-  static int launch(const Call<T>& c, int BH, int n, int chunk, cudaStream_t stream) {
+  static int launch(const Call<T>& c, int BH, int n, int chunk_max, cudaStream_t stream) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute cluster_dim;
     int xchg_bytes;
-    cudaError_t err = config(BH, c.length, n, chunk, stream, cfg, cluster_dim, xchg_bytes);
+    if (c.min_rows < 1) return cudaErrorInvalidValue;
+    cudaError_t err =
+        config(BH, c.S, c.lo, c.hi, n, chunk_max, stream, cfg, cluster_dim, xchg_bytes);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, kernel(), c, chunk, xchg_bytes);
+    err = cudaLaunchKernelEx(&cfg, kernel(), c, xchg_bytes);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
 
@@ -580,7 +621,7 @@ struct Plan {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute cluster_dim;
     int xchg_bytes;
-    const cudaError_t err = config(1, 0, n, chunk, nullptr, cfg, cluster_dim, xchg_bytes);
+    const cudaError_t err = config(1, 0, 0, 0, n, chunk, nullptr, cfg, cluster_dim, xchg_bytes);
     if (err != cudaSuccess) return err;
     cfg.gridDim = dim3(n, 1);
     return cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg);
@@ -588,41 +629,68 @@ struct Plan {
 };
 
 template <bool kFlash, typename T>
-int launch_by_group(const Call<T>& c, int BH, int G, int n, int chunk, cudaStream_t st) {
+int launch_by_group(const Call<T>& c, int BH, int G, int n, int chunk_max, cudaStream_t st) {
   switch (G) {
-    case 1: return Plan<1, T, kFlash>::launch(c, BH, n, chunk, st);
-    case 2: return Plan<2, T, kFlash>::launch(c, BH, n, chunk, st);
-    case 4: return Plan<4, T, kFlash>::launch(c, BH, n, chunk, st);
-    case 8: return Plan<8, T, kFlash>::launch(c, BH, n, chunk, st);
+    case 1: return Plan<1, T, kFlash>::launch(c, BH, n, chunk_max, st);
+    case 2: return Plan<2, T, kFlash>::launch(c, BH, n, chunk_max, st);
+    case 4: return Plan<4, T, kFlash>::launch(c, BH, n, chunk_max, st);
+    case 8: return Plan<8, T, kFlash>::launch(c, BH, n, chunk_max, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The band's launch parameters, as the entry points take them.
+struct Band {
+  const int* rows;  // int32 on the card: the cache rows to attend
+  int lo, hi;       // the band the launch is planned for (cache rows)
+  int n, chunk_max, min_rows;
+};
+
 template <typename T>
 Call<T> make_call(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                  const void* k_new, const void* v_new, void* out, int S, int length,
+                  const void* k_new, const void* v_new, void* out, int S, const Band& b,
                   float scale) {
   return {static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<const float*>(ks), static_cast<const float*>(vs),
           static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-          static_cast<bf16*>(out), S, length, scale};
+          static_cast<bf16*>(out), b.rows, S, b.lo, b.hi, b.min_rows, scale};
+}
+
+// Every instantiation's attributes (and with them its module), before any capture; the
+// first error, if any.
+template <bool kFlash, typename T>
+cudaError_t allow_groups() {
+  const cudaError_t errs[] = {Plan<1, T, kFlash>::allow(), Plan<2, T, kFlash>::allow(),
+                              Plan<4, T, kFlash>::allow(), Plan<8, T, kFlash>::allow()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+template <bool kFlash>
+cudaError_t allow_all() {
+  const cudaError_t errs[] = {allow_groups<kFlash, bf16>(), allow_groups<kFlash, f8>(),
+                              allow_groups<kFlash, int8_t>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
 }
 
 // Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
 template <bool kFlash>
 int launch_quantized(int storage, const void* q, const void* k, const void* v,
                      const void* k_scale, const void* v_scale, const void* k_new,
-                     const void* v_new, void* out, int B, int Hkv, int G, int S, int pos, int n,
-                     int chunk, float scale, void* stream) {
+                     const void* v_new, void* out, int B, int Hkv, int G, int S, const Band& b,
+                     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return launch_by_group<kFlash>(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S,
-                                                 pos, scale),
-                                   B * Hkv, G, n, chunk, st);
+                                                 b, scale),
+                                   B * Hkv, G, b.n, b.chunk_max, st);
   if (storage == 2)
     return launch_by_group<kFlash>(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new,
-                                                     out, S, pos, scale),
-                                   B * Hkv, G, n, chunk, st);
+                                                     out, S, b, scale),
+                                   B * Hkv, G, b.n, b.chunk_max, st);
   return cudaErrorInvalidValue;
 }
 
@@ -640,45 +708,60 @@ int max_active_by_group(int G, int n, int chunk, int* clusters) {
 }  // namespace
 
 // q [B, 1, H, D], k/v [B, H_kv, S, D], out [B, 1, H, D]: bf16, contiguous, D = 128.
-// K1: clusters of n CTAs (up to 16) of `chunk` rows (n * chunk >= length).
+// `rows` points at an int32 on the card: the cache rows to attend, clamped to [lo, hi]
+// (0 <= lo <= hi <= S).  K1: clusters of n CTAs (up to 16) of at least min_rows rows, the
+// longest chunk of the band chunk_max rows (it sizes the shared memory).
 extern "C" int zt_flash_decode_attention(const void* q, const void* k, const void* v, void* out,
-                                         int B, int Hkv, int G, int S, int length, int n,
-                                         int chunk, float scale, void* stream) {
+                                         int B, int Hkv, int G, int S, const int* rows, int lo,
+                                         int hi, int n, int chunk_max, int min_rows, float scale,
+                                         void* stream) {
+  const Band b{rows, lo, hi, n, chunk_max, min_rows};
   return launch_by_group<true>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out,
-                                               S, length, scale),
-                               B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
+                                               S, b, scale),
+                               B * Hkv, G, n, chunk_max, static_cast<cudaStream_t>(stream));
 }
 
-// K2: clusters of n CTAs (up to 8) of `chunk` rows (n * chunk >= length).
+// K2: clusters of n CTAs (up to 8).
 extern "C" int zt_decode_attention_single(const void* q, const void* k, const void* v, void* out,
-                                          int B, int Hkv, int G, int S, int length, int n,
-                                          int chunk, float scale, void* stream) {
+                                          int B, int Hkv, int G, int S, const int* rows, int lo,
+                                          int hi, int n, int chunk_max, int min_rows,
+                                          float scale, void* stream) {
+  const Band b{rows, lo, hi, n, chunk_max, min_rows};
   return launch_by_group<false>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr,
-                                                out, S, length, scale),
-                                B * Hkv, G, n, chunk, static_cast<cudaStream_t>(stream));
+                                                out, S, b, scale),
+                                B * Hkv, G, n, chunk_max, static_cast<cudaStream_t>(stream));
 }
 
 // Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
 // k/v [B, H_kv, S, D] of that type; k_new/v_new [B, 1, H_kv, D] bf16, the current token's,
-// held out; cache rows [0, pos) are attended (pos may be 0).
+// held out; `rows` (the current position) cache rows are attended (it may be 0).
 extern "C" int zt_flash_decode_attention_q(int storage, const void* q, const void* k,
                                            const void* v, const void* k_scale,
                                            const void* v_scale, const void* k_new,
                                            const void* v_new, void* out, int B, int Hkv, int G,
-                                           int S, int pos, int n, int chunk, float scale,
+                                           int S, const int* rows, int lo, int hi, int n,
+                                           int chunk_max, int min_rows, float scale,
                                            void* stream) {
   return launch_quantized<true>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv, G,
-                                S, pos, n, chunk, scale, stream);
+                                S, Band{rows, lo, hi, n, chunk_max, min_rows}, scale, stream);
 }
 
 extern "C" int zt_decode_attention_single_q(int storage, const void* q, const void* k,
                                             const void* v, const void* k_scale,
                                             const void* v_scale, const void* k_new,
                                             const void* v_new, void* out, int B, int Hkv, int G,
-                                            int S, int pos, int n, int chunk, float scale,
+                                            int S, const int* rows, int lo, int hi, int n,
+                                            int chunk_max, int min_rows, float scale,
                                             void* stream) {
   return launch_quantized<false>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv,
-                                 G, S, pos, n, chunk, scale, stream);
+                                 G, S, Band{rows, lo, hi, n, chunk_max, min_rows}, scale, stream);
+}
+
+// Sets every kernel's attributes (and so loads its module) once, before anything is
+// captured into a CUDA graph; the wrapper calls it when it loads the library.
+extern "C" int zt_decode_attention_prepare() {
+  const cudaError_t err = allow_all<true>();
+  return err != cudaSuccess ? err : allow_all<false>();
 }
 
 // K1's plan check: how many clusters of n CTAs of `chunk` rows (storage 0 = bf16, 1 = f8,

@@ -4,7 +4,10 @@ version.
 A wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version only for CPU tensors.
 ``launch_counts`` counts kernel launches per wrapper; it grows only where a
-kernel is launched, never on the CPU path.
+kernel is launched, never on the CPU path.  A CUDA graph's replay runs no
+wrapper: the graph's launches are taken at capture (:func:`launches_since`,
+the capture's own count undone) and added once per replay
+(:func:`add_launches`).
 """
 
 launch_counts: dict[str, int] = {
@@ -26,3 +29,13 @@ launch_counts: dict[str, int] = {
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The launches counted since ``before`` (a copy of ``launch_counts``)."""
+    return {name: n - before[name] for name, n in launch_counts.items() if n != before[name]}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        launch_counts[name] += n

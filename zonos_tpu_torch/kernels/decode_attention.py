@@ -2,8 +2,13 @@
 
 Replaces ``flash_decode_attention_pallas`` and ``decode_attention_pallas``
 (zonos_tpu/ops/pallas_kernels.py:147, :58): one query token per row against
-a KV cache masked to its first ``length`` rows.  ``length`` is a host int,
-so a decode step never reads anything back from the card.
+a KV cache masked to its first ``length`` rows.  As in the Pallas kernels,
+which take ``length`` as a scalar-prefetch operand over a grid fixed by the
+cache size, the kernels read ``length`` from the card (an int32 tensor), so
+a decode step is one program with no host read and can be replayed as a
+CUDA graph.  The host fixes each launch's grid per :class:`Band` of lengths
+(:func:`band_plan`); each CTA computes its rows from the length on the card
+(:func:`rank_rows`).
 
 Over a quantized cache (f8 e4m3, or int8 with one fp32 scale per row and kv
 head) the current token's k/v are held out in the compute dtype, as in
@@ -16,73 +21,136 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 
-BLOCK_S = 256  # the longest cache K2 takes (staged whole); longer ones go to K1
+BLOCK_S = 256  # the longest length K2's band takes; longer ones go to K1
 HEAD_DIM = 128  # compiled into the kernel
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernel is instantiated for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "zt_flash_decode_attention": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "zt_flash_decode_attention_q": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
-    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    "zt_flash_decode_attention": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
+    "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
+    "zt_flash_decode_attention_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
+    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
     "zt_flash_max_active_clusters": [_I, _I, _I, _I, _P],
+    "zt_decode_attention_prepare": [],
 }
 # quantized cache storage: the kernels' storage code and the launch-count suffix
 STORAGE = {torch.float8_e4m3fn: (1, "f8"), torch.int8: (2, "int8")}
-MAX_CLUSTER = 8  # CTAs in a thread-block cluster, the portable limit
-CHUNK_ROWS = 32  # the fewest cache rows worth a CTA of its own in a cluster
-ONE_CTA_ROWS = 64  # up to here one CTA a pair beats a cluster's fixed cost (--sweep)
+MAX_CLUSTER = 8  # K2's CTAs in a thread-block cluster, the portable limit
+CHUNK_ROWS = 32  # K2: the fewest cache rows worth a CTA of its own in a cluster
+ONE_CTA_ROWS = 64  # K1: the same; and up to 2 x K2's CHUNK_ROWS one CTA a pair (--sweep)
 ROWS_PER_PASS = 16  # cache rows a CTA covers at once (16 lanes a row); chunks are multiples
 CTAS_PER_SM = 2  # the grid K2's plan stops splitting at
 MAX_FLASH_CLUSTER = 16  # K1's CTAs per cluster, the largest (non-portable) size
+# The bands of attended lengths (cache rows, plus the held-out row over a quantized cache)
+# whose launches share one grid: K2's up to 256 rows, K1's beyond in two (one cluster size
+# for each); None: to the end of the cache.
+BANDS = ((1, BLOCK_S), (BLOCK_S + 1, 2 * BLOCK_S), (2 * BLOCK_S + 1, None))
 
 
-def cluster_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
-    """K2's launch plan: ``(n, chunk)``, clusters of ``n`` CTAs (1 to 8), one
-    per (batch row, kv head), rank ``r`` attending cache rows ``[r * chunk,
-    min((r + 1) * chunk, length))``.  Up to ``ONE_CTA_ROWS`` rows one CTA a
-    pair (a cluster's barriers and exchange cost more than they save there);
-    beyond, one CTA per ``CHUNK_ROWS`` rows, at most 8, halved while the grid
-    would pass two CTAs per SM, since one CTA a pair already fills the card
-    there.  ``chunk`` is then rounded up to a multiple of 16 rows and ``n``
-    cut to the ranks that hold rows.  Batch 1 with CFG at
-    256 rows (8 pairs): 8 CTAs of 32 rows; batch 64 with CFG (512 pairs): one
-    CTA of 256.  ``length`` 0 (a quantized cache at pos 0, the held-out row
-    only): one CTA with no cache rows."""
-    n = 1 if length <= ONE_CTA_ROWS else min(MAX_CLUSTER, -(-length // CHUNK_ROWS))
-    while n > 1 and bh_kv * n > CTAS_PER_SM * sms:
-        n //= 2
-    chunk = -(-length // n)
-    chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
-    return (max(1, -(-length // chunk)) if chunk else 1), chunk
+@dataclass(frozen=True)
+class Band:
+    """A range ``[lo, hi]`` of attended lengths (``hi`` None: to the end of the
+    cache) over which one launch plan holds, so that one captured decode step
+    serves every length in it.  K2 takes the band up to 256 (``kernel``), K1
+    the rest."""
+
+    lo: int
+    hi: int | None
+
+    @property
+    def kernel(self) -> str:
+        return "K2" if self.hi is not None and self.hi <= BLOCK_S else "K1"
+
+    def check(self, length: int) -> None:
+        """Raise where the host's ``length`` lies outside the band."""
+        if length < self.lo or (self.hi is not None and length > self.hi):
+            raise ValueError(f"length {length} outside the band [{self.lo}, {self.hi}]")
 
 
-def flash_plan(length: int, bh_kv: int, sms: int = 132) -> tuple[int, int]:
-    """K1's launch plan: ``(n, chunk)``, clusters of ``n`` CTAs (1 to 16), one
-    per (batch row, kv head), rank ``r`` attending cache rows ``[r * chunk,
-    min((r + 1) * chunk, length))`` in stages.  ``n`` doubles while the grid
-    stays within one CTA per SM, so that few pairs still fill the card, and
-    is cut to one CTA per ``ONE_CTA_ROWS`` rows; ``chunk`` is rounded up to a
-    multiple of 16 rows and ``n`` cut to the ranks that hold rows.  Once the
-    pairs alone fill the card, one CTA a pair streams all its rows: the
-    cluster's barriers cost more than they save there (``chip_smoke.py
-    --sweep``).  Batch 1 with CFG (8 pairs) at 2000 rows: 16 CTAs of 128;
-    at 512 rows 8 CTAs of 64; batch 64 with CFG (512 pairs): one CTA.
-    ``length`` 0 (a quantized cache at pos 0, the held-out row only): one
-    CTA with no cache rows."""
+def band_of(length: int) -> Band:
+    """The band of :data:`BANDS` that holds ``length`` (at least 1)."""
+    for lo, hi in BANDS:
+        if lo <= length and (hi is None or length <= hi):
+            return Band(lo, hi)
+    raise ValueError(f"attended length {length} is below 1")
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """One launch over a band: clusters of ``n`` CTAs, the split's
+    ``min_rows`` (:func:`rank_rows`), the cache rows ``[lo, hi]`` the kernel
+    clamps the length to and the longest chunk of the band, ``chunk_max``
+    (it sizes the shared memory)."""
+
+    n: int
+    min_rows: int
+    lo: int
+    hi: int
+    chunk_max: int
+
+
+def _round16(rows: int) -> int:
+    return -(-rows // ROWS_PER_PASS) * ROWS_PER_PASS
+
+
+def rank_rows(rows: int, n: int, min_rows: int) -> tuple[int, int]:
+    """The split each CTA computes on the card: ``(used, chunk)``, the first
+    ``used`` ranks of a cluster of ``n`` taking ``chunk`` rows each (rank r
+    ``[r * chunk, min((r + 1) * chunk, rows))``, possibly empty at the end),
+    the others none.  One CTA up to ``2 * min_rows`` rows (a cluster's
+    barriers and exchange cost more than they save there), else one per
+    ``min_rows`` rows, at most ``n``; ``chunk`` a multiple of 16."""
+    used = 1 if rows <= 2 * min_rows else min(n, -(-rows // min_rows))
+    return used, _round16(-(-rows // used))
+
+
+def grid_cap(kernel: str, bh_kv: int, sms: int = 132) -> int:
+    """The most CTAs a cluster of ``kernel`` ("K1" or "K2") gets at ``bh_kv``
+    (batch row, kv head) pairs.  K2: 8, halved while the grid would pass two
+    CTAs per SM (one CTA a pair already fills the card there).  K1: doubled
+    up to 16 while the grid stays within one CTA per SM, so that few pairs
+    still fill the card; once the pairs alone fill it, one CTA a pair streams
+    all its rows (the cluster's barriers cost more than they save there,
+    ``chip_smoke.py --sweep``)."""
+    if kernel == "K2":
+        n = MAX_CLUSTER
+        while n > 1 and bh_kv * n > CTAS_PER_SM * sms:
+            n //= 2
+        return n
     n = 1
     while n < MAX_FLASH_CLUSTER and 2 * n * bh_kv <= sms:
         n *= 2
-    n = max(1, min(n, length // ONE_CTA_ROWS))
-    chunk = -(-(-(-length // n)) // ROWS_PER_PASS) * ROWS_PER_PASS
-    return (max(1, -(-length // chunk)) if chunk else 1), chunk
+    return n
+
+
+def band_plan(kernel: str, band: Band, bh_kv: int, S: int, held_out: bool,
+              sms: int = 132) -> BandPlan:
+    """``kernel``'s launch over ``band`` for a cache of ``S`` rows: the cache
+    rows it attends are the band's lengths (one fewer with the current row
+    held out), cut at the cache's end; the cluster size is what the longest
+    of them splits into (:func:`rank_rows`) under :func:`grid_cap`.  Raises
+    where the band does not fit the cache.  Batch 1 with CFG (8 pairs): K2 8
+    CTAs (32 rows each at 256), K1 8 CTAs up to 512 rows and 16 beyond; batch
+    64 with CFG (512 pairs): one CTA a pair."""
+    cut = 1 if held_out else 0
+    lo = band.lo - cut
+    hi = (S if band.hi is None else min(band.hi, S)) - cut
+    if lo < 0 or lo > hi:
+        raise ValueError(f"the band [{band.lo}, {band.hi}] does not fit a cache of {S} rows")
+    min_rows = CHUNK_ROWS if kernel == "K2" else ONE_CTA_ROWS
+    n = max(1, min(grid_cap(kernel, bh_kv, sms), -(-hi // min_rows)))
+    # the longest chunk: one CTA's rows up to 2 * min_rows, a cluster's at most min_rows
+    # rows while it grows and ceil(hi / n) once it is full
+    chunk_max = max(_round16(min(hi, 2 * min_rows)), _round16(min_rows), _round16(-(-hi // n)))
+    return BandPlan(n, min_rows, lo, hi, chunk_max)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,10 +160,11 @@ def attention_scale(head_dim: int) -> float:
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           length: int) -> torch.Tensor:
-    """q [B, 1, H, D] vs cache [B, H_kv, S, D], first ``length`` rows valid ->
-    [B, 1, H, D].  fp32 scores and softmax; the weights are cast to v's dtype
-    before the value product (zonos_tpu/ops/attention.py:173-210)."""
+                           length: int | torch.Tensor) -> torch.Tensor:
+    """q [B, 1, H, D] vs cache [B, H_kv, S, D], first ``length`` rows valid (a
+    host int or a 0-d tensor on q's device) -> [B, 1, H, D].  fp32 scores and
+    softmax; the weights are cast to v's dtype before the value product
+    (zonos_tpu/ops/attention.py:173-210)."""
     B, _, H, D = q.shape
     H_kv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // H_kv
@@ -151,7 +220,41 @@ def kernel_takes(q, k_cache, v_cache, k_new=None, v_new=None, k_scale=None,
     return _refusal(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale) is None
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> tuple:
+def resolve_band(length, band: Band | None, held_out: bool) -> Band:
+    """The band of what ``length`` attends (one row more with the current row
+    held out): ``band``, which must hold a host int ``length``, or the band
+    of its value.  A tensor comes with its band: the host cannot read it."""
+    if isinstance(length, torch.Tensor):
+        if band is None:
+            raise ValueError("a length on the card comes with the band it lies in")
+        return band
+    attended = int(length) + held_out
+    if band is None:
+        return band_of(attended)
+    band.check(attended)
+    return band
+
+
+def _length_operand(length, band: Band | None, held_out: bool, device: torch.device):
+    """The length as the kernels read it, an int32 on ``device``, and its band;
+    a host int (a one-off call) is placed on the card by a fill."""
+    band = resolve_band(length, band, held_out)
+    if isinstance(length, torch.Tensor):
+        if length.dtype != torch.int32 or length.numel() != 1 or length.device != device:
+            raise ValueError(f"the length must be one int32 on {device}, got {length.dtype} "
+                             f"{tuple(length.shape)} on {length.device}")
+        return length, band
+    return torch.full((), int(length), dtype=torch.int32, device=device), band
+
+
+def _clamped(length, plan: BandPlan):
+    """A CPU length clamped to the band's rows, as the kernels clamp it."""
+    if isinstance(length, torch.Tensor):
+        return length.clamp(plan.lo, plan.hi)
+    return min(max(int(length), plan.lo), plan.hi)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     if not (k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError("q, k_cache and v_cache must lie on the same CUDA device")
     refusal = _refusal(q, k, v)
@@ -161,33 +264,54 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> tu
         raise ValueError("decode attention kernel takes contiguous tensors")
     B, _, H, _ = q.shape
     H_kv, S = k.shape[1], k.shape[2]
-    if not 1 <= length <= S:
-        raise ValueError(f"length {length} outside [1, {S}]")
     return B, H_kv, H // H_kv, S
 
 
-def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           length: int) -> torch.Tensor:
-    """K1: one thread-block cluster of up to 16 CTAs per (row, kv head)
-    (:func:`flash_plan`), each CTA streaming its chunk of the valid rows
-    through a ring of stages, the partial softmaxes combined through
-    distributed shared memory; one launch, no scratch.  CPU tensors take the
-    plain version."""
-    length = int(length)
-    if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, length)
-    B, H_kv, G, S = _check(q, k_cache, v_cache, length)
-    n, chunk = flash_plan(length, B * H_kv, sm_count(q.device.index))
-    out = torch.empty_like(q)
+@functools.lru_cache(maxsize=None)
+def _library(device_index: int) -> ctypes.CDLL:
+    """The library, with every kernel's attributes set on the device: once,
+    at the first launch, so never while a CUDA graph is being captured."""
     lib = library("decode_attention", _SIGNATURES)
-    rc = lib.zt_flash_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, H_kv, G, S, length, n, chunk, attention_scale(HEAD_DIM),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(rc, "flash_decode_attention")
-    launch_counts["flash_decode_attention"] += 1
+    with torch.cuda.device(device_index):
+        check(lib.zt_decode_attention_prepare(), "decode_attention_prepare")
+    return lib
+
+
+def _attend(kernel: str, q, k_cache, v_cache, length, band: Band | None) -> torch.Tensor:
+    """K1 (``kernel`` "K1") or K2 over a bf16 cache: CUDA tensors launch the
+    kernel with ``band``'s plan, CPU tensors take the plain version."""
+    if not q.is_cuda:
+        if band is not None:
+            band = resolve_band(length, band, False)
+            plan = band_plan(kernel, band, q.shape[0] * k_cache.shape[1], k_cache.shape[2],
+                             False)
+            length = _clamped(length, plan)
+        return decode_attention_plain(q, k_cache, v_cache, length)
+    B, H_kv, G, S = _check(q, k_cache, v_cache)
+    length, band = _length_operand(length, band, False, q.device)
+    plan = band_plan(kernel, band, B * H_kv, S, False, sm_count(q.device.index))
+    out = torch.empty_like(q)
+    lib = _library(q.device.index)
+    entry = lib.zt_flash_decode_attention if kernel == "K1" else lib.zt_decode_attention_single
+    name = "flash_decode_attention" if kernel == "K1" else "decode_attention_single"
+    rc = entry(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+               B, H_kv, G, S, length.data_ptr(), plan.lo, plan.hi, plan.n, plan.chunk_max,
+               plan.min_rows, attention_scale(HEAD_DIM),
+               torch.cuda.current_stream(q.device).cuda_stream)
+    check(rc, name)
+    launch_counts[name] += 1
     return out
+
+
+def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           length, band: Band | None = None) -> torch.Tensor:
+    """K1: one thread-block cluster of up to 16 CTAs per (row, kv head)
+    (:func:`band_plan`), each CTA streaming its chunk of the valid rows
+    through a ring of stages, the partial softmaxes combined through
+    distributed shared memory; one launch, no scratch.  ``length``: an int32
+    on the card with its ``band`` (or a host int).  CPU tensors take the
+    plain version."""
+    return _attend("K1", q, k_cache, v_cache, length, band)
 
 
 def max_active_clusters(storage: torch.dtype, G: int, n: int, chunk: int) -> int:
@@ -197,42 +321,30 @@ def max_active_clusters(storage: torch.dtype, G: int, n: int, chunk: int) -> int
     cannot launch them)."""
     code = 0 if storage == torch.bfloat16 else STORAGE[storage][0]
     clusters = ctypes.c_int(0)
-    check(library("decode_attention", _SIGNATURES).zt_flash_max_active_clusters(
+    check(_library(torch.cuda.current_device()).zt_flash_max_active_clusters(
         code, G, n, chunk, ctypes.addressof(clusters)), "flash_max_active_clusters")
     return clusters.value
 
 
 def decode_attention_single(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                            length: int) -> torch.Tensor:
+                            length, band: Band | None = None) -> torch.Tensor:
     """K2: one thread-block cluster per (row, kv head) splits the valid rows
-    over its CTAs (:func:`cluster_plan`) and combines their partial softmaxes
-    through distributed shared memory; one launch, no scratch.  CPU tensors
-    take the plain version."""
-    length = int(length)
-    if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, length)
-    B, H_kv, G, S = _check(q, k_cache, v_cache, length)
-    n, chunk = cluster_plan(length, B * H_kv, sm_count(q.device.index))
-    out = torch.empty_like(q)
-    lib = library("decode_attention", _SIGNATURES)
-    rc = lib.zt_decode_attention_single(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, H_kv, G, S, length, n, chunk, attention_scale(HEAD_DIM),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(rc, "decode_attention_single")
-    launch_counts["decode_attention_single"] += 1
-    return out
+    over its CTAs (:func:`band_plan`) and combines their partial softmaxes
+    through distributed shared memory; one launch, no scratch.  ``length``:
+    an int32 on the card with its ``band`` (or a host int).  CPU tensors take
+    the plain version."""
+    return _attend("K2", q, k_cache, v_cache, length, band)
 
 
 def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
-                                 k_scale: torch.Tensor | None = None,
+                                 k_new: torch.Tensor, v_new: torch.Tensor,
+                                 pos: int | torch.Tensor, k_scale: torch.Tensor | None = None,
                                  v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, 1, H, D] against cache rows [0, pos) of ``k_cache``/``v_cache``
     [B, H_kv, S, D] plus the held-out current row ``k_new``/``v_new``
-    [B, 1, H_kv, D]; ``k_scale``/``v_scale`` [B, H_kv, S] are an int8 cache's
-    row scales.  The arithmetic and dtype points of decode_attention_split
+    [B, 1, H_kv, D] (``pos`` a host int or a 0-d tensor on q's device);
+    ``k_scale``/``v_scale`` [B, H_kv, S] are an int8 cache's row scales.  The
+    arithmetic and dtype points of decode_attention_split
     (zonos_tpu/ops/attention.py:141-170): fp32 scores, the int8 scales folded
     into the scores and into the softmax weights before the cast to q's dtype,
     an f8 cache's values and weights read in bf16."""
@@ -269,7 +381,7 @@ def gqa_output(weights: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tenso
     return out.reshape(B, H_kv * G, Sq, v.shape[-1]).transpose(1, 2).to(out_dtype)
 
 
-def _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale) -> tuple:
+def _check_held_out(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale) -> tuple:
     tensors = (k_cache, v_cache, k_new, v_new) + tuple(
         t for t in (k_scale, v_scale) if t is not None)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
@@ -283,8 +395,6 @@ def _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale) ->
         raise ValueError("decode attention kernel takes a contiguous q, cache and scales")
     B, _, H, _ = q.shape
     H_kv, S = k_cache.shape[1], k_cache.shape[2]
-    if not 0 <= pos < S:
-        raise ValueError(f"pos {pos} outside [0, {S})")
     return B, H_kv, H // H_kv, S
 
 
@@ -292,53 +402,54 @@ def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
     return (0, 0) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
 
 
-def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
-                                    k_scale=None, v_scale=None) -> torch.Tensor:
-    """K1 over an f8 or int8 cache with the current row held out: one cluster
-    per (row, kv head) streams [0, pos) over its CTAs (:func:`flash_plan`),
-    rank 0 starting its online softmax from the held-out row.  CPU tensors
-    take the plain version."""
-    pos = int(pos)
+def _attend_held_out(kernel: str, q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale,
+                     band: Band | None) -> torch.Tensor:
+    """K1 or K2 over an f8 or int8 cache with the current row held out: CUDA
+    tensors launch the kernel with ``band``'s plan, CPU tensors take the
+    plain version."""
     if not q.is_cuda:
+        if band is not None:
+            band = resolve_band(pos, band, True)
+            plan = band_plan(kernel, band, q.shape[0] * k_cache.shape[1], k_cache.shape[2], True)
+            pos = _clamped(pos, plan)
         return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
                                             k_scale, v_scale)
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
-    B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
+    B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)
+    pos, band = _length_operand(pos, band, True, q.device)
+    plan = band_plan(kernel, band, B * H_kv, S, True, sm_count(q.device.index))
     code, suffix = STORAGE[k_cache.dtype]
-    n, chunk = flash_plan(pos, B * H_kv, sm_count(q.device.index))
     out = torch.empty_like(q)
-    lib = library("decode_attention", _SIGNATURES)
-    rc = lib.zt_flash_decode_attention_q(
-        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos, n, chunk,
-        attention_scale(HEAD_DIM), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(rc, f"flash_decode_attention_{suffix}")
-    launch_counts[f"flash_decode_attention_{suffix}"] += 1
+    lib = _library(q.device.index)
+    entry = lib.zt_flash_decode_attention_q if kernel == "K1" else lib.zt_decode_attention_single_q
+    name = f"{'flash_decode_attention' if kernel == 'K1' else 'decode_attention_single'}_{suffix}"
+    rc = entry(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+               *_scale_ptrs(k_scale, v_scale), k_new.data_ptr(), v_new.data_ptr(),
+               out.data_ptr(), B, H_kv, G, S, pos.data_ptr(), plan.lo, plan.hi, plan.n,
+               plan.chunk_max, plan.min_rows, attention_scale(HEAD_DIM),
+               torch.cuda.current_stream(q.device).cuda_stream)
+    check(rc, name)
+    launch_counts[name] += 1
     return out
 
 
-def decode_attention_single_held_out(q, k_cache, v_cache, k_new, v_new, pos: int,
-                                     k_scale=None, v_scale=None) -> torch.Tensor:
+def flash_decode_attention_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale=None,
+                                    v_scale=None, band: Band | None = None) -> torch.Tensor:
+    """K1 over an f8 or int8 cache with the current row held out: one cluster
+    per (row, kv head) streams [0, pos) over its CTAs (:func:`band_plan`),
+    rank 0 starting its online softmax from the held-out row.  ``pos``: an
+    int32 on the card with the ``band`` of ``pos + 1`` (or a host int).  CPU
+    tensors take the plain version."""
+    return _attend_held_out("K1", q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale,
+                            band)
+
+
+def decode_attention_single_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale=None,
+                                     v_scale=None, band: Band | None = None) -> torch.Tensor:
     """K2 over an f8 or int8 cache with the current row held out: one cluster
     per (row, kv head) splits [0, pos) over its CTAs, rank 0 starting its
-    online softmax from the held-out row.  CPU tensors take the plain
+    online softmax from the held-out row.  ``pos`` as in
+    :func:`flash_decode_attention_held_out`.  CPU tensors take the plain
     version."""
-    pos = int(pos)
-    if not q.is_cuda:
-        return decode_attention_split_plain(q, k_cache, v_cache, k_new, v_new, pos,
-                                            k_scale, v_scale)
-    k_new, v_new = k_new.contiguous(), v_new.contiguous()
-    B, H_kv, G, S = _check_held_out(q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
-    code, suffix = STORAGE[k_cache.dtype]
-    n, chunk = cluster_plan(pos, B * H_kv, sm_count(q.device.index))
-    out = torch.empty_like(q)
-    lib = library("decode_attention", _SIGNATURES)
-    rc = lib.zt_decode_attention_single_q(
-        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), B, H_kv, G, S, pos, n, chunk,
-        attention_scale(HEAD_DIM), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(rc, f"decode_attention_single_{suffix}")
-    launch_counts[f"decode_attention_single_{suffix}"] += 1
-    return out
+    return _attend_held_out("K2", q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale,
+                            band)

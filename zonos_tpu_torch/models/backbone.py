@@ -14,7 +14,10 @@ generation and written in place.  A bf16 (or fp32) cache: prefill writes rows
 [0, S), each decode step writes its row at ``pos`` and then attends with
 ``length = pos + 1``.  An f8 or int8 cache: each step attends over rows
 [0, pos) with its own k/v held out in the compute dtype, then writes its row
-(int8: quantized per row and kv head, with an fp32 scale).
+(int8: quantized per row and kv head, with an fp32 scale).  A decode step's
+``pos`` is a :class:`~zonos_tpu_torch.ops.attention.StepPosition` on the
+device: the row write, the RoPE gather and the attention length read it
+there, so the step never waits for the host (prefill keeps a host int).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
 from zonos_tpu_torch.kernels.layer_tail import kernel_takes as layer_tail_takes
 from zonos_tpu_torch.ops.attention import (
+    StepPosition,
     decode_attention,
     decode_attention_held_out,
     fresh_prefill_attention,
@@ -83,16 +87,35 @@ class KVCache:
         """f8 and int8 caches are attended with the current row held out."""
         return self.k.dtype in KV_STORAGE.values()
 
-    def write(self, li: int, pos: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    def write(self, li: int, pos: int | StepPosition, k: torch.Tensor, v: torch.Tensor) -> None:
         """Store rows ``k, v [B, S, H_kv, hd]`` at [pos, pos + S) of layer ``li``:
         cast (f8 clipped to ±448 first, where JAX's cast gives NaN past ~464),
-        or quantized per row for int8."""
-        S = k.shape[1]
+        or quantized per row for int8.  A :class:`StepPosition` (one row) is
+        written by an indexed copy at its row on the device."""
         for rows, store, scales in ((k, self.k, self.k_scale), (v, self.v, self.v_scale)):
             rows = rows.transpose(1, 2)
             if store.dtype == torch.int8:
-                rows, scales[li, :, :, pos:pos + S] = quantize_kv_rows(rows)
-            store_cast(store[li, :, :, pos:pos + S], rows)
+                rows, row_scales = quantize_kv_rows(rows)
+                write_rows(scales[li], pos, row_scales)
+            write_rows(store[li], pos, rows)
+
+
+def write_rows(store: torch.Tensor, pos: int | StepPosition, rows: torch.Tensor) -> None:
+    """``store[:, :, pos:pos + S] = rows`` in the store's dtype (``store_cast``:
+    f8 clipped first) for ``store`` ``[B, H_kv, S_max, ...]`` and ``rows``
+    ``[B, H_kv, S, ...]``; at a :class:`StepPosition` one row by
+    ``index_copy_`` at the device's row, bit for bit the same store (an f8
+    store's bytes are copied as uint8, which ``index_copy_`` takes)."""
+    if not isinstance(pos, StepPosition):
+        store_cast(store[:, :, pos:pos + rows.shape[2]], rows)
+        return
+    cast = rows
+    if rows.dtype != store.dtype:
+        cast = torch.empty(rows.shape, dtype=store.dtype, device=rows.device)
+        store_cast(cast, rows)
+    if store.dtype == torch.float8_e4m3fn:
+        store, cast = store.view(torch.uint8), cast.view(torch.uint8)
+    store.index_copy_(2, pos.row, cast)
 
 
 def init_transformer_params(cfg: BackboneConfig, generator: torch.Generator,
@@ -147,7 +170,7 @@ def _fused_tail_args(lp: dict, y: torch.Tensor, x: torch.Tensor, prefill: bool) 
 
 
 def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin,
-           cache: KVCache, pos: int, prefill: bool) -> torch.Tensor:
+           cache: KVCache, pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     lp = _layer_params(params, li)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
@@ -161,11 +184,12 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
         cache.write(li, pos, k, v)
     elif cache.held_out:
         scales = (None, None) if cache.k_scale is None else (cache.k_scale[li], cache.v_scale[li])
-        y = decode_attention_held_out(q, cache.k[li], cache.v[li], k, v, pos, *scales)
+        y = decode_attention_held_out(q, cache.k[li], cache.v[li], k, v, pos.pos, *scales,
+                                      band=pos.band)
         cache.write(li, pos, k, v)  # after attention: the row was attended in the compute dtype
     else:
         cache.write(li, pos, k, v)
-        y = decode_attention(q, cache.k[li], cache.v[li], length=pos + 1)
+        y = decode_attention(q, cache.k[li], cache.v[li], pos.length, pos.band)
     tail = _fused_tail_args(lp, y, x, prefill)
     if tail is not None:
         return fused_layer_tail(*tail, eps=cfg.norm_epsilon)[:, None]
@@ -175,11 +199,19 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
     return x + matmul_w(u * F.silu(gate), lp["w2"])
 
 
+def rope_at(cos_t: torch.Tensor, sin_t: torch.Tensor, pos: int | StepPosition,
+            S: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The table rows [pos, pos + S): a slice at a host int, a gather at a
+    :class:`StepPosition`'s row (S = 1)."""
+    if isinstance(pos, StepPosition):
+        return cos_t.index_select(0, pos.row), sin_t.index_select(0, pos.row)
+    return cos_t[pos:pos + S], sin_t[pos:pos + S]
+
+
 def _run_layers(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: KVCache,
-                pos: int, prefill: bool) -> torch.Tensor:
+                pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     cos_t, sin_t = cached_rope_table(cfg.head_dim, cfg.rope_base, x.device)
-    S = x.shape[1]
-    cos, sin = cos_t[pos:pos + S], sin_t[pos:pos + S]
+    cos, sin = rope_at(cos_t, sin_t, pos, x.shape[1])
     for li in range(cfg.n_layer):
         x = _layer(cfg, params, li, x, cos, sin, cache, pos, prefill)
     return layer_norm(x, params["normf_scale"], params["normf_bias"], cfg.norm_epsilon)
@@ -193,6 +225,11 @@ def transformer_prefill(cfg: BackboneConfig, params: dict, x: torch.Tensor,
 
 
 def transformer_decode_step(cfg: BackboneConfig, params: dict, x: torch.Tensor,
-                            cache: KVCache, pos: int) -> tuple[torch.Tensor, KVCache]:
-    """One decode step: ``x [B, 1, d]`` at position ``pos`` (a host int)."""
+                            cache: KVCache, pos: int | StepPosition
+                            ) -> tuple[torch.Tensor, KVCache]:
+    """One decode step: ``x [B, 1, d]`` at position ``pos``, a
+    :class:`StepPosition` on the device (or a host int, for a caller outside
+    the decode loop)."""
+    if not isinstance(pos, StepPosition):
+        pos = StepPosition.at(pos, x.device)
     return _run_layers(cfg, params, x, cache, pos, prefill=False), cache

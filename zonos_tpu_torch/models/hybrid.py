@@ -13,7 +13,9 @@ The cache is a list with one dict per layer, updated in place:
 
 - attention layer: ``{"k", "v"}`` ``[B, H_kv, S_max, head_dim]``, allocated
   once at the generation's length; prefill writes rows [0, S), a decode step
-  writes row ``pos`` and attends over ``pos + 1`` rows (K1/K2 on the card);
+  writes row ``pos`` and attends over ``pos + 1`` rows (K1/K2 on the card),
+  ``pos`` a :class:`~zonos_tpu_torch.ops.attention.StepPosition` on the
+  device, as in the transformer;
 - Mamba2 layer: ``{"conv"}`` ``[B, K-1, conv_dim]`` in the compute dtype and
   ``{"ssm"}`` ``[B, H, P, N]`` in the storage dtype of the SSM-state mode
   (fp32, bf16 or float8 e4m3); prefill replaces both (K6 on the card), a
@@ -26,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from zonos_tpu_torch.config import BackboneConfig
-from zonos_tpu_torch.ops.attention import decode_attention, fresh_prefill_attention
+from zonos_tpu_torch.models.backbone import rope_at, write_rows
+from zonos_tpu_torch.ops.attention import StepPosition, decode_attention, fresh_prefill_attention
 from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
 from zonos_tpu_torch.ops.quant import matmul_w, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
@@ -206,28 +209,28 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
     return matmul_w(rms_norm(gated, lp["mixer_norm"], cfg.norm_epsilon), lp["out_proj"])
 
 
-def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict, pos: int,
-                prefill: bool) -> torch.Tensor:
+def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
+                pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     H, Hkv, hd, rot = _attn_dims(cfg)
     B, S, _ = x.shape
     q, k, v = torch.split(matmul_w(x, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
     if rot > 0:  # rotate-halves over the first `rot` dims; the rest pass through
         cos_t, sin_t = cached_rope_table(rot, cfg.rope_base, x.device)
-        cos, sin = cos_t[pos:pos + S], sin_t[pos:pos + S]
+        cos, sin = rope_at(cos_t, sin_t, pos, S)
         q = torch.cat([apply_rope_neox(q[..., :rot], cos, sin), q[..., rot:]], dim=-1)
         k = torch.cat([apply_rope_neox(k[..., :rot], cos, sin), k[..., rot:]], dim=-1)
-    st["k"][:, :, pos:pos + S] = k.transpose(1, 2).to(st["k"].dtype)
-    st["v"][:, :, pos:pos + S] = v.transpose(1, 2).to(st["v"].dtype)
+    write_rows(st["k"], pos, k.transpose(1, 2))
+    write_rows(st["v"], pos, v.transpose(1, 2))
     if prefill:
         y = fresh_prefill_attention(q, k, v)
     else:
-        y = decode_attention(q, st["k"], st["v"], length=pos + 1)
+        y = decode_attention(q, st["k"], st["v"], pos.length, pos.band)
     return matmul_w(y.reshape(B, S, H * hd), lp["wo"])
 
 
-def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict, pos: int,
-           prefill: bool, compute_dtype: torch.dtype) -> torch.Tensor:
+def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict,
+           pos: int | StepPosition, prefill: bool, compute_dtype: torch.dtype) -> torch.Tensor:
     h = _norm(cfg, x, lp["norm_scale"], lp.get("norm_bias")).to(compute_dtype)
     if is_attn_layer(cfg, i):
         y = _attn_mixer(cfg, lp, h, st, pos, prefill)
@@ -241,8 +244,8 @@ def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict, pos
     return x
 
 
-def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict], pos: int,
-         prefill: bool) -> torch.Tensor:
+def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict],
+         pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     compute_dtype = x.dtype
     if cfg.residual_in_fp32:
         x = x.float()
@@ -261,6 +264,10 @@ def hybrid_prefill(cfg: BackboneConfig, params: dict, x: torch.Tensor,
 
 
 def hybrid_decode_step(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict],
-                       pos: int) -> tuple[torch.Tensor, list[dict]]:
-    """One decode step: ``x [B, 1, d]`` at position ``pos`` (a host int)."""
+                       pos: int | StepPosition) -> tuple[torch.Tensor, list[dict]]:
+    """One decode step: ``x [B, 1, d]`` at position ``pos``, a
+    :class:`StepPosition` on the device (or a host int, for a caller outside
+    the decode loop)."""
+    if not isinstance(pos, StepPosition):
+        pos = StepPosition.at(pos, x.device)
     return _run(cfg, params, x, cache, pos, prefill=False), cache

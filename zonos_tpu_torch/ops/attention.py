@@ -7,23 +7,28 @@
 - :func:`decode_attention`: one query step against the cache, dispatched by
   device, dtype and shape: CUDA tensors the kernels take (``kernel_takes``:
   bf16, head_dim 128, 1, 2, 4 or 8 query heads a kv head) go to the
-  hand-written kernels (K2 while the cache holds at most one 256-row block,
-  K1 beyond); anything else, as in JAX on any backend, to the plain version.
+  hand-written kernels, K2 or K1 by the band of the length (K2 up to 256
+  rows); anything else, as in JAX on any backend, to the plain version.
 - :func:`decode_attention_held_out`: the same over an f8 or int8 cache, with
   the current token's k/v held out in the compute dtype
   (``decode_attention_split``, zonos_tpu/ops/attention.py:119); K2/K1's
   quantized-storage variants on the card where they take the operands.
 
-KV cache layout: ``[B, H_kv, S_max, head_dim]``.
+A decode step's position is a :class:`StepPosition`: tensors on the model's
+device and the host's band of the length, so that the step reads nothing back
+from the card.  KV cache layout: ``[B, H_kv, S_max, head_dim]``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from zonos_tpu_torch.kernels.decode_attention import (
-    BLOCK_S,
+    Band,
     attention_scale,
+    band_of,
     decode_attention_plain,
     decode_attention_single,
     decode_attention_single_held_out,
@@ -32,7 +37,33 @@ from zonos_tpu_torch.kernels.decode_attention import (
     flash_decode_attention_held_out,
     gqa_output,
     kernel_takes,
+    resolve_band,
 )
+
+
+@dataclass(frozen=True)
+class StepPosition:
+    """Where a decode step writes and how far it attends, on the device:
+    ``row`` the cache row (int64 ``[1]``, an index operand), ``pos`` the same
+    as an int32 (a quantized cache's attended rows) and ``length`` ``pos + 1``
+    (a bf16 cache's); ``band`` the host's :class:`Band` of ``length``, which
+    fixes the kernel and its launch."""
+
+    row: torch.Tensor
+    pos: torch.Tensor
+    length: torch.Tensor
+    band: Band
+
+    @classmethod
+    def of(cls, pos: torch.Tensor, band: Band) -> "StepPosition":
+        """From a 0-d integer tensor ``pos`` (the cache row) and its band."""
+        pos32 = pos.to(torch.int32)
+        return cls(pos.reshape(1).long(), pos32, pos32 + 1, band)
+
+    @classmethod
+    def at(cls, pos: int, device) -> "StepPosition":
+        """From a host int (a caller outside the decode loop)."""
+        return cls.of(torch.full((), pos, dtype=torch.int64, device=device), band_of(pos + 1))
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -63,24 +94,28 @@ def fresh_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     length: int) -> torch.Tensor:
-    """q [B, 1, H, D] against the first ``length`` rows of the cache."""
+                     length: int | torch.Tensor, band: Band | None = None) -> torch.Tensor:
+    """q [B, 1, H, D] against the first ``length`` rows of the cache:
+    ``length`` a host int or an int32 on the device with its ``band``."""
     if not (q.is_cuda and kernel_takes(q, k_cache, v_cache)):
         return decode_attention_plain(q, k_cache, v_cache, length)
-    if length <= BLOCK_S:
-        return decode_attention_single(q, k_cache, v_cache, length)
-    return flash_decode_attention(q, k_cache, v_cache, length)
+    band = resolve_band(length, band, held_out=False)
+    kernel = decode_attention_single if band.kernel == "K2" else flash_decode_attention
+    return kernel(q, k_cache, v_cache, length, band)
 
 
 def decode_attention_held_out(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                              k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
-                              k_scale: torch.Tensor | None = None,
-                              v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                              k_new: torch.Tensor, v_new: torch.Tensor,
+                              pos: int | torch.Tensor, k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None,
+                              band: Band | None = None) -> torch.Tensor:
     """q [B, 1, H, D] against cache rows [0, pos) plus the held-out current
-    row ``k_new``/``v_new`` [B, 1, H_kv, D] (``pos + 1`` rows in all)."""
+    row ``k_new``/``v_new`` [B, 1, H_kv, D] (``pos + 1`` rows in all):
+    ``pos`` a host int or an int32 on the device with the band of ``pos + 1``."""
     args = (q, k_cache, v_cache, k_new, v_new, pos, k_scale, v_scale)
     if not (q.is_cuda and kernel_takes(q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)):
         return decode_attention_split_plain(*args)
-    if pos + 1 <= BLOCK_S:
-        return decode_attention_single_held_out(*args)
-    return flash_decode_attention_held_out(*args)
+    band = resolve_band(pos, band, held_out=True)
+    kernel = (decode_attention_single_held_out if band.kernel == "K2"
+              else flash_decode_attention_held_out)
+    return kernel(*args, band=band)

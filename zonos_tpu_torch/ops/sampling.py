@@ -2,9 +2,14 @@
 -> temperature softmax -> unified reshaping -> top-p -> top-k -> min-p ->
 Gumbel-race draw (temperature 0 => greedy argmax).
 
-The Gumbel noise is an operand: the caller draws it from its own
-``torch.Generator``, so a row's tokens depend on its own stream alone and
-tests can feed the JAX package's noise.  With ``top_p == top_k == 0`` the
+The Gumbel noise is an operand, so tests can feed the JAX package's noise.
+The decode loop draws it with :func:`keyed_gumbel`: a counter-based hash of
+(the row's seed, the step, the draw, the element), all rows in a fixed
+number of elementwise launches, with the step a tensor on the device, so
+that a row's tokens depend on its own seed alone and a decode step reads
+nothing back from the card.  This is JAX's design (``fold_in`` of the row's
+seed, then a split per step) but not its stream: the same seeds give other
+samples than the JAX package.  With ``top_p == top_k == 0`` the
 pipeline is :func:`~zonos_tpu_torch.kernels.sampling.fused_sample`, which is
 the K3 kernel on the card where it takes the operands (``kernel_takes``: a
 vocabulary of at most 12,288), and its plain version elsewhere.
@@ -15,7 +20,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain, kernel_takes
 
@@ -82,7 +86,9 @@ def apply_repetition_penalty(logits: torch.Tensor, generated_tokens: torch.Tenso
     or [B]."""
     V = logits.shape[-1]
     toks = torch.clamp(generated_tokens[..., -window:], 0, V - 1).long()
-    counts = F.one_hot(toks, V).sum(dim=-2).to(logits.dtype)  # [B, K, V]
+    # one_hot's count by comparison: no check of the ids' range on the host
+    vocab = torch.arange(V, device=toks.device)
+    counts = (toks[..., None] == vocab).sum(dim=-2).to(logits.dtype)  # [B, K, V]
     penalty = torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device)
     if penalty.dim() == 1:
         penalty = penalty[:, None, None]
@@ -96,11 +102,58 @@ def categorical_race(probs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     return torch.argmax(scores, dim=-1)
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+def gumbel_of_uniform(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)), u clamped to fp32's smallest normal first."""
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+_M32 = 0xFFFFFFFF
+# a 32-bit multiply-xorshift finalizer whose multipliers lie below 2**31: each product of
+# a 32-bit value stays below 2**63, so int64 tensor ops compute it exactly on any device
+_MIX = ((16, 0x21F0AAAD), (15, 0x735A2D97), (15, None))
+_DRAWS_PER_STEP = 8  # draw ids a step keys apart (below 8)
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of 32-bit values held in int64 (``[0, 2**32)`` in and out)."""
+    for shift, mult in _MIX:
+        x = x ^ (x >> shift)
+        if mult is not None:
+            x = (x * mult) & _M32
+    return x
+
+
+def row_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """Each row's 32-bit key from its int64 seed (both halves)."""
+    return mix32((seeds & _M32) ^ mix32(((seeds >> 32) & _M32) ^ 0x3C6EF372))
+
+
+def element_counters(n: int, device) -> torch.Tensor:
+    """The mixed counters of ``n`` elements, ``[n]`` int64, a constant of the
+    decode loop: mixing them once keeps two rows' streams from being one
+    stream's elements in another order."""
+    return mix32(torch.arange(n, dtype=torch.int64, device=device))
+
+
+def keyed_bits(keys: torch.Tensor, step, draws: torch.Tensor,
+               counters: torch.Tensor) -> torch.Tensor:
+    """32 uniform bits ``[len(draws), B, n]`` int64 for row keys ``[B]`` at
+    ``step`` (a 0-d int64 tensor or a host int) and ``draws`` ``[D]`` int64
+    (below 8); the same (key, step, draw, element) always gives the same bits,
+    on any device."""
+    step_key = mix32(((step * _DRAWS_PER_STEP + draws) & _M32) ^ 0x1B873593)  # [D]
+    key = mix32(keys[None, :] ^ step_key[:, None])  # [D, B]
+    return mix32(key[:, :, None] ^ counters)
+
+
+def keyed_gumbel(keys: torch.Tensor, step, draws: torch.Tensor, counters: torch.Tensor,
+                 shape: tuple[int, ...]) -> torch.Tensor:
+    """Standard Gumbel noise ``[D, B, *shape]`` fp32 from :func:`keyed_bits`
+    (``counters`` of ``prod(shape)`` elements): u = the top 24 bits / 2**24."""
+    bits = keyed_bits(keys, step, draws, counters)
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return gumbel_of_uniform(u).reshape(draws.shape[0], keys.shape[0], *shape)
 
 
 def sample_from_logits(
