@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 2. build: compiles every kernel under zonos_tpu_torch/csrc/ (one nvcc per
    source, in parallel) and prints the build time.
 3. kernels: holds each kernel (K1-K8, and K1/K2 over f8 and int8 caches)
-   against its plain PyTorch version on the same inputs at flagship shapes,
-   with the tolerance stated beside each check.
+   against its plain PyTorch version on the same inputs at flagship shapes
+   (K3 over both of its routes, batch 1, 4 and 64 and every branch of its
+   function), with the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -48,16 +49,20 @@ Phases, each of which fails the run (non-zero exit) on error:
 ``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
 and then times K8 and K4 over their contraction splits, K7 over its slab
-sizes, K2 and K1 over their cluster sizes by cache length and K5 over its
-tile shapes by DAC width instead (how their defaults were chosen; K2's
-also with its band's own launch).
+sizes, K2 and K1 over their cluster sizes by cache length, K5 over its
+tile shapes by DAC width and K3 over its rows a CTA instead (how their
+defaults were chosen; K2's also with its band's own launch).
 
 ``python3 chip_smoke.py --times [--port DIR]`` runs phases 1-2 and only the
-timed rows of K1, K2 and K5 with a breakdown of a K1 call by launch; with
-``--port DIR`` it imports the port from DIR, a checkout of another commit,
-so that two commits' kernels are timed by the same code on one card (a
-checkout whose K1/K2 take the length on the card, as this one's do; an older
-checkout is timed by its own copy of this script, run from DIR).
+timed rows of K1, K2, K5 and K3 with a breakdown of a K1 call by launch and
+K3's own time a launch (CUPTI).  ``python3 chip_smoke.py --profile [--port
+DIR]`` runs phases 1-2 and only the steady-state decode step under the CUDA
+graphs at batch 1 on the transformer (bf16, int8, int4) and the hybrid
+(wall, device busy, idle share), with no checks.  With ``--port DIR`` either
+imports the port from DIR, a checkout of another commit, so that two
+commits are timed by the same code on one card (a checkout whose K1/K2 take
+the length on the card, as this one's do; an older checkout is timed by its
+own copy of this script, run from DIR).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX or of the JAX package.
@@ -132,6 +137,22 @@ STATE_STEP_EXTRA_SHAPES = ((130, 64, 128), (128, 50, 128), (128, 64, 64))
 # the batch-64 int8 profile: bench.py's rtf_batch64 configuration (int8 weights, f8 KV
 # cache, CFG: 128 backbone rows), EOS banned so that every step runs all rows
 B64_BATCH = 64
+# K3's checks: both routes (the warp route up to 1152 entries, the CTA route past it), V not a
+# multiple of 4 (1025 valid entries, 2049), batch 1, 4 and 64 (576 rows), and every branch
+K3_CHECK_VOCABS = (1025, 1152, 2048, 2049, 12288)
+K3_CHECK_BATCHES = (1, 4, 64)
+# K3's timed shapes (B, V): batch 1 (sampling runs on the CFG-blended logits) and 64 at the
+# flagship's padded vocabulary, and the CTA route at 12,288
+K3_TIMED = ((1, 1152), (B64_BATCH, 1152), (1, 12288))
+_K3_DEFAULT = dict(linear=0.55, conf=0.4, quad=0.0, min_p=0.0, temperature=1.0)
+K3_POINTS = (("default", _K3_DEFAULT), ("min_p 0.1", {**_K3_DEFAULT, "min_p": 0.1}),
+             ("T 0.7", {**_K3_DEFAULT, "temperature": 0.7}),
+             ("quad 0.1", {**_K3_DEFAULT, "quad": 0.1}),
+             ("linear 0", {**_K3_DEFAULT, "linear": 0.0}),
+             ("linear 0, min_p 0.1", {**_K3_DEFAULT, "linear": 0.0, "min_p": 0.1}),
+             # lin = linear + H conf < 0 on most rows: the warp route's reduction for raw's
+             # max (and the reshaping reversed: the known rows' ids no longer hold)
+             ("conf -1", {**_K3_DEFAULT, "conf": -1.0}))
 
 
 def fail(msg: str) -> None:
@@ -333,34 +354,92 @@ def check_flash_attention(gen, worst: dict) -> None:
           f"{worst['flash_decode_attention_int8']:.3g}", flush=True)
 
 
-def check_fused_sample(gen) -> float:
-    """K3 vs the plain version on the same logits and Gumbel noise: ids must
-    match except where the plain version's top two scores lie within 1e-4.
-    Returns the largest |id difference| over all rows."""
+def k3_operands(gen, B: int, V: int, K: int = 9) -> tuple:
+    """K3's logits and Gumbel noise [B, K, V] (at V 1152 the decode path's
+    padding: entries from 1025 on at -inf), with two rows whose id is known:
+    row (0, 0) has one finite logit, as in EOS mode, and row (0, 1) two equal
+    top logits, far above the rest, with equal noise, where the lower index
+    wins.  Returns (logits, noise, {(b, k): id})."""
     import torch
 
-    from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_scores_plain
     from zonos_tpu_torch.ops.sampling import gumbel_of_uniform
 
-    B, K, V, valid = 8, 9, 1152, 1025
-    worst = 0
     logits = torch.randn((B, K, V), generator=gen, device="cuda") * 3.0
+    valid = 1025 if V == 1152 else V
     logits[..., valid:] = float("-inf")
     noise = gumbel_of_uniform(torch.rand((B, K, V), generator=gen, device="cuda"))
-    for min_p in (0.0, 0.1):
-        kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=min_p, temperature=1.0)
-        scores = fused_sample_scores_plain(logits, noise, **kw)
-        ref = scores.argmax(-1)
-        top2 = scores.topk(2, dim=-1).values
-        near_tie = (top2[..., 0] - top2[..., 1]) < 1e-4
-        got = fused_sample(logits, noise, **kw)
-        torch.cuda.synchronize()
-        bad = (got != ref) & ~near_tie
-        if bool(bad.any()):
-            fail(f"fused_sample min_p={min_p}: {int(bad.sum())} ids differ outside near ties")
-        worst = max(worst, int((got - ref).abs().max()))
-        print(f"[kernels] K3 ok (min_p={min_p}): {int((got == ref).sum())}/{B * K} ids equal, "
-              f"{int(near_tie.sum())} near-tie rows", flush=True)
+    eos, lo, hi = valid // 3, 5, valid - 7
+    logits[0, 0] = float("-inf")
+    logits[0, 0, eos] = 0.0
+    logits[0, 1, [lo, hi]] = logits[0, 1].max() + 20.0
+    noise[0, 1, [lo, hi]] = 0.0
+    return logits, noise, {(0, 0): eos, (0, 1): lo}
+
+
+def check_fused_sample(gen) -> float:
+    """K3 vs the plain version on the same logits and Gumbel noise over
+    K3_CHECK_VOCABS x K3_CHECK_BATCHES x K3_POINTS, both routes: ids must
+    match except where the plain version's top two scores lie within 1e-4,
+    and the EOS-mode and tied rows must give their known ids.  Then a row's id
+    alone, at batch 4 and inside batch 64, and read through 4-byte loads (a
+    view 4 bytes off the 16-byte alignment) must be the same.  Returns the
+    largest |id difference| over all rows."""
+    import torch
+
+    from zonos_tpu_torch.kernels.sampling import (
+        fused_sample,
+        fused_sample_scores_plain,
+        sample_plan,
+    )
+
+    worst = 0
+    for V in K3_CHECK_VOCABS:
+        equal = rows = ties = 0
+        for B in K3_CHECK_BATCHES:
+            logits, noise, known = k3_operands(gen, B, V)
+            for label, kw in K3_POINTS:
+                scores = fused_sample_scores_plain(logits, noise, **kw)
+                ref = scores.argmax(-1)
+                top2 = scores.topk(2, dim=-1).values
+                near_tie = (top2[..., 0] - top2[..., 1]) < 1e-4
+                got = fused_sample(logits, noise, **kw)
+                torch.cuda.synchronize()
+                bad = (got != ref) & ~near_tie
+                if bool(bad.any()):
+                    fail(f"fused_sample B={B} V={V} {label}: {int(bad.sum())} ids differ outside "
+                         f"near ties")
+                for (b, k), want in known.items() if kw["conf"] >= 0 else ():
+                    if int(got[b, k]) != want or int(ref[b, k]) != want:
+                        fail(f"fused_sample B={B} V={V} {label}: row ({b}, {k}) drew "
+                             f"{int(got[b, k])} (plain {int(ref[b, k])}), not {want}")
+                worst = max(worst, int((got - ref).abs().max()))
+                equal += int((got == ref).sum())
+                rows += got.numel()
+                ties += int(near_tie.sum())
+        print(f"[kernels] K3 ok V={V} ({sample_plan(V).route} route): {equal}/{rows} ids "
+              f"equal at B {K3_CHECK_BATCHES} x {len(K3_POINTS)} parameter points, {ties} "
+              f"near-tie rows; the EOS-mode and tied rows exact", flush=True)
+    for V in (1152, 1025, 12288):
+        logits, noise, _ = k3_operands(gen, 64, V)
+        kw = K3_POINTS[0][1]
+        ids = fused_sample(logits, noise, **kw)
+        for b in (0, 37, 60):
+            alone = fused_sample(logits[b:b + 1], noise[b:b + 1], **kw)
+            four = fused_sample(logits[b:b + 4], noise[b:b + 4], **kw)
+            # the same row 4 bytes off 16-byte alignment: the warp route's 4-byte loads
+            buf = torch.empty(2 * 9 * V + 1, device="cuda")
+            lg = buf[1:9 * V + 1].view(1, 9, V)
+            nz = buf[9 * V + 1:].view(1, 9, V)
+            lg.copy_(logits[b:b + 1])
+            nz.copy_(noise[b:b + 1])
+            shifted = fused_sample(lg, nz, **kw)
+            if not (torch.equal(alone[0], ids[b]) and torch.equal(four[0], ids[b])
+                    and torch.equal(shifted[0], ids[b])):
+                fail(f"fused_sample V={V}: row {b}'s ids alone / at batch 4 / unaligned "
+                     f"{alone[0].tolist()} / {four[0].tolist()} / {shifted[0].tolist()} differ "
+                     f"from batch 64's {ids[b].tolist()}")
+    print("[kernels] K3 ok: a row's ids alone, at batch 4, inside batch 64 and read unaligned "
+          "are equal bit for bit (V 1152, 1025, 12288)", flush=True)
     return float(worst)
 
 
@@ -1023,6 +1102,31 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
               f"{100 * per_kernel['K4'][0] / busy2:.1f}% of device busy", flush=True)
 
 
+def phase_steady_steps(card: str) -> None:
+    """``python3 chip_smoke.py --profile [--port DIR]``: the batch-1
+    steady-state decode step under the CUDA graphs (``_profile_run``) on the
+    paths ``phase_profile`` profiles, built as the main paths build them
+    (the transformer in bf16, then quantized to int8 in place; a fresh one
+    quantized to int4; the hybrid), with no checks: run beside another
+    checkout's (``--port``) in turns to compare two commits' walls and idle
+    shares on one card."""
+    import torch
+
+    from zonos_tpu_torch import make_cond_dict
+
+    for kind, modes in (("transformer", (None, "int8")), ("transformer", ("int4",)),
+                        ("hybrid", (None,))):
+        model = load_model(kind)
+        prefix = model.prepare_conditioning(make_cond_dict(text=TEXTS[0], speaker=None))
+        for mode in modes:
+            if mode:
+                quantize_model(kind, model, mode)
+            _profile_run(kind + (f" {mode}" if mode else ""), model, prefix, card, 32, 128, 1,
+                         None, graphs=True)
+        del model
+        torch.cuda.empty_cache()
+
+
 def phase_profile_batch64(model, card: str) -> None:
     """``[profile transformer int8 b64]``: the int8 model's decode step at
     batch 64 with CFG (K4 at 128 rows) over the f8 KV cache, EOS banned."""
@@ -1349,35 +1453,58 @@ def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
     }
 
 
+def time_fused_sample(gen, B: int, V: int, warps: int | None = None) -> dict:
+    """K3 at default sampling on [B, 9, V] beside the plain version.  The same
+    operands every call: on the decode path the step writes the logits and
+    the noise just before K3, so they come from L2.  ``warps``: rows a CTA,
+    launched through the warp route's C entry point in place of the
+    wrapper's plan (``--sweep``), None for the wrapper."""
+    from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
+
+    logits, noise, _ = k3_operands(gen, B, V)
+    kw = K3_POINTS[0][1]
+    if warps is None:
+        def kernel():
+            fused_sample(logits, noise, **kw)
+    else:
+        import torch
+
+        from zonos_tpu_torch.kernels import sampling as k3
+        from zonos_tpu_torch.kernels._build import check, library
+
+        lib = library("sampling", k3._SIGNATURES)
+        out = torch.empty((B, 9), dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kernel():
+            check(lib.zt_fused_sample_warp(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
+                                           B * 9, V, warps, kw["temperature"],
+                                           kw["linear"], kw["conf"], kw["quad"], kw["min_p"],
+                                           stream), "fused_sample sweep")
+    n = B * 9 * V
+    # ~21 operations an entry: the scale, two exp-sum passes, the log, entropy, the
+    # reshaping and the race
+    return {"shape": f"logits/noise [{B},9,{V}] fp32, default sampling",
+            **_times(kernel, lambda: fused_sample_plain(logits, noise, **kw)),
+            **_bound(21.0 * n, 8.0 * n + 8.0 * B * 9)}
+
+
 def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
     """``counts`` maps each main path to its launch counts; ``prefill_len`` is
     the hybrid batch-1 prefill's length (K6's main-path shape)."""
     import torch
 
-    from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
-    from zonos_tpu_torch.ops.sampling import gumbel_of_uniform
-
     out = [time_decode_attention(gen, key, counts, errs) for key in ("K1", "K2")]
-    Bs, K, V = 1, 9, 1152  # batch 1: sampling runs on the CFG-blended logits
-    logits = torch.randn((Bs, K, V), generator=gen, device="cuda") * 3.0
-    logits[..., 1025:] = float("-inf")
-    noise = gumbel_of_uniform(torch.rand((Bs, K, V), generator=gen, device="cuda"))
-    kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=0.0, temperature=1.0)
-    nbytes = 2 * Bs * K * V * 4 + Bs * K * 8
     out.append({
         "name": "fused_sample", "id": "K3", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/sampling.cu",
         "replaces": "zonos_tpu/ops/pallas_kernels.py:232",
         **_launches("fused_sample", counts),
         "max_abs_err": errs["fused_sample"],
-        "shape": f"logits/noise [{Bs},{K},{V}] fp32",
-        **_times(lambda: fused_sample(logits, noise, **kw),
-                 lambda: fused_sample_plain(logits, noise, **kw)),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        **time_fused_sample(gen, *K3_TIMED[0]),
         "library_ms": None,
+        "more": [time_fused_sample(gen, B, V) for B, V in K3_TIMED[1:]],
     })
-
     out.append(time_snake_conv(gen, counts, errs))
 
     main_shape = time_ssd_chunked(gen, prefill_len)
@@ -1529,6 +1656,19 @@ def phase_sweep(gen, card: str) -> None:
     k2_sweep(gen, card)
     k1_sweep(gen, card)
     k5_sweep(gen, card)
+    k3_sweep(gen, card)
+
+
+def k3_sweep(gen, card: str) -> None:
+    """K3's warp route at V 1152, batch 1 and 64, for 1, 2, 4 and 8 rows a CTA
+    (how ``WARPS_PER_CTA`` was chosen); device us per call."""
+    from zonos_tpu_torch.kernels.sampling import WARPS_PER_CTA
+
+    for B in (1, B64_BATCH):
+        row = {w: time_fused_sample(gen, B, 1152, warps=w)["ms"] * 1e3 for w in (1, 2, 4, 8)}
+        print(f"[sweep] K3 [{B},9,1152], us by rows a CTA: "
+              + ", ".join(f"{w}: {us:.2f}" for w, us in row.items())
+              + f" (default {WARPS_PER_CTA}; {card})", flush=True)
 
 
 def k2_sweep(gen, card: str) -> None:
@@ -1731,17 +1871,82 @@ def k1_breakdown(gen, card: str, calls: int = 40) -> None:
             f"{k} {v:.2f}" for k, v in parts.items()) + f" us (CUPTI; {card})", flush=True)
 
 
-def phase_times(gen, card: str) -> None:
+def phase_times(gen, card: str, port: bool) -> None:
     """``python3 chip_smoke.py --times [--port DIR]``: the timed rows of K1,
-    K2 and K5 (no checks, no main paths, launches 0) and K1's breakdown by
-    launch, one JSON line each.  With ``--port DIR`` the port is imported
-    from DIR, a checkout of another commit (its kernels built from its own
-    sources into its own ``build/``): run it beside this tree's in turns to
-    compare two commits on one card."""
+    K2, K5 and K3 (no checks, no main paths, launches 0) and K1's and K3's
+    breakdowns, one JSON line each.  With ``--port DIR`` (``port``) the port
+    is imported from DIR, a checkout of another commit (its kernels built
+    from its own sources into its own ``build/``): run it beside this tree's
+    in turns to compare two commits on one card."""
+    k3_shapes = k3_timed_shapes(gen, card, port)
     k1_breakdown(gen, card)
+    k3_breakdown(gen, card, k3_shapes)
     for entry in (time_decode_attention(gen, "K1", {}, {}), time_decode_attention(gen, "K2", {}, {}),
                   time_snake_conv(gen, {}, {})):
         print(json.dumps({"times": entry, "card": card}), flush=True)
+    for B, V in k3_shapes:
+        print(json.dumps({"times": {"id": "K3", **time_fused_sample(gen, B, V)}, "card": card}),
+              flush=True)
+
+
+def k3_timed_shapes(gen, card: str, port: bool) -> list[tuple[int, int]]:
+    """K3_TIMED; under ``--port``, less the CTA route's shapes the other
+    checkout's K3 refuses (before this tree's, V 12,288 passed the 48 KB
+    default of shared memory), each named on a line of its own.  A refusal of
+    this tree's K3, or at a vocabulary on the warp route, stops the run."""
+    import torch
+
+    from zonos_tpu_torch.kernels.sampling import fused_sample
+
+    if not port:
+        return list(K3_TIMED)
+    shapes = []
+    for B, V in K3_TIMED:
+        logits, noise, _ = k3_operands(gen, B, V)
+        try:
+            fused_sample(logits, noise, **K3_POINTS[0][1])
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            if V <= 1152:
+                raise
+            print(f"[times] K3 [{B},9,{V}]: refused by the checkout under --port ({e}; {card})",
+                  flush=True)
+            continue
+        shapes.append((B, V))
+    return shapes
+
+
+def k3_breakdown(gen, card: str, shapes: list, calls: int = 40) -> None:
+    """K3's own duration a launch from torch.profiler (CUPTI) at ``shapes``,
+    beside the per-call time as ``device_ms`` reads it (which adds the gaps
+    between back-to-back launches); first a one-element add's own duration,
+    the floor of any launch (``k1_breakdown`` prints its per-call time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels.sampling import fused_sample
+
+    kw = K3_POINTS[0][1]
+    one = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            one.add_(1)
+        torch.cuda.synchronize()
+    own = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[times] floor, a one-element add's own time: {own / calls:.2f} us (CUPTI; {card})",
+          flush=True)
+    for B, V in shapes:
+        logits, noise, _ = k3_operands(gen, B, V)
+        ms = device_ms(lambda: fused_sample(logits, noise, **kw))[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fused_sample(logits, noise, **kw)
+            torch.cuda.synchronize()
+        own = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "fused_sample" in e.key)
+        print(f"[times] K3 [{B},9,{V}]: {ms * 1e3:.2f} us a call, the kernel's own "
+              f"{own / calls:.2f} us (CUPTI; {card})", flush=True)
 
 
 def k7_sweep(gen, card: str) -> None:
@@ -1768,12 +1973,14 @@ def k7_sweep(gen, card: str) -> None:
 
 def main(argv: list[str]) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
-    if argv[:1] == ["--times"] and argv[1:2] == ["--port"] and len(argv) == 3:
+    port = argv[:1] in (["--times"], ["--profile"]) and argv[1:2] == ["--port"] and len(argv) == 3
+    if port:
         here = os.path.abspath(argv[2])
         sys.path.insert(0, here)
         argv = argv[:1]
-    if argv not in ([], ["--sweep"], ["--times"]):
-        fail(f"usage: chip_smoke.py [--sweep | --times [--port DIR]], not {argv}")
+    if argv not in ([], ["--sweep"], ["--times"], ["--profile"]):
+        fail(f"usage: chip_smoke.py [--sweep | --times [--port DIR] | --profile [--port DIR]], "
+             f"not {argv}")
     card = phase_device(here)
     import torch
 
@@ -1783,8 +1990,13 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    if argv == ["--sweep"]:
+        phase_sweep(gen, card)
+    elif argv == ["--times"]:
+        phase_times(gen, card, port)
+    elif argv == ["--profile"]:
+        phase_steady_steps(card)
     if argv:
-        (phase_sweep if argv == ["--sweep"] else phase_times)(gen, card)
         return 0
     errs = dict(check_decode_attention(gen))
     errs["fused_sample"] = check_fused_sample(gen)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _k3_cases as k3_cases  # tests/, on sys.path under pytest
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels.decode_attention import (
     decode_attention_plain,
@@ -26,7 +27,11 @@ from zonos_tpu_torch.kernels.decode_attention import (
 )
 from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
 from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail, fused_layer_tail_plain
-from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain
+from zonos_tpu_torch.kernels.sampling import (
+    fused_sample,
+    fused_sample_plain,
+    fused_sample_scores_plain,
+)
 from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
 from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
 from zonos_tpu_torch.kernels.ssm_state import (
@@ -76,6 +81,60 @@ def test_fused_sample_kernel_matches_plain(gen, min_p):
     noise = gumbel_of_uniform(torch.rand((4, 9, 1152), generator=gen, device="cuda"))
     kw = dict(linear=0.55, conf=0.4, quad=0.0, min_p=min_p)
     assert torch.equal(fused_sample(logits, noise, **kw), fused_sample_plain(logits, noise, **kw))
+
+
+def _k3_operands(seed, B, V):
+    """``tests/_k3_cases.py``'s logits and noise [B, 9, V] on the card, and
+    the rows whose id is known (EOS mode; a tie the lowest index wins)."""
+    logits, noise, known = k3_cases.operands(seed, B, V)
+    return torch.from_numpy(logits).cuda(), torch.from_numpy(noise).cuda(), known
+
+
+@pytest.mark.parametrize("point", list(k3_cases.POINTS))
+@pytest.mark.parametrize("V", [1025, 1152, 2048, 2049, 12288])
+@pytest.mark.parametrize("B", [1, 4, 64])
+def test_fused_sample_routes_match_plain(gen, B, V, point):
+    """Both of K3's routes (the warp route up to 1152 entries, the CTA route
+    past it) at every branch: ids equal to the plain version's except where
+    its top two scores lie within 1e-4; the EOS-mode and tied rows exact."""
+    logits, noise, known = _k3_operands(B * V, B, V)
+    kw = k3_cases.POINTS[point]
+    scores = fused_sample_scores_plain(logits, noise, **kw)
+    top2 = scores.topk(2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) < k3_cases.NEAR_TIE
+    before = launch_counts["fused_sample"]
+    got = fused_sample(logits, noise, **kw)
+    assert launch_counts["fused_sample"] == before + 1
+    assert not bool(((got != scores.argmax(-1)) & ~near_tie).any())
+    for (b, k), want in known.items() if kw["conf"] >= 0 else ():
+        assert int(got[b, k]) == want
+
+
+@pytest.mark.parametrize("V", [1025, 1152, 2048, 12288])
+def test_fused_sample_row_alone_equals_row_in_batch(gen, V):
+    """A row's ids alone, at batch 4 and inside batch 64 are equal bit for bit
+    (the plan's lane map and sums depend on V alone)."""
+    logits, noise, _ = _k3_operands(V, 64, V)
+    kw = k3_cases.DEFAULT
+    ids = fused_sample(logits, noise, **kw)
+    for b in (0, 37, 60):
+        assert torch.equal(fused_sample(logits[b:b + 1], noise[b:b + 1], **kw)[0], ids[b])
+        assert torch.equal(fused_sample(logits[b:b + 4], noise[b:b + 4], **kw), ids[b:b + 4])
+
+
+@pytest.mark.parametrize("V", [1024, 1152])
+def test_fused_sample_unaligned_rows_give_the_same_ids(gen, V):
+    """Rows 4 bytes off 16-byte alignment take the warp route's 4-byte loads of
+    the same lane map: the same ids bit for bit."""
+    logits, noise, _ = _k3_operands(V, 4, V)
+    n = logits.numel()
+    buf = torch.empty(2 * n + 1, device="cuda")
+    lg, nz = buf[1:n + 1].view(logits.shape), buf[n + 1:].view(logits.shape)
+    lg.copy_(logits)
+    nz.copy_(noise)
+    assert lg.data_ptr() % 16 == 4
+    for kw in k3_cases.POINTS.values():
+        assert torch.equal(fused_sample(lg, nz, **kw), fused_sample(logits, noise, **kw))
 
 
 @pytest.mark.parametrize("k,dilation", [(7, 9), (1, 1)])
