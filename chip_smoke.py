@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 3. kernels: holds each kernel (K1-K8, and K1/K2 over f8 and int8 caches)
    against its plain PyTorch version on the same inputs at flagship shapes
    (K3 over both of its routes, batch 1, 4 and 64 and every branch of its
-   function), with the tolerance stated beside each check.
+   function; K6 at L 1 to 1024, batch 16 and two groups at widths that are
+   not tile multiples, and a row alone, at batch 2 and inside batch 16 bit
+   for bit), with the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -28,7 +30,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      variants, K3, K5, K8, and not K4;
    - hybrid: the same on the full-width, full-depth flagship Mamba2 hybrid at
      batch 1 (twice, identical codes; fp32 SSM state) and at batch 8 (16 CFG
-     rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7;
+     rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7; then
+     each prefill's wall and K6's device time in it (CUPTI);
    - hybrid int4: that model after ``quantize_int4()``, one batch-1 generate
      of 130 frames; K6, K7, K8.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
@@ -50,12 +53,13 @@ Phases, each of which fails the run (non-zero exit) on error:
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
 and then times K8 and K4 over their contraction splits, K7 over its slab
 sizes, K2 and K1 over their cluster sizes by cache length, K5 over its
-tile shapes by DAC width and K3 over its rows a CTA instead (how their
-defaults were chosen; K2's also with its band's own launch).
+tile shapes by DAC width, K3 over its rows a CTA and K6 over its plans
+(warps, cluster size) instead (how their defaults were chosen;
+K2's also with its band's own launch).
 
 ``python3 chip_smoke.py --times [--port DIR]`` runs phases 1-2 and only the
-timed rows of K1, K2, K5 and K3 with a breakdown of a K1 call by launch and
-K3's own time a launch (CUPTI).  ``python3 chip_smoke.py --profile [--port
+timed rows of K1, K2, K5, K3 and K6 with a breakdown of a K1 call by launch
+and K3's and K6's own time a launch (CUPTI).  ``python3 chip_smoke.py --profile [--port
 DIR]`` runs phases 1-2 and only the steady-state decode step under the CUDA
 graphs at batch 1 on the transformer (bf16, int8, int4) and the hybrid
 (wall, device busy, idle share), with no checks.  With ``--port DIR`` either
@@ -83,6 +87,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (data sheet)
+# K6 runs its products in 3xTF32: three TF32 products for each fp32 one
+K6_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 MAX_NEW_TOKENS = 430  # ~5 s of audio at 86.13 frames/s
 # The transformer path runs fewer frames to keep the script near 6 minutes;
 # its cache still passes 256 rows, so K1 as well as K2 runs on it.
@@ -497,31 +504,43 @@ def check_snake_conv(gen, frames: int = 86) -> float:
 
 # flagship hybrid SSM widths: H heads of headdim P, d_state N, one group
 SSM_H, SSM_P, SSM_N = 64, 64, 128
+# K6's timed shapes (rows, L) at the flagship widths, from the zero state: the batch-1 prefill
+# with CFG (its L is the smoke's: the 54-row prefix and one frame), a 1024-step prefix, and
+# the [main hybrid] batch-8 prefill (16 CFG rows; its L is checked there)
+K6_TIMED = ((2, 55), (2, 1024), (16, 69))
+# K6's checks (rows, L, H, G, P, N), each with and without an init state: the flagship widths
+# at L 1 to 1024 (sub-chunk, one chunk, a chunk and one or two rows, two chunks and one), the
+# batch-8 prefill, and two groups at widths that are not tile multiples (P 20, N 12)
+K6_CHECKS = ([(2, L, SSM_H, 1, SSM_P, SSM_N) for L in (1, 37, 63, 64, 65, 129, 150, 1024)]
+             + [(16, 69, SSM_H, 1, SSM_P, SSM_N), (2, 70, 8, 2, 16, 16), (2, 129, 8, 2, 16, 16),
+                (2, 70, 8, 2, 20, 12), (2, 129, 8, 2, 20, 12)])
 
 
-def ssd_inputs(gen, B: int, L: int) -> tuple:
-    """x, dt, A, B, C, D, init at the flagship SSM widths, fp32."""
+def ssd_inputs(gen, B: int, L: int, H: int = SSM_H, G: int = 1, P: int = SSM_P,
+               N: int = SSM_N) -> tuple:
+    """x, dt, A, B, C, D, init (the flagship SSM widths by default), fp32."""
     import torch
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    return (rnd(B, L, SSM_H, SSM_P), rnd(B, L, SSM_H).abs() * 0.5, -rnd(SSM_H).abs(),
-            rnd(B, L, 1, SSM_N), rnd(B, L, 1, SSM_N), rnd(SSM_H), rnd(B, SSM_H, SSM_P, SSM_N))
+    return (rnd(B, L, H, P), rnd(B, L, H).abs() * 0.5, -rnd(H).abs(), rnd(B, L, G, N),
+            rnd(B, L, G, N), rnd(H), rnd(B, H, P, N))
 
 
 def check_ssd_chunked(gen) -> float:
-    """K6 vs the plain version (fp32, TF32 off) at the flagship widths, batch 2,
-    L in (37, 64, 150, 1024), with and without an init state; tolerance
-    1e-4 x max|ref| for y and for the final state.  Returns the largest
-    absolute error."""
+    """K6 vs the plain version (fp32, TF32 off) at every shape of K6_CHECKS, with
+    and without an init state; tolerance 1e-4 x max|ref| for y and for the
+    final state.  Then a row's outputs alone (batch 1), at batch 2 and inside
+    batch 16 must be equal bit for bit (the plan depends on the widths alone).
+    Returns the largest absolute error."""
     import torch
 
     from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
 
     worst = worst_rel = 0.0
-    for L in (37, 64, 150, 1024):
-        x, dt, A, Bm, Cm, D, init = ssd_inputs(gen, 2, L)
+    for rows, L, H, G, P, N in K6_CHECKS:
+        x, dt, A, Bm, Cm, D, init = ssd_inputs(gen, rows, L, H, G, P, N)
         for state in (init, None):
             refs = ssd_chunked_plain(x, dt, A, Bm, Cm, D, state)
             outs = ssd_chunked(x, dt, A, Bm, Cm, D, state)
@@ -530,12 +549,28 @@ def check_ssd_chunked(gen) -> float:
                 err = float((got - ref).abs().max())
                 top = float(ref.abs().max())
                 if not err <= 1e-4 * top:
-                    fail(f"ssd_chunked L={L} init={state is not None} {what}: max abs err {err} "
-                         f"> 1e-4 x {top}")
+                    fail(f"ssd_chunked B={rows} L={L} H={H} G={G} P={P} N={N} "
+                         f"init={state is not None} {what}: max abs err {err} > 1e-4 x {top}")
                 worst, worst_rel = max(worst, err), max(worst_rel, err / top)
-    print(f"[kernels] K6 ok at B=2, H={SSM_H}, P={SSM_P}, N={SSM_N}, L in (37, 64, 150, 1024), "
-          f"with and without init: max abs err {worst:.3g}, worst / max|ref| {worst_rel:.3g} "
+    print(f"[kernels] K6 ok at {len(K6_CHECKS)} shapes (B, L, H, G, P, N) {K6_CHECKS}, with and "
+          f"without init: max abs err {worst:.3g}, worst / max|ref| {worst_rel:.3g} "
           f"(tolerance 1e-4)", flush=True)
+    x, dt, A, Bm, Cm, D, init = ssd_inputs(gen, 16, 150)
+
+    def rows_of(t, r, n):
+        return None if t is None else t[r:r + n].contiguous()
+
+    for state in (init, None):
+        y16, s16 = ssd_chunked(x, dt, A, Bm, Cm, D, state)
+        for r in (0, 7, 14):
+            for n in (1, 2):
+                y, s = ssd_chunked(rows_of(x, r, n), rows_of(dt, r, n), A, rows_of(Bm, r, n),
+                                   rows_of(Cm, r, n), D, rows_of(state, r, n))
+                if not (torch.equal(y, y16[r:r + n]) and torch.equal(s, s16[r:r + n])):
+                    fail(f"ssd_chunked: rows {r}..{r + n - 1} alone (batch {n}) differ from the "
+                         f"same rows inside batch 16 (init={state is not None})")
+    print("[kernels] K6 a row's y and final state alone, at batch 2 and inside batch 16 (L 150, "
+          "with and without init): equal bit for bit", flush=True)
     return worst
 
 
@@ -933,6 +968,11 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
                 fail(f"{os.path.basename(path)}: sr {sr}, rms {rms}")
     counts = dict(launch_counts)
     model.backbone = dataclasses.replace(model.backbone, make_cache=make_cache)
+    if "ssd_chunked" in expect:  # K6's shapes: the batch-1 and batch-n prefills
+        if (2 * batch, prefixn.shape[1] + 1) != K6_TIMED[2]:
+            fail(f"{kind}: the batch-{batch} prefill is x [{2 * batch},{prefixn.shape[1] + 1},...],"
+                 f" not K6_TIMED's {K6_TIMED[2]}")
+        prefill_k6(tag, model, ((prefix1, 1), (prefixn, batch)), card)
     label_n = f"batch {batch}" + (f", {batch_kv} KV cache" if batch_kv else "")
     print(f"{tag} launches on this path: {counts}", flush=True)
     for name in expect:
@@ -967,6 +1007,41 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
     print(f"{tag} DAC decode of {audio_s:.2f} s of audio in {dt_dac:.3f} s; wavs at 44100 Hz, "
           f"finite, nonzero RMS ({card})", flush=True)
     return counts, prefix1
+
+
+def prefill_k6(tag: str, model, prefixes, card: str) -> None:
+    """For each (prefix, batch): the prefill's wall (host clock around
+    ``Zonos._prefill`` and a synchronise, median of 3) and, from one traced
+    prefill (CUPTI), the device's busy time and K6's device time in it (one
+    launch a Mamba layer).  Run after the path's launch counts are read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for prefix, batch in prefixes:
+        def run():
+            with torch.inference_mode():
+                model._prefill(prefix, max_new_tokens=8, cfg_scale=2.0, batch_size=batch,
+                               sampling_params=None, seed=[3 + i for i in range(batch)],
+                               step_limits=None)
+            torch.cuda.synchronize()
+
+        run()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        k6 = [e for e in kernels if "ssd_chunked" in e.key]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        ms, n = sum(e.self_device_time_total for e in k6) / 1e3, sum(e.count for e in k6)
+        print(f"{tag} prefill of {prefix.shape[1] + 1} steps at batch {batch} ({2 * batch} rows): "
+              f"wall {statistics.median(walls):.2f} ms, device busy {busy:.3f} ms, K6 {ms:.4f} ms "
+              f"over {n} launches ({ms * 1e3 / max(n, 1):.2f} us a launch; CUPTI; {card})",
+              flush=True)
 
 
 def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
@@ -1196,15 +1271,19 @@ def _bound(flops: float, nbytes: float, flops_per_s: float = FP32_FLOPS_PER_S) -
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
-def time_ssd_chunked(gen, L: int) -> dict:
-    """K6 at batch 1 with CFG (2 rows), flagship widths, from the zero state
-    as the prefill runs it."""
+def time_ssd_chunked(gen, rows: int, L: int) -> dict:
+    """K6 at ``rows`` batch rows (2 per prefill row with CFG), flagship widths,
+    from the zero state as the prefill runs it.  The bound takes the
+    operations at 3xTF32's rate (a third of the TF32 tensor cores')."""
     from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
 
-    args = ssd_inputs(gen, 2, L)[:6]
-    return {"shape": f"x [2,{L},{SSM_H},{SSM_P}], B/C [2,{L},1,{SSM_N}], no init state, fp32",
+    args = ssd_inputs(gen, rows, L)[:6]
+    return {"shape": f"x [{rows},{L},{SSM_H},{SSM_P}], B/C [{rows},{L},1,{SSM_N}], no init "
+                     f"state, fp32",
             **_times(lambda: ssd_chunked(*args), lambda: ssd_chunked_plain(*args)),
-            **_bound(*ssd_chunked_cost(2, L, SSM_H, 1, SSM_P, SSM_N, init_state=False))}
+            **_bound(*ssd_chunked_cost(rows, L, SSM_H, 1, SSM_P, SSM_N, init_state=False),
+                     K6_FLOPS_PER_S),
+            "bound_rate": "3xTF32 tensor cores, 495 / 3 TFLOP/s"}
 
 
 def time_fused_state_step(gen, BH: int, dtype, rows: int | None = None) -> dict:
@@ -1507,7 +1586,7 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
     })
     out.append(time_snake_conv(gen, counts, errs))
 
-    main_shape = time_ssd_chunked(gen, prefill_len)
+    main_shape = time_ssd_chunked(gen, 2, prefill_len)
     out.append({
         "name": "ssd_chunked", "id": "K6", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/ssd_chunked.cu",
@@ -1516,7 +1595,8 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
         "max_abs_err": errs["ssd_chunked"],
         **main_shape,
         "library_ms": None,
-        "more": [time_ssd_chunked(gen, 1024)],
+        "library_why": "no single PyTorch call computes a chunked (or any) selective scan",
+        "more": [time_ssd_chunked(gen, rows, L) for rows, L in K6_TIMED[1:]],
     })
     main_shape = time_fused_state_step(gen, 128, torch.float32)
     out.append({
@@ -1625,8 +1705,8 @@ def phase_sweep(gen, card: str) -> None:
     were chosen.  K8 on each weight at M = 2 and 8 for 1 to 32 splits of the
     packed rows (one wave of CTAs ends where splits x 128-column tiles pass
     the SM count); K4 at B2 = 2, 8 and 128 for a target of half, one and two
-    CTAs per SM; then K7's and K2's sweeps.  Device times per call, L2
-    cold."""
+    CTAs per SM; then the sweeps of K7, K2, K1, K5, K3 and K6.  Device times
+    per call, L2 cold."""
     from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.kernels.int4_matmul import split_count
 
@@ -1657,6 +1737,39 @@ def phase_sweep(gen, card: str) -> None:
     k1_sweep(gen, card)
     k5_sweep(gen, card)
     k3_sweep(gen, card)
+    k6_sweep(gen, card)
+
+
+def k6_sweep(gen, card: str) -> None:
+    """K6 at K6_TIMED over every plan the kernel takes at the flagship widths
+    (column groups of warps, cluster size), launched through the C entry point,
+    with how many clusters of each fit on the card (how ``ssd_plan``'s defaults
+    were chosen); device us per call."""
+    import ctypes
+
+    from zonos_tpu_torch.kernels import ssd as k6
+    from zonos_tpu_torch.kernels._build import sm_count
+
+    lib = k6._library(0)
+    for rows, L in K6_TIMED:
+        args = ssd_inputs(gen, rows, L)[:6]
+        default = k6.ssd_plan(rows, L, SSM_H, 1, SSM_P, SSM_N, sm_count(0))
+        row = []
+        for groups, cluster in itertools.product((1, 2, 4, 8), (1, 2, 4, 8)):
+            if lib.zt_ssd_chunked_smem(SSM_H, 1, SSM_P, SSM_N, groups, cluster) < 0:
+                continue  # a plan the kernel refuses
+            plan = k6.SsdPlan(groups, cluster)
+            fit = ctypes.c_int(0)
+            check_rc = lib.zt_ssd_chunked_max_active_clusters(
+                SSM_H, 1, SSM_P, SSM_N, groups, cluster, ctypes.byref(fit))
+            if check_rc != 0:
+                fail(f"K6 plan {plan}: occupancy query {check_rc}")
+            us = device_ms(lambda: k6.launch(*args, None, plan), reps=5)[0] * 1e3
+            warps = -(-SSM_P // 16) * groups
+            row.append(f"g{groups} c{cluster} ({warps}w, {fit.value} fit) {us:.2f}")
+        print(f"[sweep] K6 x [{rows},{L},{SSM_H},{SSM_P}], us by groups / cluster: "
+              + "; ".join(row) + f" (default g{default.groups} c{default.cluster}; {card})",
+              flush=True)
 
 
 def k3_sweep(gen, card: str) -> None:
@@ -1873,20 +1986,45 @@ def k1_breakdown(gen, card: str, calls: int = 40) -> None:
 
 def phase_times(gen, card: str, port: bool) -> None:
     """``python3 chip_smoke.py --times [--port DIR]``: the timed rows of K1,
-    K2, K5 and K3 (no checks, no main paths, launches 0) and K1's and K3's
-    breakdowns, one JSON line each.  With ``--port DIR`` (``port``) the port
+    K2, K5, K3 and K6 (no checks, no main paths, launches 0) and K1's, K3's
+    and K6's breakdowns, one JSON line each.  With ``--port DIR`` (``port``) the port
     is imported from DIR, a checkout of another commit (its kernels built
     from its own sources into its own ``build/``): run it beside this tree's
     in turns to compare two commits on one card."""
     k3_shapes = k3_timed_shapes(gen, card, port)
     k1_breakdown(gen, card)
     k3_breakdown(gen, card, k3_shapes)
+    k6_breakdown(gen, card)
     for entry in (time_decode_attention(gen, "K1", {}, {}), time_decode_attention(gen, "K2", {}, {}),
                   time_snake_conv(gen, {}, {})):
         print(json.dumps({"times": entry, "card": card}), flush=True)
     for B, V in k3_shapes:
         print(json.dumps({"times": {"id": "K3", **time_fused_sample(gen, B, V)}, "card": card}),
               flush=True)
+    for rows, L in K6_TIMED:
+        print(json.dumps({"times": {"id": "K6", **time_ssd_chunked(gen, rows, L)}, "card": card}),
+              flush=True)
+
+
+def k6_breakdown(gen, card: str, calls: int = 40) -> None:
+    """K6's own duration a launch from torch.profiler (CUPTI) at K6_TIMED, beside
+    the per-call time as ``device_ms`` reads it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels.ssd import ssd_chunked
+
+    for rows, L in K6_TIMED:
+        args = ssd_inputs(gen, rows, L)[:6]
+        ms = device_ms(lambda: ssd_chunked(*args))[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ssd_chunked(*args)
+            torch.cuda.synchronize()
+        own = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "ssd_chunked" in e.key)
+        print(f"[times] K6 x [{rows},{L},{SSM_H},{SSM_P}]: {ms * 1e3:.2f} us a call, the "
+              f"kernel's own {own / calls:.2f} us (CUPTI; {card})", flush=True)
 
 
 def k3_timed_shapes(gen, card: str, port: bool) -> list[tuple[int, int]]:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import _k3_cases as k3_cases  # tests/, on sys.path under pytest
+import _k6_plans as k6_plans
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels.decode_attention import (
     decode_attention_plain,
@@ -226,9 +227,8 @@ def _ssd_inputs(gen, B, L, H, G, P, N):
             rnd(B, L, G, N), rnd(H), rnd(B, H, P, N))
 
 
-@pytest.mark.parametrize("L,G,P,N", [(37, 1, 64, 128), (150, 1, 64, 128), (70, 2, 16, 16)])
-def test_ssd_chunked_kernel_matches_plain(gen, L, G, P, N):
-    x, dt, A, Bm, Cm, D, init = _ssd_inputs(gen, 2, L, 4, G, P, N)
+def _ssd_matches_plain(gen, B, L, H, G, P, N):
+    x, dt, A, Bm, Cm, D, init = _ssd_inputs(gen, B, L, H, G, P, N)
     before = launch_counts["ssd_chunked"]
     for state in (init, None):
         ref_y, ref_s = ssd_chunked_plain(x, dt, A, Bm, Cm, D, state)
@@ -236,6 +236,66 @@ def test_ssd_chunked_kernel_matches_plain(gen, L, G, P, N):
         assert (y - ref_y).abs().max() <= 1e-4 * ref_y.abs().max()
         assert (s - ref_s).abs().max() <= 1e-4 * ref_s.abs().max()
     assert launch_counts["ssd_chunked"] == before + 2
+
+
+# L 1 to 150 at the flagship P and N (sub-chunk, a chunk less one, one or two rows past a
+# chunk); two groups at widths that are not tile multiples (P 16 / N 16, P 20 / N 12)
+@pytest.mark.parametrize("L,G,P,N", [(37, 1, 64, 128), (150, 1, 64, 128), (70, 2, 16, 16),
+                                     (1, 1, 64, 128), (63, 1, 64, 128), (65, 1, 64, 128),
+                                     (129, 1, 64, 128), (129, 2, 16, 16), (70, 2, 20, 12),
+                                     (129, 2, 20, 12)])
+def test_ssd_chunked_kernel_matches_plain(gen, L, G, P, N):
+    _ssd_matches_plain(gen, 2, L, 4, G, P, N)
+
+
+@pytest.mark.parametrize("L", [69, 150])
+def test_ssd_chunked_kernel_matches_plain_at_batch_16(gen, L):
+    """The flagship widths (64 heads) at 16 rows: the batch-8 prefill with CFG."""
+    _ssd_matches_plain(gen, 16, L, 64, 1, 64, 128)
+
+
+@pytest.mark.parametrize("L", [55, 150])
+def test_ssd_chunked_row_alone_equals_row_in_batch(gen, L):
+    """A row's y and final state alone, at batch 2 and inside batch 16 are
+    equal bit for bit (the plan depends on the widths alone)."""
+    x, dt, A, Bm, Cm, D, init = _ssd_inputs(gen, 16, L, 64, 1, 64, 128)
+
+    def rows(t, r, n):
+        return None if t is None else t[r:r + n].contiguous()
+
+    for state in (init, None):
+        y16, s16 = ssd_chunked(x, dt, A, Bm, Cm, D, state)
+        for r in (0, 5, 14):
+            for n in (1, 2):
+                y, s = ssd_chunked(rows(x, r, n), rows(dt, r, n), A, rows(Bm, r, n),
+                                   rows(Cm, r, n), D, rows(state, r, n))
+                assert torch.equal(y, y16[r:r + n]) and torch.equal(s, s16[r:r + n])
+
+
+@pytest.mark.parametrize("H,G,P,N", [(64, 1, 64, 128), (8, 2, 20, 12), (4, 2, 16, 16),
+                                     (24, 8, 36, 100)])
+def test_ssd_plan_fits_the_card(gen, H, G, P, N):
+    """Every plan at these widths: the kernel refuses it where the CPU copy of its
+    checks (``tests/_k6_plans.py``) does, else its shared memory is the copy's and
+    the card holds at least one of its clusters; the default plan is one it takes."""
+    import ctypes
+    import itertools
+
+    from zonos_tpu_torch.kernels import ssd as k6
+
+    lib = k6._library(0)
+    assert k6.ssd_plan(2, 64, H, G, P, N, 132) in k6_plans.plans(H, G, P, N)
+    for groups, cluster in itertools.product((1, 2, 4, 8), (1, 2, 4, 8, 16)):
+        plan = k6.SsdPlan(groups, cluster)
+        if k6_plans.refusal(H, G, P, N, plan) is not None:
+            assert lib.zt_ssd_chunked_smem(H, G, P, N, groups, cluster) == -1
+            continue
+        smem = lib.zt_ssd_chunked_smem(H, G, P, N, groups, cluster)
+        assert smem == k6_plans.smem_bytes(P, N, plan)
+        fit = ctypes.c_int(0)
+        assert lib.zt_ssd_chunked_max_active_clusters(H, G, P, N, groups, cluster,
+                                                      ctypes.byref(fit)) == 0
+        assert fit.value >= 1, plan
 
 
 def test_ssd_chunked_kernel_rejects_bf16(gen):

@@ -6,25 +6,63 @@ selective scan over a whole sequence as 64-step chunks, from an optional
 initial state.  The kernel takes any ``ngroups`` and any batch; ``kernel_takes``
 says which dtypes and widths it takes (``ops/ssm.py`` dispatches on it).
 
-Bound and design: see the source note.  One CTA per (row, head) loops over
-the chunks with the fp32 ``[P, N]`` state in shared memory.
+Bound and design: see the source note.  A CTA per (row, head) loops
+over the chunks with the fp32 ``[P, N]`` state in its warps' tensor-core
+accumulators; the CTAs of one (row, group) form a cluster that computes
+C.B^T once a chunk.  :func:`ssd_plan` chooses the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from zonos_tpu_torch.kernels import launch_counts
-from zonos_tpu_torch.kernels._build import check, library
+from zonos_tpu_torch.kernels._build import check, library, sm_count
 
 CHUNK = 64  # compiled into the kernel
 MAX_HEADDIM, MAX_D_STATE = 64, 128  # the kernel's shared-memory layout
+CLUSTER = 2  # CTAs sharing one C.B^T, where the heads of a group allow it (--sweep)
+WARPS = 16  # the warps a CTA aims at (--sweep)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"zt_ssd_chunked": [_P] * 9 + [_I] * 6 + [_P]}
+_SIGNATURES = {"zt_ssd_chunked": [_P] * 9 + [_I] * 8 + [_P],
+               "zt_ssd_chunked_prepare": [],
+               "zt_ssd_chunked_smem": [_I] * 6,
+               "zt_ssd_chunked_max_active_clusters": [_I] * 6 + [_P]}
+
+
+class SsdPlan(NamedTuple):
+    groups: int  # warps over the state's columns for each 16 rows of P
+    cluster: int  # CTAs (heads of one group) sharing one C.B^T
+
+
+def ssd_plan(B: int, L: int, H: int, G: int, P: int, N: int, sm_count: int) -> SsdPlan:
+    """K6's launch for these widths: one CTA a (row, head), ``WARPS`` warps
+    where N's tiles allow, and clusters of up to ``CLUSTER`` CTAs of one (row,
+    group).  It depends on the widths alone, never on ``B``, ``L`` or
+    ``sm_count``, so a row's outputs do not depend on its batch.  The kernel
+    (``config`` in csrc/ssd_chunked.cu) takes it at every width
+    ``kernel_takes`` accepts."""
+    del B, L, sm_count  # the plan is the same at every batch and length, on every card
+    m_tiles, n_tiles = -(-P // 16), -(-N // 16) * 2  # 16-row tiles of P, 8-column tiles of N
+    groups = max(ng for ng in (1, 2, 4, 8) if m_tiles * ng <= WARPS and n_tiles % ng == 0)
+    cluster = max(c for c in (1, 2, 4, 8) if c <= CLUSTER and (H // G) % c == 0)
+    return SsdPlan(groups, cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(device_index: int) -> ctypes.CDLL:
+    """The library, with the kernel's shared-memory limit raised on the device:
+    once, at the first launch, so never while a CUDA graph is being captured."""
+    lib = library("ssd_chunked", _SIGNATURES)
+    with torch.cuda.device(device_index):
+        check(lib.zt_ssd_chunked_prepare(), "ssd_chunked_prepare")
+    return lib
 
 
 def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -112,8 +150,9 @@ def kernel_takes(x, dt, A, Bm, Cm, D, init_state=None) -> bool:
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                 Cm: torch.Tensor, D: torch.Tensor, init_state: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 for CUDA tensors (any ngroups, any batch); CPU tensors take the plain
-    version.  Shapes and dtypes as :func:`ssd_chunked_plain`."""
+    """K6 for CUDA tensors (any ngroups, any batch) by :func:`ssd_plan`; CPU
+    tensors take the plain version.  Shapes and dtypes as
+    :func:`ssd_chunked_plain`."""
     if not x.is_cuda:
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, init_state)
     tensors = [x, dt, A, Bm, Cm, D] + ([init_state] if init_state is not None else [])
@@ -126,15 +165,24 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
         raise ValueError("ssd_chunked takes contiguous, 16-byte-aligned tensors")
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    y = torch.empty_like(x)
-    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    lib = library("ssd_chunked", _SIGNATURES)
-    rc = lib.zt_ssd_chunked(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-        init_state.data_ptr() if init_state is not None else None, y.data_ptr(),
-        final.data_ptr(), Bsz, L, H, G, P, N, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(rc, "ssd_chunked")
+    y, final = launch(x, dt, A, Bm, Cm, D, init_state,
+                      ssd_plan(Bsz, L, H, G, P, N, sm_count(x.device.index)))
     launch_counts["ssd_chunked"] += 1
     return y, final
 
+
+def launch(x, dt, A, Bm, Cm, D, init_state, plan: SsdPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K6 by ``plan`` on operands :func:`ssd_chunked` has checked
+    (``--sweep`` launches other plans through it; it counts no launch)."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty_like(x)
+    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    rc = _library(x.device.index).zt_ssd_chunked(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        init_state.data_ptr() if init_state is not None else None, y.data_ptr(),
+        final.data_ptr(), Bsz, L, H, G, P, N, plan.groups, plan.cluster,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(rc, "ssd_chunked")
+    return y, final
