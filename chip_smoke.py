@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    (K3 over both of its routes, batch 1, 4 and 64 and every branch of its
    function; K6 at L 1 to 1024, batch 16 and two groups at widths that are
    not tile multiples, and a row alone, at batch 2 and inside batch 16 bit
-   for bit), with the tolerance stated beside each check.
+   for bit; K7 over int8 and int4 states at batch 1 and 8 with CFG, and a
+   row alone against it inside batch 8; K5 also at the DAC encoder's
+   residual units of a 3-s clip), with the tolerance stated beside each
+   check.
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -33,7 +36,21 @@ Phases, each of which fails the run (non-zero exit) on error:
      rows: the f8 SSM state), 430 frames each; K1, K2, K3, K5, K6, K7; then
      each prefill's wall and K6's device time in it (CUPTI);
    - hybrid int4: that model after ``quantize_int4()``, one batch-1 generate
-     of 130 frames; K6, K7, K8.
+     of 130 frames; K6, K7, K8;
+   - hybrid int8: a fresh hybrid after ``quantize_int8()``, batch 8 (16 CFG
+     rows), 130 frames with the SSM state in f8, int8 and int4 in turn: K7's
+     int8 and int4 launches; codebook 0 of the first frame equal to the f8
+     run's, the shares of equal codes printed;
+   - encode: a 3-s clip made from the seed, written at 24 kHz and read back
+     by ``load_prefix_audio`` twice (the same codes): K5 on the encoder;
+   - prefix transformer / prefix hybrid: ``generate(audio_prefix_codes=...)``
+     with those codes at batch 1, twice with one seed (identical codes, the
+     prefix cut off), and on the hybrid K6's device time in the longer
+     prefill;
+   - stream transformer: ``stream_generate`` at batch 1 and
+     ``stream_generate_batch`` at batch 4, 260 frames: codes equal to
+     ``generate``'s, each row's chunks within 1e-4 x max|full| of the full
+     decode; the time to first audio.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
    loop and the CUDA graphs on one batch-1 generate (470 new tokens, through
    all three bands of cache lengths; 130 on the hybrid int4), same seed, EOS
@@ -41,9 +58,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    capture time and graphs captured.  The bf16 and quantized transformer
    paths and the bf16 hybrid path are each followed by a profile of their
    batch-1 decode step, eager and under the graphs (the steady-state step's
-   wall and device busy time and idle share, top kernels, the port's
-   kernels' ms per step); the int8 path also by one at batch 64 with the f8
-   KV cache (K4 at 128 rows).
+   wall, the median of three pairs of generates, and device busy time and
+   idle share, top kernels, the port's kernels' ms per step); the int8 path
+   also by one at batch 64 with the f8 KV cache (K4 at 128 rows).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
@@ -118,6 +135,15 @@ HYBRID_INT4_NEW_TOKENS = 130
 # the [graph] phases: 470 new tokens after the smoke's 54-row prefix take the cache past 512
 # rows, through K2's band and both of K1's
 GRAPH_NEW_TOKENS = 470
+# [encode]: a 3-s clip at 24 kHz, 132,608 samples at 44.1 kHz after preprocess = 259 frames
+ENCODE_SECONDS, ENCODE_RATE, ENCODE_FRAMES = 3, 24000, 259
+PREFIX_NEW_TOKENS = 130  # [prefix ...]: the generate after the 259-frame audio prefix
+STREAM_BATCH = 4  # [stream transformer]: stream_generate_batch's rows
+# [main hybrid int8]: batch 8 (16 CFG rows), each SSM-state storage under the CUDA graphs
+HYBRID_INT8_BATCH, HYBRID_INT8_NEW_TOKENS = 8, 130
+# (its cache stays within 256 rows: K2, not K1)
+HYBRID_INT8_KERNELS = ("ssd_chunked", "fused_sample", "decode_attention_single")
+PREFIX_KERNELS = ("flash_decode_attention", "fused_sample")
 # the flagship transformer's matmul weights [din, dout] (the heads: 9 x 1152 columns)
 FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384),
                     "w2": (8192, 2048), "heads": (2048, 10368)}
@@ -502,6 +528,44 @@ def check_snake_conv(gen, frames: int = 86) -> float:
     return worst
 
 
+def encoder_unit_shapes(frames: int = ENCODE_FRAMES) -> list[tuple[int, int, int]]:
+    """(C, T, dilation) of every DAC encoder residual unit for ``frames``
+    frames: C 64 at the sample rate, then 128, 256, 512 after strides 2, 4, 8."""
+    shapes, T = [], frames * 512
+    for C, stride in ((64, 2), (128, 4), (256, 8), (512, 8)):
+        shapes += [(C, T, d) for d in (1, 3, 9)]
+        T //= stride
+    return shapes
+
+
+def check_snake_conv_encoder(gen) -> float:
+    """K5 vs the plain version at the 12 DAC encoder residual units of a 3-s
+    clip after ``preprocess`` (259 frames: T 132,608 / 66,304 / 16,576 /
+    2,072 at C 64 / 128 / 256 / 512), batch 1; tolerance 1e-4 x max|ref|."""
+    import torch
+
+    from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
+
+    worst = 0.0
+    for C, T, dil in encoder_unit_shapes():
+        p = _unit_params(gen, C)
+        x = torch.randn((1, T, C), generator=gen, device="cuda")
+        for alpha, conv, d, res in ((p["alpha1"], p["conv1"], dil, None),
+                                    (p["alpha2"], p["conv2"], 1, x)):
+            ref = snake_conv1d_plain(x, alpha, conv["w"], conv["b"], d, res)
+            got = snake_conv1d(x, alpha, conv["w"], conv["b"], d, res)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not err <= 1e-4 * float(ref.abs().max()):
+                fail(f"snake_conv1d encoder C={C} T={T} k={conv['w'].shape[-1]} dil={d}: "
+                     f"max abs err {err}")
+            worst = max(worst, err / float(ref.abs().max()))
+    print(f"[kernels] K5 ok at the 12 encoder residual units x 2 convs ({ENCODE_FRAMES} frames, "
+          f"C 64-512, T {encoder_unit_shapes()[0][1]}-{encoder_unit_shapes()[-1][1]}): worst "
+          f"max-abs-err / max|ref| = {worst:.3g} (tolerance 1e-4)", flush=True)
+    return worst
+
+
 # flagship hybrid SSM widths: H heads of headdim P, d_state N, one group
 SSM_H, SSM_P, SSM_N = 64, 64, 128
 # K6's timed shapes (rows, L) at the flagship widths, from the zero state: the batch-1 prefill
@@ -625,6 +689,83 @@ def check_fused_state_step(gen) -> float:
             print(f"[kernels] K7 ok at [{BH},{P},{N}], {str(dtype).split('.')[-1]}: y max abs err "
                   f"{err:.3g}; {int((diff == 0).sum())}/{diff.numel()} stored values equal to "
                   f"the plain version's, the rest within one ulp", flush=True)
+    return worst
+
+
+def quant_state_inputs(gen, BH: int, mode: str, P: int = SSM_P, N: int = SSM_N) -> tuple:
+    """An int8 or int4 state and its scales [BH] (from fp32 states whose heads
+    span four orders of magnitude, quantized by the plain store), and fp32 C,
+    B, dA, xdt."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssm_state import quantize_state
+
+    spread = 10.0 ** (torch.rand((BH, 1, 1), generator=gen, device="cuda") * 4 - 2)
+    q, scale = quantize_state(torch.randn((BH, P, N), generator=gen, device="cuda") * spread,
+                              mode)
+    C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
+    dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+    xdt = torch.randn((BH, P), generator=gen, device="cuda") * spread[:, :, 0]
+    return q.contiguous(), C, B, dA, xdt, scale.reshape(BH).contiguous()
+
+
+def check_fused_state_step_quant(gen) -> dict:
+    """``[kernels] K7 int8`` / ``K7 int4``: the kernel against its plain
+    version at [128,64,128] (batch 1 with CFG) and [1024,64,128] (batch 8
+    with CFG): y within 1e-5 x max|ref|, each scale within one fp32 ulp, each
+    stored value within one grid step and at most 1e-3 of them apart (a .5
+    boundary can round apart where the fp32 update differs by an ulp); and
+    the 64 heads of one backbone row launched alone equal to the same heads
+    inside the batch of 16 rows, bit for bit.  Returns each mode's largest
+    absolute error of y."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssm_state import (
+        dequantize_state,
+        fused_state_step,
+        fused_state_step_plain,
+    )
+
+    worst = {}
+    for mode in ("int8", "int4"):
+        worst[mode] = 0.0
+        for BH in (128, 1024):
+            q, C, B, dA, xdt, scale = quant_state_inputs(gen, BH, mode)
+            ref_q, ref_scale = q.clone(), scale.clone()
+            ref_y, _ = fused_state_step_plain(ref_q, C, B, dA, xdt, ref_scale)
+            y, _ = fused_state_step(q, C, B, dA, xdt, scale)
+            torch.cuda.synchronize()
+            err = float((y - ref_y).abs().max())
+            if not err <= 1e-5 * float(ref_y.abs().max()):
+                fail(f"K7 {mode} BH={BH}: y max abs err {err}")
+            ulp = torch.nextafter(ref_scale, torch.full_like(ref_scale, float("inf"))) - ref_scale
+            if not bool(((scale - ref_scale).abs() <= ulp).all()):
+                fail(f"K7 {mode} BH={BH}: a scale off by more than one fp32 ulp")
+            got = dequantize_state(q, scale.view(-1, 1, 1), mode)
+            want = dequantize_state(ref_q, ref_scale.view(-1, 1, 1), mode)
+            if not bool(((got - want).abs() <= ref_scale.view(-1, 1, 1) * 1.00001).all()):
+                fail(f"K7 {mode} BH={BH}: a stored value off by more than one grid step")
+            apart = float((q != ref_q).float().mean())
+            if not apart <= 1e-3:
+                fail(f"K7 {mode} BH={BH}: {apart:.3g} of the stored bytes differ (at most 1e-3)")
+            worst[mode] = max(worst[mode], err)
+            print(f"[kernels] K7 {mode} ok at [{BH},{SSM_P},{SSM_N}]: y max abs err {err:.3g} "
+                  f"(tolerance 1e-5 x {float(ref_y.abs().max()):.3g}); "
+                  f"{int((scale == ref_scale).sum())}/{BH} scales equal, the rest within one ulp; "
+                  f"share of stored bytes apart from the plain version's {apart:.3g} (at most "
+                  f"1e-3), each within one grid step", flush=True)
+        # one backbone row's 64 heads alone and inside batch 8 with CFG (16 rows)
+        q, C, B, dA, xdt, scale = quant_state_inputs(gen, 1024, mode)
+        row = slice(3 * SSM_H, 4 * SSM_H)
+        alone = [t[row].clone() for t in (q, C, B, dA, xdt, scale)]
+        y_all, _ = fused_state_step(q, C, B, dA, xdt, scale)
+        y_one, _ = fused_state_step(*alone)
+        torch.cuda.synchronize()
+        if not (torch.equal(y_one, y_all[row]) and torch.equal(alone[0], q[row])
+                and torch.equal(alone[5], scale[row])):
+            fail(f"K7 {mode}: a row alone differs from the same row inside batch 8")
+        print(f"[kernels] K7 {mode}: a row's 64 heads alone equal the same heads inside batch 8 "
+              f"(16 rows) bit for bit (y, stored bytes, scales)", flush=True)
     return worst
 
 
@@ -1009,20 +1150,22 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
     return counts, prefix1
 
 
-def prefill_k6(tag: str, model, prefixes, card: str) -> None:
+def prefill_k6(tag: str, model, prefixes, card: str, audio_prefix_codes=None) -> None:
     """For each (prefix, batch): the prefill's wall (host clock around
     ``Zonos._prefill`` and a synchronise, median of 3) and, from one traced
     prefill (CUPTI), the device's busy time and K6's device time in it (one
-    launch a Mamba layer).  Run after the path's launch counts are read."""
+    launch a Mamba layer), after ``audio_prefix_codes`` where given.  Run
+    after the path's launch counts are read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    audio = 0 if audio_prefix_codes is None else audio_prefix_codes.shape[2]
     for prefix, batch in prefixes:
         def run():
             with torch.inference_mode():
                 model._prefill(prefix, max_new_tokens=8, cfg_scale=2.0, batch_size=batch,
                                sampling_params=None, seed=[3 + i for i in range(batch)],
-                               step_limits=None)
+                               step_limits=None, audio_prefix_codes=audio_prefix_codes)
             torch.cuda.synchronize()
 
         run()
@@ -1038,7 +1181,7 @@ def prefill_k6(tag: str, model, prefixes, card: str) -> None:
         k6 = [e for e in kernels if "ssd_chunked" in e.key]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         ms, n = sum(e.self_device_time_total for e in k6) / 1e3, sum(e.count for e in k6)
-        print(f"{tag} prefill of {prefix.shape[1] + 1} steps at batch {batch} ({2 * batch} rows): "
+        print(f"{tag} prefill of {prefix.shape[1] + audio + 1} steps at batch {batch} ({2 * batch} rows): "
               f"wall {statistics.median(walls):.2f} ms, device busy {busy:.3f} ms, K6 {ms:.4f} ms "
               f"over {n} launches ({ms * 1e3 / max(n, 1):.2f} us a launch; CUPTI; {card})",
               flush=True)
@@ -1077,6 +1220,241 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
     return counts
 
 
+def phase_encode(card: str, dac):
+    """``[encode]``: a 3-s clip made from the seed (a tone and noise) written
+    with ``save_audio`` at 24 kHz, read back by ``load_prefix_audio`` (mono,
+    resampled to 44.1 kHz, left-padded, encoded: K5 on the encoder's residual
+    units), twice: the same codes, [1, 9, 259], in range.  Prints each wall
+    and K5's launches; returns (codes, the launch counts of the first)."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.audio import save_audio
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = "[encode]"
+    rng = np.random.default_rng(1234)
+    t = np.arange(ENCODE_SECONDS * ENCODE_RATE) / ENCODE_RATE
+    clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.normal(size=t.shape)).astype(np.float32)
+    walls, runs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prefix.wav")
+        save_audio(path, clip[None], ENCODE_RATE)
+        reset_launch_counts()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(dac.load_prefix_audio(path))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if len(runs) == 1:
+                counts = dict(launch_counts)
+    codes = runs[0]
+    if codes.shape != (1, 9, ENCODE_FRAMES) or codes.min() < 0 or codes.max() >= 1024:
+        fail(f"{tag} codes of shape {codes.shape}, range {codes.min()}..{codes.max()}")
+    if not np.array_equal(codes, runs[1]):
+        fail(f"{tag} encoding the clip twice gave different codes")
+    if counts["snake_conv1d"] <= 0:
+        fail(f"{tag} K5 was not launched by the encoder")
+    print(f"{tag} {ENCODE_SECONDS} s at {ENCODE_RATE} Hz -> codes {tuple(codes.shape)}, twice "
+          f"equal; wall {walls[0]:.3f} s the first time, {walls[1]:.3f} s the second (read, "
+          f"resample, encode); K5 {counts['snake_conv1d']} launches an encode; "
+          f"{len(np.unique(codes[0, 0]))} distinct codes in codebook 0 ({card})", flush=True)
+    return codes, counts
+
+
+def phase_prefix(card: str, kind: str, model, prefix, audio_codes, expect: tuple) -> dict:
+    """``[prefix kind]``: ``generate(audio_prefix_codes=...)`` with the
+    encoded clip at batch 1, twice with one seed (identical codes, the prefix
+    cut off, the decode as graph replays), with the launch counts zeroed just
+    before and read just after; on the hybrid also the longer prefill's wall
+    and K6's device time."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = f"[prefix {kind}]"
+    reset_launch_counts()
+    outs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(model.generate(prefix, audio_prefix_codes=audio_codes,
+                                   max_new_tokens=PREFIX_NEW_TOKENS, batch_size=1, seed=7)[0])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        check_replayed(tag, model.decode_stats)
+    counts = dict(launch_counts)
+    a, b = outs
+    if a.shape != b.shape or not np.array_equal(a, b):
+        fail(f"{tag} two generates with one seed gave different codes")
+    if a.shape[0] != 9 or not 1 <= a.shape[1] <= PREFIX_NEW_TOKENS or a.min() < 0 or \
+            a.max() >= 1024:
+        fail(f"{tag} codes of shape {a.shape} (the prefix of {audio_codes.shape[2]} frames is "
+             f"cut off: at most {PREFIX_NEW_TOKENS} frames), range {a.min()}..{a.max()}")
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in expect:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the {kind} prefix path")
+    steps = model.decode_stats["steps"]
+    print(f"{tag} batch 1 after a {audio_codes.shape[2]}-frame audio prefix and a "
+          f"{prefix.shape[1]}-row conditioning: {a.shape[1]} new frames (the prefix cut off), "
+          f"twice equal; wall {walls[0]:.2f} / {walls[1]:.2f} s, {walls[1] * 1e3 / steps:.2f} ms "
+          f"per decode step ({steps} steps; {card})", flush=True)
+    if "ssd_chunked" in expect:
+        prefill_k6(tag, model, ((prefix, 1),), card, audio_prefix_codes=audio_codes)
+    return counts
+
+
+def phase_stream(card: str, model, dac) -> dict:
+    """``[stream transformer]``: ``stream_generate`` at batch 1 and
+    ``stream_generate_batch`` at batch 4, 260 new tokens, one seed each.  The
+    streamed codes (the stream's decode state, read at its end through a spy
+    on ``_prefill``) must equal ``generate``'s bit for bit, and each row's
+    concatenated chunks must be within 1e-4 x max|full| of the DAC decode of
+    its codes.  Prints the time to first audio and the chunks.  The launch
+    counts are zeroed just before each stream and read just after it."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = "[stream transformer]"
+    model._autoencoder = dac
+    counts = {name: 0 for name in launch_counts}
+    for rows in (1, STREAM_BATCH):
+        prefix = model.prepare_conditioning(make_cond_dict(text=TEXTS[:rows], speaker=None))
+        seeds = 21 if rows == 1 else [21 + i for i in range(rows)]
+        runs, per_row, chunks = [], {i: [] for i in range(rows)}, 0
+        real_prefill = model._prefill
+
+        def spy(*args, **kwargs):
+            runs.append(real_prefill(*args, **kwargs))
+            return runs[-1]
+
+        model._prefill = spy
+        reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = None
+            if rows == 1:
+                for chunk in model.stream_generate(prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS,
+                                                   seed=seeds):
+                    first = first if first is not None else time.perf_counter() - t0
+                    per_row[0].append(chunk)
+                    chunks += 1
+            else:
+                for events in model.stream_generate_batch(
+                        prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, seed=seeds,
+                        batch_size=rows):
+                    first = first if first is not None else time.perf_counter() - t0
+                    chunks += 1
+                    for i, chunk in events:
+                        per_row[i].append(chunk)
+            total = time.perf_counter() - t0
+        finally:
+            del model._prefill
+        for name, n in launch_counts.items():
+            counts[name] += n
+        check_replayed(tag, model.decode_stats)
+        run = runs[0]
+        streamed = model._trim(run.delayed.cpu().numpy(), int(run.offset), None,
+                               run.prefix_audio_len)
+        codes = model.generate(prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, batch_size=rows,
+                               seed=seeds)
+        worst = 0.0
+        for i in range(rows):
+            if streamed[i].shape != codes[i].shape or not np.array_equal(streamed[i], codes[i]):
+                fail(f"{tag} batch {rows} row {i}: the streamed codes differ from generate's")
+            full = dac.decode(codes[i][None])[0, 0]
+            wav = np.concatenate(per_row[i])
+            if wav.shape != full.shape:
+                fail(f"{tag} batch {rows} row {i}: streamed {wav.shape} samples, full {full.shape}")
+            err = float(np.abs(wav - full).max()) / float(np.abs(full).max())
+            if not err <= 1e-4:
+                fail(f"{tag} batch {rows} row {i}: streamed waveform off by {err:.3g} x max|full|")
+            worst = max(worst, err)
+        audio_s = sum(c.shape[1] for c in codes) / FRAMES_PER_S
+        print(f"{tag} batch {rows}: {chunks} chunks, time to first audio {first * 1e3:.1f} ms, "
+              f"whole stream {total:.2f} s for {audio_s:.2f} s of audio; codes equal generate's "
+              f"bit for bit; waveforms within {worst:.3g} x max|full| of the full decode "
+              f"(tolerance 1e-4; {card})", flush=True)
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in TRANSFORMER_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the stream path")
+    return counts
+
+
+def phase_hybrid_int8(card: str, model) -> dict:
+    """``[main hybrid int8]``: the flagship hybrid after ``quantize_int8()``
+    at batch 8 (16 CFG rows), 130 new tokens, with the SSM state in f8, then
+    int8, then int4 (``set_storage(ssm=...)``), each under the CUDA graphs,
+    the launch counts zeroed before and read after each.  K7's int8 and int4
+    launches must be non-zero in their runs (and the f8 K7 absent there);
+    codebook 0 of the first frame, which the prefill samples before any state
+    is read back, must equal the f8 run's in every row; the shares of equal
+    codes (the first frame's and all) are printed, not checked.  Returns the
+    int8 and int4 runs' counts, summed."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = "[main hybrid int8]"
+    B = HYBRID_INT8_BATCH
+    prefix = model.prepare_conditioning(make_cond_dict(text=TEXTS[:B], speaker=None))
+    seeds = [31 + i for i in range(B)]
+    out, total = {}, {}
+    for mode in ("f8", "int8", "int4"):
+        model.set_storage(ssm=mode)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = model.generate(prefix, max_new_tokens=HYBRID_INT8_NEW_TOKENS, batch_size=B,
+                               seed=seeds)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = dict(launch_counts)
+        model.set_storage()
+        check_replayed(f"{tag} {mode}", model.decode_stats)
+        for c in codes:
+            if c.shape[0] != 9 or not 1 <= c.shape[1] <= HYBRID_INT8_NEW_TOKENS or \
+                    c.min() < 0 or c.max() >= 1024:
+                fail(f"{tag} {mode}: codes of shape {c.shape}, range {c.min()}..{c.max()}")
+        for name in HYBRID_INT8_KERNELS:
+            if counts[name] <= 0:
+                fail(f"{tag} {mode}: kernel {name} was not launched")
+        k7 = "fused_state_step" if mode == "f8" else f"fused_state_step_{mode}"
+        if counts[k7] <= 0:
+            fail(f"{tag} {mode}: K7 ({k7}) was not launched")
+        if mode != "f8" and counts["fused_state_step"] != 0:
+            fail(f"{tag} {mode}: the f8 K7 ran on the {mode} state")
+        steps = model.decode_stats["steps"]
+        out[mode] = codes
+        print(f"{tag} {mode} SSM state, batch {B}: {sum(c.shape[1] for c in codes)} frames in "
+              f"{dt:.2f} s, {dt * 1e3 / steps:.2f} ms per decode step ({steps} steps, prefill "
+              f"included); K7 {k7} {counts[k7]} launches; launches {counts} ({card})", flush=True)
+        if mode != "f8":
+            for name, n in counts.items():
+                total[name] = total.get(name, 0) + n
+    for mode in ("int8", "int4"):
+        first0 = [a[0, 0] == b[0, 0] for a, b in zip(out[mode], out["f8"])]
+        if not all(first0):
+            fail(f"{tag} {mode}: codebook 0 of the first frame differs from the f8 run's")
+        first = np.mean([np.mean(a[:, 0] == b[:, 0]) for a, b in zip(out[mode], out["f8"])])
+        n = [min(a.shape[1], b.shape[1]) for a, b in zip(out[mode], out["f8"])]
+        same = np.mean([np.mean(a[:, :k] == b[:, :k]) for a, b, k in zip(out[mode], out["f8"], n)])
+        print(f"{tag} {mode} against the f8 state: codebook 0 of the first frame equal in all {B} "
+              f"rows; the whole first frame's codes {100 * first:.1f}% equal, all codes "
+              f"{100 * same:.1f}% equal (drift is allowed; not checked)", flush=True)
+    return total
+
+
 # kernel-name fragments -> the port's kernel, for the profile's per-kernel line
 _PORT_KERNELS = (("flash_cluster", "K1"), ("cluster_pass", "K2"),
                  ("fused_sample", "K3"), ("tail_pass", "K4"), ("tail_layer_norm", "K4"),
@@ -1092,8 +1470,9 @@ _CATEGORIES = (
 def phase_profile(kind: str, model, prefix, card: str, batch: int = 1, sampling=None) -> None:
     """Where a decode step's time goes, for the eager loop and for the CUDA
     graphs.  A decode step in the steady state: the wall time of a generate
-    of 96 new tokens (128 under the graphs, whose steps are cheap) less that
-    of one of 32, and the device-busy time of one of 24 less one of 8, each
+    of 64 new tokens (128 under the graphs, whose steps are cheap) less that
+    of one of 32, the median over three such pairs (shares are printed only
+    where that median is positive and above the busy time), and the device-busy time of one of 24 less one of 8, each
     over the steps between them (the cache stays in K2's band, so each
     generate captures one graph, and the prefill, the eager first step and
     the capture cancel).  The wall times are of runs without the profiler
@@ -1104,7 +1483,7 @@ def phase_profile(kind: str, model, prefix, card: str, batch: int = 1, sampling=
     phase's time at longer traces, so the traced runs are short).  Then the top kernels and the port's kernels' ms per step of the
     24-token generate (with K3's time a launch and K4's share of the busy
     time)."""
-    for graphs, more_tokens in ((False, 96), (True, 128)):
+    for graphs, more_tokens in ((False, 64), (True, 128)):
         _profile_run(kind, model, prefix, card, 32, more_tokens, batch, sampling, graphs)
 
 
@@ -1131,7 +1510,11 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
         return wall, steps, sum(e.self_device_time_total for e in kernels) / 1e3, kernels
 
     run(8)  # a new batch's shapes: libraries pick their kernels before anything is timed
-    (wall1, steps1), (wall2, steps2) = run(new_tokens), run(more_tokens)
+    # the steady step's wall: the median over three (short, long) pairs, so that one disturbed
+    # generate does not make it negative
+    pairs = [(run(new_tokens), run(more_tokens)) for _ in range(3)]
+    wall = statistics.median((w2 - w1) / (s2 - s1) for (w1, s1), (w2, s2) in pairs)
+    wall2, steps2 = pairs[-1][1]
     traced1, traced_steps1, busy1, _ = profiled(8)
     traced2, traced_steps2, busy2, kernels = profiled(24)
     tag = f"[profile {kind}{' graphs' if graphs else ' eager'}]"
@@ -1139,12 +1522,16 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
         print(f"{tag} device busy time not measured (the profiler saw no kernels) ({card})",
               flush=True)
         return
-    wall = (wall2 - wall1) / (steps2 - steps1)
     busy = (busy2 - busy1) / (traced_steps2 - traced_steps1)
+    shares = (f"{100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% idle"
+              if 0 < busy <= wall else
+              f"busy and idle shares not measured (steady wall {wall:.2f} ms/step, busy "
+              f"{busy:.2f}: no share within 0-100%)")
     print(f"{tag} batch-{batch} decode step in the steady state: wall {wall:.2f} ms/step "
-          f"({more_tokens} less {new_tokens} new tokens, {steps2 - steps1} steps), device busy "
+          f"(median over 3 pairs of {more_tokens} less {new_tokens} new tokens, "
+          f"{steps2 - pairs[-1][0][1]} steps), device busy "
           f"{busy:.2f} ms/step (24 less 8, {traced_steps2 - traced_steps1} steps) = "
-          f"{100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% idle (wall under the "
+          f"{shares} (wall under the "
           f"profiler {(traced2 - traced1) / (traced_steps2 - traced_steps1):.2f}); the whole "
           f"{more_tokens}-token generate (prefill, {steps2} steps): wall {wall2 / steps2:.2f} "
           f"ms/step without the captures ({card})", flush=True)
@@ -1320,6 +1707,31 @@ def time_fused_state_step(gen, BH: int, dtype, rows: int | None = None) -> dict:
             **_bound(*fused_state_step_cost(BH, SSM_P, SSM_N, itemsize))}
 
 
+def fused_state_step_quant_cost(BH: int, P: int, N: int, mode: str) -> tuple[float, float]:
+    """(ops, bytes) K7's function needs on an int8 or int4 state: per state
+    element 12 operations (the dequantizing product, C.s's 2, the update's
+    3, the absmax's 2, the division, the rounding and the clamp's 2); the
+    state read and written once (1 byte an element, int4 a half) with its
+    fp32 scale, C, B, dA, xdt read and y written once in fp32."""
+    per = {"int8": 1.0, "int4": 0.5}[mode]
+    return 12.0 * BH * P * N, 2.0 * BH * P * N * per + 4.0 * BH * (2 + 2 * N + 1 + 2 * P)
+
+
+def time_fused_state_step_quant(gen, BH: int, mode: str) -> dict:
+    """K7 on an int8 or int4 state at ``BH`` rows x heads, cycling over enough
+    states to exceed the 50 MB L2, beside the plain version."""
+    from zonos_tpu_torch.kernels.ssm_state import fused_state_step, fused_state_step_plain
+
+    per = {"int8": 1.0, "int4": 0.5}[mode]
+    n_sets = 2 + int(64e6 // (BH * SSM_P * SSM_N * per))
+    sets = [quant_state_inputs(gen, BH, mode) for _ in range(n_sets)]
+    cycle = itertools.cycle(sets)
+    return {"shape": f"state [{BH},{SSM_P},{SSM_N}] {mode} + scales [{BH}] fp32, L2 cold",
+            **_times(lambda: fused_state_step(*next(cycle)),
+                     lambda: fused_state_step_plain(*next(cycle))),
+            **_bound(*fused_state_step_quant_cost(BH, SSM_P, SSM_N, mode))}
+
+
 def time_decode_attention_quantized(gen, name: str, storage: str, length: int,
                                     counts: dict, B: int = 2, S: int = 2048) -> dict:
     """K1 or K2 (``name``) over an f8 or int8 cache at ``B`` rows (2: batch 1
@@ -1478,10 +1890,12 @@ def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
     }
 
 
-def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
+def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86,
+                    encoder: bool = False) -> dict:
     """K5 over the 12 DAC decoder residual units (24 launches) for ``frames``
-    frames at batch 1, each unit's time printed, beside the plain version
-    (snake + cuDNN fp32, TF32 off)."""
+    frames at batch 1 (``encoder``: the 12 encoder units of a 259-frame clip),
+    each unit's time printed, beside the plain version (snake + cuDNN fp32,
+    TF32 off)."""
     import torch
 
     from zonos_tpu_torch.kernels.snake_conv import snake_conv1d_plain, snake_residual_unit
@@ -1489,7 +1903,8 @@ def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
     ms = plain_ms = host_ms = bound = 0.0
     bound_ops = bound_bytes = 0.0
     units = []
-    for C, T, dil in residual_unit_shapes(frames):
+    shapes = encoder_unit_shapes() if encoder else residual_unit_shapes(frames)
+    for C, T, dil in shapes:
         p = _unit_params(gen, C)
         x = torch.randn((1, T, C), generator=gen, device="cuda")
         unit_ms, unit_host = device_ms(lambda: snake_residual_unit(p, x, dil), calls=5)
@@ -1512,8 +1927,15 @@ def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
         bound += unit_bound
         units.append({"C": C, "T": T, "dilation": dil, "ms": unit_ms, "plain_ms": unit_plain,
                       "bound_ms": unit_bound * 1e3})
-        print(f"[time] K5 unit C={C} T={T} dil={dil}: {unit_ms * 1e3:.1f} us (plain "
-              f"{unit_plain * 1e3:.1f}, bound {unit_bound * 1e6:.1f})", flush=True)
+        print(f"[time] K5 {'encoder' if encoder else 'decoder'} unit C={C} T={T} dil={dil}: "
+              f"{unit_ms * 1e3:.1f} us (plain {unit_plain * 1e3:.1f}, bound "
+              f"{unit_bound * 1e6:.1f})", flush=True)
+    if encoder:
+        return {"shape": f"all 12 DAC encoder residual units (24 launches) of a "
+                         f"{ENCODE_FRAMES}-frame clip, batch 1, fp32",
+                "ms": ms, "kernel_ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                "bound_ms": bound * 1e3,
+                "bound_by": "operations" if bound_ops >= bound_bytes else "bytes", "units": units}
     return {
         "name": "snake_conv1d", "id": "K5", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/snake_conv.cu",
@@ -1529,6 +1951,7 @@ def time_snake_conv(gen, counts: dict, errs: dict, frames: int = 86) -> dict:
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": None,
         "units": units,
+        "more": [] if frames != 86 else [time_snake_conv(gen, counts, errs, encoder=True)],
     }
 
 
@@ -1612,6 +2035,19 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
                                    (1024, torch.float32), (1024, torch.bfloat16),
                                    (1024, torch.float8_e4m3fn))],
     })
+    for mode in ("int8", "int4"):
+        out.append({
+            "name": f"fused_state_step_{mode}", "id": f"K7 {mode}", "route": "cuda",
+            "source": "zonos_tpu_torch/csrc/ssm_state.cu",
+            "replaces": "zonos_tpu/ops/pallas_state.py:49",
+            **_launches(f"fused_state_step_{mode}", counts),
+            "max_abs_err": errs[f"fused_state_step_{mode}"],
+            **time_fused_state_step_quant(gen, 128, mode),
+            "library_ms": None,
+            "library_why": "no single PyTorch call dequantizes, updates, reduces and requantizes "
+                           "the state",
+            "more": [time_fused_state_step_quant(gen, 1024, mode)],
+        })
     out.append({
         "name": "fused_layer_tail", "id": "K4", "route": "cuda",
         "source": "zonos_tpu_torch/csrc/layer_tail.cu",
@@ -2141,6 +2577,9 @@ def main(argv: list[str]) -> int:
     errs["snake_conv1d"] = check_snake_conv(gen)
     errs["ssd_chunked"] = check_ssd_chunked(gen)
     errs["fused_state_step"] = check_fused_state_step(gen)
+    errs.update({f"fused_state_step_{mode}": err
+                 for mode, err in check_fused_state_step_quant(gen).items()})
+    check_snake_conv_encoder(gen)
     errs.update(check_decode_attention_quantized(gen))
     check_flash_attention(gen, errs)
     errs["fused_layer_tail"] = check_layer_tail(gen)
@@ -2152,6 +2591,7 @@ def main(argv: list[str]) -> int:
     print(f"[time] kernel checks done {time.perf_counter() - t0:.1f} s after the device check",
           flush=True)
     counts = {}
+    audio_codes, counts["encode"] = phase_encode(card, dac)
 
     graph = {}
 
@@ -2165,7 +2605,12 @@ def main(argv: list[str]) -> int:
         return prefix
 
     model = load_model("transformer")
-    path("transformer", model, 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS)
+    prefix = path("transformer", model, 4, TRANSFORMER_KERNELS, TRANSFORMER_NEW_TOKENS)
+    counts["prefix transformer"] = phase_prefix(card, "transformer", model, prefix, audio_codes,
+                                                PREFIX_KERNELS)
+    counts["stream transformer"] = phase_stream(card, model, dac)
+    print(f"[time] transformer prefix and stream done {time.perf_counter() - t0:.1f} s",
+          flush=True)
     quantize_model("transformer", model, "int8")  # the bf16 model, quantized in place
     path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
     phase_profile_batch64(model, card)
@@ -2180,11 +2625,19 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     model = load_model("hybrid")
     prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
+    counts["prefix hybrid"] = phase_prefix(card, "hybrid", model, prefix, audio_codes,
+                                           PREFIX_KERNELS + ("ssd_chunked", "fused_state_step"))
     quantize_model("hybrid", model, "int4")
     counts["hybrid int4"] = phase_hybrid_quantized(card, model, prefix, HYBRID_INT4_KERNELS)
     graph["hybrid int4"] = phase_graph(card, "hybrid int4", model, prefix,
                                        HYBRID_INT4_NEW_TOKENS)
     print(f"[time] hybrid int4 path done {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    model = load_model("hybrid")  # a fresh seed-0 model
+    quantize_model("hybrid", model, "int8")
+    counts["hybrid int8"] = phase_hybrid_int8(card, model)
+    print(f"[time] hybrid int8 path done {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
     print(json.dumps({"graph": graph, "card": card}), flush=True)

@@ -36,8 +36,10 @@ from zonos_tpu_torch.kernels.sampling import (
 from zonos_tpu_torch.kernels.snake_conv import snake_conv1d, snake_conv1d_plain
 from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
 from zonos_tpu_torch.kernels.ssm_state import (
+    dequantize_state,
     fused_state_step,
     fused_state_step_plain,
+    quantize_state,
     storage_ulp,
 )
 from zonos_tpu_torch.models.backbone import quantize_kv_rows
@@ -380,6 +382,66 @@ def test_fused_state_step_kernel_rejects_fp16(gen):
     with pytest.raises(TypeError):
         fused_state_step(state, C, C, torch.ones((4, 1), device="cuda"),
                          torch.zeros((4, 64), device="cuda"))
+
+
+def _quant_state(gen, BH, P, N, mode):
+    spread = 10.0 ** (torch.rand((BH, 1, 1), generator=gen, device="cuda") * 4 - 2)
+    q, scale = quantize_state(torch.randn((BH, P, N), generator=gen, device="cuda") * spread,
+                              mode)
+    C, B = (torch.randn((BH, N), generator=gen, device="cuda") for _ in range(2))
+    dA = torch.rand((BH, 1), generator=gen, device="cuda") * 0.5 + 0.5
+    xdt = torch.randn((BH, P), generator=gen, device="cuda") * spread[:, :, 0]
+    return q.contiguous(), C, B, dA, xdt, scale.reshape(BH).contiguous()
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("BH,P,N", [(128, 64, 128), (1024, 64, 128), (130, 64, 128),
+                                    (128, 50, 128), (128, 64, 64), (128, 64, 256),
+                                    (128, 16, 512), (3, 4, 16)])
+def test_fused_state_step_quant_matches_plain(gen, mode, BH, P, N):
+    """K7 on an int8 or int4 state (one CTA a head) against its plain
+    version over three steps: y within 1e-5 x max|ref|, scales within one
+    fp32 ulp, stored values within one grid step, at most 1e-3 of the bytes
+    apart; the int8 or int4 launch counted, not the float one."""
+    q, C, B, dA, xdt, scale = _quant_state(gen, BH, P, N, mode)
+    ref_q, ref_scale = q.clone(), scale.clone()
+    for _ in range(3):
+        before = dict(launch_counts)
+        ref_y, _ = fused_state_step_plain(ref_q, C, B, dA, xdt, ref_scale)
+        y, out = fused_state_step(q, C, B, dA, xdt, scale)
+        assert out is q
+        assert launch_counts[f"fused_state_step_{mode}"] == before[f"fused_state_step_{mode}"] + 1
+        assert launch_counts["fused_state_step"] == before["fused_state_step"]
+        assert (y - ref_y).abs().max() <= 1e-5 * ref_y.abs().max()
+        ulp = torch.nextafter(ref_scale, torch.full_like(ref_scale, float("inf"))) - ref_scale
+        assert ((scale - ref_scale).abs() <= ulp).all()
+        got = dequantize_state(q, scale.view(-1, 1, 1), mode)
+        want = dequantize_state(ref_q, ref_scale.view(-1, 1, 1), mode)
+        assert ((got - want).abs() <= ref_scale.view(-1, 1, 1) * 1.00001).all()
+        assert (q != ref_q).float().mean() <= 1e-3
+        xdt = xdt.flip(0).contiguous()  # the next step's inputs
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_fused_state_step_quant_row_alone_equals_row_in_batch(gen, mode):
+    """One backbone row's 64 heads launched alone equal the same heads inside
+    batch 8 with CFG (16 rows), bit for bit: y, stored bytes and scales."""
+    q, C, B, dA, xdt, scale = _quant_state(gen, 1024, 64, 128, mode)
+    row = slice(5 * 64, 6 * 64)
+    alone = [t[row].clone() for t in (q, C, B, dA, xdt, scale)]
+    y_all, _ = fused_state_step(q, C, B, dA, xdt, scale)
+    y_one, _ = fused_state_step(*alone)
+    assert torch.equal(y_one, y_all[row])
+    assert torch.equal(alone[0], q[row]) and torch.equal(alone[5], scale[row])
+
+
+def test_fused_state_step_quant_refuses_what_it_does_not_take(gen):
+    q, C, B, dA, xdt, scale = _quant_state(gen, 4, 64, 128, "int8")
+    with pytest.raises(ValueError, match="scales"):
+        fused_state_step(q, C, B, dA, xdt)
+    big = torch.zeros((4, 256, 128), dtype=torch.int8, device="cuda")  # 32,768 values a head
+    with pytest.raises(ValueError, match="a CTA holds"):
+        fused_state_step(big, C, B, dA, torch.zeros((4, 256), device="cuda"), scale)
 
 
 def _bf16_ulps(ref: torch.Tensor, n: int) -> float:
@@ -1002,3 +1064,20 @@ def test_keyed_noise_bits_on_the_card_equal_the_cpu_bits(gen):
                        torch.arange(3, device=dev), element_counters(9 * 1152, dev)).cpu()
             for dev in ("cpu", "cuda")]
     assert torch.equal(bits[0], bits[1])
+
+
+def test_streamed_row_on_the_card_equals_its_full_decode(gen):
+    """``stream_generate`` on the card (graph replays, the full DAC): the
+    chunks concatenate to the DAC decode of ``generate``'s codes with the same
+    seed, within 1e-4 x max|full|."""
+    from zonos_tpu_torch import make_cond_dict
+
+    model = _graph_model("transformer bf16")
+    prefix = model.prepare_conditioning(make_cond_dict(text=GRAPH_TEXTS[0], speaker=None))
+    chunks = list(model.stream_generate(prefix, max_new_tokens=120, seed=9, chunk_frames=43))
+    assert len(chunks) >= 2 and model.decode_stats["graphs"] >= 1
+    codes = model.generate(prefix, max_new_tokens=120, seed=9)[0]
+    full = model.autoencoder.decode(codes[None])[0, 0]
+    streamed = np.concatenate(chunks)
+    assert streamed.shape == full.shape
+    assert np.abs(streamed - full).max() <= 1e-4 * np.abs(full).max()

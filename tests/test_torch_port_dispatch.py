@@ -72,6 +72,13 @@ def _state(N=128, state=F32, dtype=F32, BH=128, P=64):
                            _t(BH, N, dtype=dtype), _t(BH, 1, dtype=dtype), _t(BH, P, dtype=dtype))
 
 
+def _quant_state(mode="int8", N=128, P=64, BH=128, scales=F32):
+    width = N // 2 if mode == "int4" else N
+    scale = None if scales is None else _t(BH, dtype=scales)
+    return k7.kernel_takes(_t(BH, P, width, dtype=I8), _t(BH, N), _t(BH, N), _t(BH, 1),
+                           _t(BH, P), scale)
+
+
 CASES = {
     # K1/K2 over a bf16 cache: the flagship (16 query heads, 4 kv heads, head_dim 128)
     "K1K2 flagship": (_attention, {}, True),
@@ -128,6 +135,16 @@ CASES = {
     "K7 d_state 256 fp32 (64 slices)": (_state, dict(N=256), False),
     "K7 fp16 state": (_state, dict(state=torch.float16), False),
     "K7 bf16 inputs": (_state, dict(dtype=BF), False),
+    # K7 on int8 / int4 states: rows of a power-of-two count (at most 32) of 16 values, at
+    # most 16,384 values a head (one CTA holds it), fp32 scales
+    "K7 int8 flagship": (_quant_state, {}, True),
+    "K7 int4 flagship": (_quant_state, dict(mode="int4"), True),
+    "K7 int8 d_state 512": (_quant_state, dict(N=512, P=32), True),
+    "K7 int4 d_state 24": (_quant_state, dict(mode="int4", N=24), False),
+    "K7 int8 d_state 1024 (64 pieces)": (_quant_state, dict(N=1024, P=16), False),
+    "K7 int8 head of 32,768 values": (_quant_state, dict(P=256), False),
+    "K7 int8 without scales": (_quant_state, dict(scales=None), False),
+    "K7 int8 bf16 scales": (_quant_state, dict(scales=BF), False),
     # K8: at most 64 rows, dout % 16, groups of a multiple of 8 rows, bf16 x
     "K8 flagship w1": (lambda **kw: k8.kernel_takes(2, 2048, 16384, 128, **kw), {}, True),
     "K8 fp32 x": (lambda **kw: k8.kernel_takes(2, 2048, 16384, 128, **kw),

@@ -258,12 +258,18 @@ def test_ssm_state_mode_default_and_storage():
     assert thybrid.ssm_state_mode(15) == "fp32"
     assert thybrid.ssm_state_mode(16) == "f8"  # batch 8 with CFG
     assert thybrid.ssm_state_mode(16, "bf16") == "bf16"
-    for q in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thybrid.ssm_state_mode(2, q)
     with pytest.raises(ValueError):
         thybrid.ssm_state_mode(2, "f16")
     cfg = ZonosConfig.from_dict(_tiny_dict()).backbone
+    # the int8 and int4 states, keyed as the JAX package keys them: int8 values or int4 pairs
+    # packed in int8 bytes, and one fp32 scale a row and head
+    H, P, N = 8, 16, 16
+    for mode, key, width in (("int8", "ssm", N), ("int4", "ssm_q4", N // 2)):
+        assert thybrid.ssm_state_mode(2, mode) == mode
+        st = thybrid.create_hybrid_cache(cfg, 2, 64, torch.bfloat16, ssm_state=mode)[0]
+        assert set(st) == {"conv", key, "ssm_scale"}
+        assert st[key].shape == (2, H, P, width) and st[key].dtype == torch.int8
+        assert st["ssm_scale"].shape == (2, H, 1, 1) and st["ssm_scale"].dtype == torch.float32
     for rows, dtype, want in ((2, torch.bfloat16, torch.float32),
                               (16, torch.bfloat16, torch.float8_e4m3fn),
                               (16, torch.float32, torch.float32)):

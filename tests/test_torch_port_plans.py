@@ -1,7 +1,8 @@
 """Launch plans and arithmetic of K7, K2, K1 and K5 that the CPU can check.
 
 K7 (the Mamba2 decode-state step) cuts each bh row's state into slabs
-(``slab_plan``) and widens f8 through f16; K2 (one-pass decode attention,
+(``slab_plan``) and widens f8 through f16; on int8 and int4 states one CTA
+holds a head in pieces of 16 values; K2 (one-pass decode attention,
 the band of lengths up to 256) splits a cache's rows over the CTAs of a
 thread-block cluster and combines their partial softmaxes in rank order; K1
 (decode attention, the bands past 256) does the same over clusters of up to
@@ -58,7 +59,13 @@ from zonos_tpu_torch.kernels.snake_conv import (
     conv_plan,
     snake_conv1d_plain,
 )
-from zonos_tpu_torch.kernels.ssm_state import MAX_SLAB_BYTES, slab_plan
+from zonos_tpu_torch.kernels.ssm_state import (
+    MAX_SLAB_BYTES,
+    QUANT_THREADS,
+    QUANT_VALUES_PER_THREAD,
+    quantize_state,
+    slab_plan,
+)
 
 SMS = 132  # an H100 SXM's SMs, as the wrappers read them from the card
 
@@ -105,6 +112,52 @@ def test_slab_plan_at_the_flagship_shapes():
     CTAs; batch 8 with CFG (BH 1024, f8 state) keeps one 8 KB slab a bh row."""
     assert slab_plan(128, 64, 128, 4, SMS) == (8, 8)
     assert slab_plan(1024, 64, 128, 1, SMS) == (64, 1)
+
+
+def _quant_threads(P: int, N: int) -> int:
+    """The int8/int4 kernel's CTA, as csrc/ssm_state.cu ``launch_quant`` sizes
+    it: whole warps of two of a head's ``P * N / 16`` pieces a thread, at most
+    ``QUANT_THREADS`` (which then hold up to four pieces each)."""
+    return min(QUANT_THREADS, 32 * -(-P * (N // 16) // 64))
+
+
+@pytest.mark.parametrize("P,N", [(64, 128), (50, 128), (64, 64), (64, 256), (16, 512),
+                                 (4, 16), (1, 16), (3, 32)])
+def test_quant_kernel_holds_every_piece_once(P, N):
+    """The int8/int4 kernel's map (csrc/ssm_state.cu ``quant_step_kernel``):
+    thread t of ``_quant_threads`` holds pieces ``j * threads + t``, j < 4,
+    each 16 values of row ``i / lanes`` from column ``(t % lanes) * 16``; a
+    row's lanes share a warp (the y shuffle), every piece of the head is held
+    once, and a thread's column is the same in every piece (its C and B)."""
+    lanes, per = N // 16, QUANT_VALUES_PER_THREAD // 16
+    threads = _quant_threads(P, N)
+    assert threads % 32 == 0 and 32 <= threads <= QUANT_THREADS and 32 % lanes == 0
+    held = np.zeros((P, N), np.int64)
+    for t in range(threads):
+        for j in range(per):
+            i = j * threads + t
+            if i >= P * lanes:
+                continue
+            r, n0 = divmod(i, lanes)
+            assert n0 * 16 == (t % lanes) * 16
+            assert (i - t % lanes) // 32 == i // 32  # the row's first lane is in this warp
+            held[r, n0 * 16:(n0 + 1) * 16] += 1
+    assert (held == 1).all()
+    if (P, N) == (64, 128):  # the flagship: 256 threads, 2 pieces each
+        assert threads == 256
+
+
+def test_quant_kernel_int4_byte_layout():
+    """The kernel packs q[2i] in byte i's low nibble and q[2i+1] in its high
+    nibble, as ``quantize_state`` (and JAX's _store_ssm) do, and reads a
+    nibble back as ``((v & 15) ^ 8) - 8`` and ``v >> 4``."""
+    s = torch.arange(-7, 9, dtype=torch.float32)[None, None, :].clamp(max=7)
+    q, scale = quantize_state(s, "int4")
+    assert float(scale) == float(torch.tensor(7.0) * torch.tensor(1 / 7, dtype=torch.float32))
+    v = q.numpy().astype(np.int32).ravel()
+    lo, hi = ((v & 15) ^ 8) - 8, v >> 4
+    np.testing.assert_array_equal(np.stack([lo, hi], -1).ravel(),
+                                  np.rint(s.numpy().ravel() / float(scale)))
 
 
 def test_f8_integer_decode_equals_torch_cast():

@@ -479,8 +479,10 @@ def test_set_storage_refuses_unknown_modes():
               device="cpu")
     with pytest.raises(ValueError):
         m.set_storage(kv="int4")
-    with pytest.raises(NotImplementedError):
-        m.set_storage(ssm="int8")
+    with pytest.raises(ValueError):
+        m.set_storage(ssm="f16")
+    for ssm in ("int8", "int4"):  # the quantized SSM states are ported
+        assert m.set_storage(ssm=ssm).storage == {"kv": None, "ssm": ssm}
     assert m.set_storage(kv="f8", ssm="bf16").storage == {"kv": "f8", "ssm": "bf16"}
 
 

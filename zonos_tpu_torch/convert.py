@@ -11,7 +11,7 @@ Layouts:
   layers stacked on axis 0, matmul weights ``[in, out]`` applied as
   ``x @ w``, ``w1`` with the up half before the gate half, embeddings
   ``[9, 1152, d]`` with zero pad rows, heads ``[d, 9*1152]``.
-- DAC (decode side): conv ``[K, C_in, C_out]`` -> torch ``[C_out, C_in, K]``;
+- DAC (encoder, quantizers, decoder): conv ``[K, C_in, C_out]`` -> torch ``[C_out, C_in, K]``;
   transposed conv ``[K, C_in, C_out]`` -> torch ``[C_in, C_out, K]`` (torch's
   transposed conv has the kernel flip the JAX version applies at call time).
 """
@@ -80,10 +80,26 @@ def _res_unit(p: dict, device) -> dict:
 
 
 def convert_dac_params(params: dict, device="cpu") -> dict:
-    """JAX DAC params (numpy leaves) -> the port's decode-side DAC params."""
-    dec = params["decoder"]
+    """JAX DAC params (numpy leaves) -> the port's DAC params: the encoder,
+    each quantizer's ``in_proj``, ``out_proj`` and codebook, and the decoder."""
+    dec, enc = params["decoder"], params["encoder"]
     f32 = lambda a: to_tensor(np.asarray(a, np.float32), device)  # noqa: E731
     return {
+        "encoder": {
+            "conv1": _conv(enc["conv1"], device),
+            "blocks": [
+                {
+                    "res1": _res_unit(b["res1"], device),
+                    "res2": _res_unit(b["res2"], device),
+                    "res3": _res_unit(b["res3"], device),
+                    "alpha": f32(b["alpha"]),
+                    "down": _conv(b["down"], device),
+                }
+                for b in enc["blocks"]
+            ],
+            "alpha": f32(enc["alpha"]),
+            "conv2": _conv(enc["conv2"], device),
+        },
         "decoder": {
             "conv1": _conv(dec["conv1"], device),
             "blocks": [
@@ -100,7 +116,8 @@ def convert_dac_params(params: dict, device="cpu") -> dict:
             "conv2": _conv(dec["conv2"], device),
         },
         "quantizers": [
-            {"out_proj": _conv(q["out_proj"], device), "codebook": f32(q["codebook"])}
+            {"in_proj": _conv(q["in_proj"], device), "out_proj": _conv(q["out_proj"], device),
+             "codebook": f32(q["codebook"])}
             for q in params["quantizers"]
         ],
     }

@@ -41,6 +41,23 @@
 //   e4m3's NaN bytes NaN.)  The store saturates (__nv_cvt_float2_to_fp8x2, SATFINITE: NaN
 //   stays NaN, as in the plain version's cast).  bf16 widens by a shift and narrows in pairs.
 //
+// int8 and int4 storage (zonos_tpu/models/hybrid.py:145-191, XLA ops around the plain step
+// there): the stored values are q * scale, one fp32 scale a (row, head).  After the step the
+// head is stored again with scale' = max(absmax(s'), 1e-20) * fp32(1/127) (int4: 1/7; XLA
+// multiplies by the constant's reciprocal where JAX writes `/ 127.0`) and
+// q = clamp(rint(s' / scale'), +-127) (+-7, a true division, rounding half to even); int4 packs
+// element 2i in the low nibble and 2i+1 in the high nibble of one byte and reads each back
+// with a sign extension.  The absmax spans the whole [P, N] head, so one CTA owns a head
+// (quant_step_kernel): each thread holds up to 4 pieces of 16 values (16 bytes in int8, 8 in
+// int4) of the new state in registers (two a thread while the CTA has at most 256 threads:
+// 256 at the flagship's P 64, N 128), the block reduces the absmax, and every thread
+// quantizes and stores its own pieces.  Every thread reads the old scale before the reduction's barrier and
+// thread 0 writes the new one after it.  s' is rounded as the plain version rounds it (each
+// product, then the sum), so q and the scale equal the plain version's bit for bit.  The
+// bytes are ~1/4 (int8) and ~1/8 (int4) of the fp32 state's, and a head is 8 KB or 4 KB at
+// the flagship's P 64, N 128: one CTA a head gives 128 CTAs at batch 1 with CFG, less than a
+// wave; wgmma, TMA and a split of the head over a cluster are later work.
+//
 // C interface (ctypes): returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -233,6 +250,147 @@ int launch(void* state, const void* C, const void* B, const void* dA, const void
   return cudaGetLastError();
 }
 
+constexpr int kQThreads = 256;  // the most a CTA takes; also kernels/ssm_state.py QUANT_THREADS
+constexpr int kQPieces = 4;     // pieces of 16 values a thread holds (QUANT_VALUES_PER_THREAD / 16)
+
+template <bool kInt4>
+struct QPiece;  // 16 stored values <-> 16 floats
+
+template <>
+struct QPiece<false> {  // int8: 16 bytes
+  static constexpr int kBytes = 16;
+  __device__ static void load(const int8_t* p, float scale, float* f) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) f[e] = __fmul_rn(static_cast<float>(b[e]), scale);
+  }
+  __device__ static void store(int8_t* p, const int* q) {
+    uint4 r;
+    int8_t* b = reinterpret_cast<int8_t*>(&r);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) b[e] = static_cast<int8_t>(q[e]);
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+};
+
+template <>
+struct QPiece<true> {  // int4: 8 bytes, element 2i in the low nibble of byte i
+  static constexpr int kBytes = 8;
+  __device__ static void load(const int8_t* p, float scale, float* f) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int v = b[k];
+      f[2 * k] = __fmul_rn(static_cast<float>(((v & 15) ^ 8) - 8), scale);  // sign-extended
+      f[2 * k + 1] = __fmul_rn(static_cast<float>(v >> 4), scale);
+    }
+  }
+  __device__ static void store(int8_t* p, const int* q) {
+    uint2 r;
+    int8_t* b = reinterpret_cast<int8_t*>(&r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) b[k] = static_cast<int8_t>((q[2 * k] & 0x0F) | (q[2 * k + 1] << 4));
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+};
+
+template <bool kInt4>
+__global__ void __launch_bounds__(kQThreads)
+quant_step_kernel(int8_t* state, float* scale, const float* __restrict__ C,
+                  const float* __restrict__ B, const float* __restrict__ dA,
+                  const float* __restrict__ xdt, float* __restrict__ y, int P, int N) {
+  using Piece = QPiece<kInt4>;
+  constexpr float kLimit = kInt4 ? 7.f : 127.f;
+  constexpr float kInvLimit = kInt4 ? 1.f / 7.f : 1.f / 127.f;  // rounded to fp32, as XLA's
+  __shared__ float warp_max[kQThreads / 32];
+
+  const int bh = blockIdx.x;
+  const int lanes_per_row = N / 16;  // a power of two, at most 32: a row's lanes share a warp
+  const int pieces = P * lanes_per_row;
+  const int n0 = (threadIdx.x % lanes_per_row) * 16;  // the same in every piece of this thread
+  int8_t* head = state + (size_t)bh * pieces * Piece::kBytes;
+  const float old_scale = scale[bh];
+  float c[16], b[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    c[e] = C[(size_t)bh * N + n0 + e];
+    b[e] = B[(size_t)bh * N + n0 + e];
+  }
+  const float da = dA[bh];
+
+  const int threads = blockDim.x;  // a multiple of 32, enough for kQPieces pieces each
+  float ns[kQPieces][16];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kQPieces; ++j) {
+    if (j * threads >= pieces) continue;  // the same in every thread of the block
+    const int i = j * threads + threadIdx.x;
+    const bool live = i < pieces;  // a dead lane still takes part in the shuffle
+    float s[16];
+    if (live) {
+      Piece::load(head + (size_t)i * Piece::kBytes, old_scale, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+    }
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) part = fmaf(s[e], c[e], part);
+    for (int off = lanes_per_row / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    const int r = i / lanes_per_row;
+    const float xv = live ? xdt[(size_t)bh * P + r] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      ns[j][e] = __fadd_rn(__fmul_rn(s[e], da), __fmul_rn(xv, b[e]));
+      if (live) amax = fmaxf(amax, fabsf(ns[j][e]));
+    }
+    if (live && n0 == 0) y[(size_t)bh * P + r] = part;
+  }
+
+  // the head's absmax: a warp's, then the block's
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = amax;
+  __syncthreads();  // also orders every thread's read of the old scale before the write below
+  amax = warp_max[0];
+  for (int w = 1; w < threads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  const float new_scale = __fmul_rn(fmaxf(amax, 1e-20f), kInvLimit);
+  if (threadIdx.x == 0) scale[bh] = new_scale;
+
+#pragma unroll
+  for (int j = 0; j < kQPieces; ++j) {
+    const int i = j * threads + threadIdx.x;
+    if (i < pieces) {
+      int q[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        q[e] = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(ns[j][e], new_scale)), -kLimit), kLimit));
+      Piece::store(head + (size_t)i * Piece::kBytes, q);
+    }
+  }
+}
+
+template <bool kInt4>
+int launch_quant(void* state, void* scale, const void* C, const void* B, const void* dA,
+                 const void* xdt, void* y, int BH, int P, int N, cudaStream_t stream) {
+  const int lanes = N / 16;
+  if (N % 16 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || P < 1 ||
+      P * N > kQThreads * kQPieces * 16)
+    return cudaErrorInvalidValue;
+  // two pieces a thread, in whole warps, up to kQThreads (then up to kQPieces a thread): at
+  // the flagship's 512 pieces 256 threads (on an H100 at 700 W, 7.2 us at BH 128 against
+  // 10.5 with 128 threads of four pieces, 25.5 against 24.0 at BH 1024; PERF.md)
+  const int pieces = P * lanes;
+  const int threads = min(kQThreads, ((pieces + 1) / 2 + 31) / 32 * 32);
+  quant_step_kernel<kInt4><<<BH, threads, 0, stream>>>(
+      static_cast<int8_t*>(state), static_cast<float*>(scale), static_cast<const float*>(C),
+      static_cast<const float*>(B), static_cast<const float*>(dA),
+      static_cast<const float*>(xdt), static_cast<float*>(y), P, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // state [BH, P, N] (dtype 0 fp32, 1 bf16, 2 f8 e4m3), updated in place; C, B [BH, N],
@@ -250,4 +408,16 @@ extern "C" int zt_ssm_state_step(void* state, const void* C, const void* B, cons
     case 2: return launch<__nv_fp8_e4m3>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// state int8 [BH, P, N] (int4 != 0: [BH, P, N / 2], two values a byte) and scale [BH] fp32,
+// both updated in place; C, B [BH, N], dA [BH], xdt [BH, P], y [BH, P]: fp32, contiguous,
+// 16-byte-aligned state.  N / 16 must be a power of two no larger than 32, and P * N at most
+// 16,384 (kernels/ssm_state.py _quant_refusal).
+extern "C" int zt_ssm_state_step_quant(void* state, void* scale, const void* C, const void* B,
+                                       const void* dA, const void* xdt, void* y, int BH, int P,
+                                       int N, int int4, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int4 ? launch_quant<true>(state, scale, C, B, dA, xdt, y, BH, P, N, s)
+              : launch_quant<false>(state, scale, C, B, dA, xdt, y, BH, P, N, s);
 }

@@ -21,6 +21,8 @@ launch_counts: dict[str, int] = {
     "snake_conv1d": 0,
     "ssd_chunked": 0,
     "fused_state_step": 0,
+    "fused_state_step_int8": 0,
+    "fused_state_step_int4": 0,
     "fused_layer_tail": 0,
     "int4_matmul": 0,
 }

@@ -1,18 +1,29 @@
-"""DAC autoencoder, decode side: codes -> 44.1 kHz waveform -> wav files
+"""DAC autoencoder: a wav file or waveform -> codes (the audio prefix of a
+voice continuation), and codes -> 44.1 kHz waveform -> wav files
 (zonos_tpu/models/dac/__init__.py).  Weights are a random init from a
 ``torch.Generator`` or come from :func:`zonos_tpu_torch.convert.convert_dac_params`."""
 
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as np
 import torch
 
-from zonos_tpu_torch.audio import fade_in_out, normalize_loudness, save_audio, trim_silence
+from zonos_tpu_torch.audio import (
+    fade_in_out,
+    load_audio,
+    normalize_loudness,
+    resample,
+    save_audio,
+    trim_silence,
+)
+from zonos_tpu_torch.audio.io import to_mono
 from zonos_tpu_torch.models.dac.codec import (
     DACConfig,
     dac_decode,
+    dac_encode,
     decoder_receptive_field_frames,
     init_dac_params,
 )
@@ -22,7 +33,7 @@ logger = logging.getLogger("zonos_tpu_torch.dac")
 
 
 class DACAutoencoder:
-    """44.1 kHz DAC decoder wrapper (fp32).  ``device`` defaults to ``"cuda"``
+    """44.1 kHz DAC codec wrapper (fp32).  ``device`` defaults to ``"cuda"``
     and raises when there is no card."""
 
     def __init__(self, params: dict | None = None, cfg: DACConfig | None = None, seed: int = 0,
@@ -38,6 +49,26 @@ class DACAutoencoder:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_dac_params(self.cfg, gen, self.device)
         self.params = params
+
+    def preprocess(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        """Resample to 44.1 kHz and left-pad with zeros to a multiple of the
+        hop (zonos_tpu/models/dac/__init__.py:76-82)."""
+        wav = resample(np.asarray(wav, np.float32), sr, self.sampling_rate)
+        left_pad = math.ceil(wav.shape[-1] / self.hop) * self.hop - wav.shape[-1]
+        return np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(left_pad, 0)])
+
+    @torch.inference_mode()
+    def encode(self, wav) -> np.ndarray:
+        """wav [B, 1, T] float32, T a multiple of the hop -> codes [B, K,
+        T/512] int64."""
+        x = torch.as_tensor(np.asarray(wav, np.float32), device=self.device).transpose(1, 2)
+        return dac_encode(self.params, self.cfg, x.contiguous()).cpu().numpy()
+
+    def load_prefix_audio(self, audio_path: str) -> np.ndarray:
+        """Read a wav file, average it to mono, ``preprocess`` and ``encode``
+        it: codes [1, K, T] for ``Zonos.generate(audio_prefix_codes=...)``."""
+        wav, sr = load_audio(audio_path)
+        return self.encode(self.preprocess(to_mono(wav), sr)[None])
 
     @torch.inference_mode()
     def decode(self, codes) -> np.ndarray:

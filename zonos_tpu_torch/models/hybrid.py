@@ -17,9 +17,14 @@ The cache is a list with one dict per layer, updated in place:
   ``pos`` a :class:`~zonos_tpu_torch.ops.attention.StepPosition` on the
   device, as in the transformer;
 - Mamba2 layer: ``{"conv"}`` ``[B, K-1, conv_dim]`` in the compute dtype and
-  ``{"ssm"}`` ``[B, H, P, N]`` in the storage dtype of the SSM-state mode
-  (fp32, bf16 or float8 e4m3); prefill replaces both (K6 on the card), a
-  decode step rewrites them (K7 writes the SSM state in place).
+  the SSM state in the storage of the SSM-state mode, as the JAX package
+  keys it: ``{"ssm"}`` ``[B, H, P, N]`` in fp32, bf16 or float8 e4m3; in
+  int8 mode ``{"ssm"}`` int8 and ``{"ssm_scale"}`` ``[B, H, 1, 1]`` fp32 (one
+  scale a row and head, absmax / 127 of each new state); in int4 mode
+  ``{"ssm_q4"}`` ``[B, H, P, N/2]`` int8, two values a byte (the +-7 grid,
+  element 2i in the low nibble), and ``{"ssm_scale"}`` (absmax / 7); prefill
+  replaces them (K6 on the card, the quantization in plain torch), a decode
+  step rewrites them (K7 writes the SSM state and its scales in place).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from zonos_tpu_torch.ops.attention import StepPosition, decode_attention, fresh_
 from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
 from zonos_tpu_torch.ops.quant import matmul_w, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
+from zonos_tpu_torch.kernels.ssm_state import dequantize_state, quantize_state
 from zonos_tpu_torch.ops.ssm import (
     causal_conv1d_prefill,
     causal_conv1d_step,
@@ -40,7 +46,8 @@ from zonos_tpu_torch.ops.ssm import (
     ssd_decode_step,
 )
 
-SSM_STATE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "f8": torch.float8_e4m3fn}
+SSM_STATE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "f8": torch.float8_e4m3fn,
+                    "int8": torch.int8, "int4": torch.int8}
 F8_STATE_FROM_ROWS = 16  # the batch-aware default: f8 from 16 CFG-doubled rows up
 
 
@@ -126,14 +133,12 @@ def ssm_state_mode(rows: int | None = None, mode: str | None = None) -> str:
     """The SSM decode-state storage mode: ``mode`` when given, else the JAX
     package's batch-aware default, f8 from 16 cache rows (CFG-doubled) up and
     fp32 below (zonos_tpu/models/hybrid.py:108-143, without its environment
-    variables)."""
+    variables).  int8 and int4 store a quarter and an eighth of the fp32
+    state's bytes, plus one fp32 scale a row and head."""
     if mode is None:
         mode = "f8" if rows is not None and rows >= F8_STATE_FROM_ROWS else "fp32"
-    if mode in ("int8", "int4"):
-        raise NotImplementedError(
-            f"the {mode} SSM state is not ported yet (ROADMAP.md: int8/int4 SSM-state modes)")
     if mode not in SSM_STATE_DTYPES:
-        raise ValueError(f"SSM state mode {mode!r}: want fp32|bf16|f8")
+        raise ValueError(f"SSM state mode {mode!r}: want fp32|bf16|f8|int8|int4")
     return mode
 
 
@@ -148,19 +153,53 @@ def create_hybrid_cache(cfg: BackboneConfig, batch: int, max_seqlen: int,
     _, aHkv, ahd, _ = _attn_dims(cfg)
     if ssm_state is None and dtype != torch.bfloat16:
         ssm_state = "fp32"
-    ssm_dtype = SSM_STATE_DTYPES[ssm_state_mode(batch, ssm_state)]
+    mode = ssm_state_mode(batch, ssm_state)
+    P = cfg.ssm_headdim
     cache = []
     for i in range(cfg.n_layer):
         if is_attn_layer(cfg, i):
             shape = (batch, aHkv, max_seqlen, ahd)
             cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+            continue
+        st = {"conv": torch.zeros((batch, K - 1, conv_dim), dtype=dtype, device=device)}
+        if mode == "int4":
+            st["ssm_q4"] = torch.zeros((batch, H, P, N // 2), dtype=torch.int8, device=device)
         else:
-            cache.append({
-                "conv": torch.zeros((batch, K - 1, conv_dim), dtype=dtype, device=device),
-                "ssm": torch.zeros((batch, H, cfg.ssm_headdim, N), dtype=ssm_dtype, device=device),
-            })
+            st["ssm"] = torch.zeros((batch, H, P, N), dtype=SSM_STATE_DTYPES[mode], device=device)
+        if mode in ("int8", "int4"):
+            st["ssm_scale"] = torch.ones((batch, H, 1, 1), dtype=torch.float32, device=device)
+        cache.append(st)
     return cache
+
+
+def _state_mode(st: dict) -> str | None:
+    """A Mamba2 layer's quantized storage, ``"int8"`` or ``"int4"``, or None."""
+    if "ssm_q4" in st:
+        return "int4"
+    return "int8" if "ssm_scale" in st else None
+
+
+def load_ssm(st: dict) -> torch.Tensor:
+    """A Mamba2 layer's stored SSM state as fp32 ``[B, H, P, N]``
+    (zonos_tpu/models/hybrid.py:155-166)."""
+    mode = _state_mode(st)
+    if mode is None:
+        return st["ssm"].float()
+    return dequantize_state(st["ssm_q4" if mode == "int4" else "ssm"], st["ssm_scale"], mode)
+
+
+def store_ssm(st: dict, s: torch.Tensor) -> None:
+    """Store the fp32 state ``s`` in the layer's storage, in place: a cast
+    (f8 saturated to +-448), or int8/int4 values and new scales
+    (zonos_tpu/models/hybrid.py:169-191)."""
+    mode = _state_mode(st)
+    if mode is None:
+        store_cast(st["ssm"], s)
+        return
+    q, scale = quantize_state(s.float(), mode)
+    st["ssm_q4" if mode == "int4" else "ssm"].copy_(q)
+    st["ssm_scale"].copy_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +238,11 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
         # prefill starts from the zero state, as the conv above does: the JAX
         # package passes its fresh cache's zeros, which K6 reads as no state
         y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, lp["D"])
-        store_cast(st["ssm"], final)
+        store_ssm(st, final)
     else:
-        y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], lp["D"], st["ssm"])
+        state = st["ssm_q4"] if "ssm_q4" in st else st["ssm"]
+        y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], lp["D"], state,
+                               st.get("ssm_scale"))
         y = y[:, None]
 
     # y is cast to the compute dtype before the gate; the mixer norm follows it

@@ -6,7 +6,8 @@ classifier-free guidance over 2B rows (dropped when ``cfg_scale == 1``),
 the delay pattern, the EOS choreography (resample once on first EOS with EOS
 banned, a 6-step silence window, staircase EOS placement), the per-sample
 repetition penalty switched off in EOS mode, per-row step limits and seeds,
-and the same output trim.
+the same output trim, and an audio prefix (DAC codes of a voice to continue)
+prefilled after the conditioning and cut from the result.
 
 The decode step is one function over tensors on the model's device, the
 counterpart of the carry of the JAX ``while_loop`` (zonos_tpu/models/tts.py
@@ -23,6 +24,11 @@ once every 32 steps.  Steps run after every row has finished are no-ops,
 because each state update is gated on a device-side ``any(remaining > 0)``;
 so the final offset, and with it the output length, is the one the JAX
 ``while_loop`` reaches.
+
+Streaming (``stream_generate_batch``) runs the same prefill and the same
+decode steps (replays on the card) in chunks of ``chunk_frames`` steps and
+vocodes each chunk's final codes with the DAC's receptive field as margin,
+so that the concatenated chunks equal the full decode of the same codes.
 """
 
 from __future__ import annotations
@@ -177,6 +183,7 @@ class Zonos:
         self.storage = {"kv": None, "ssm": None}
         # the last generate's decode: steps run, CUDA graphs captured, capture seconds
         self.decode_stats: dict | None = None
+        self._autoencoder = None
 
     def init_params(self, seed: int, dtype=torch.bfloat16) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -193,6 +200,18 @@ class Zonos:
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.params["embeddings"].dtype
+
+    @property
+    def autoencoder(self):
+        """The DAC codec on the model's device, built at first use with random
+        weights from seed 0 (zonos_tpu/models/tts.py:493-498, whose
+        checkpoint loading is not ported yet); set ``_autoencoder`` to use
+        another."""
+        if self._autoencoder is None:
+            from zonos_tpu_torch.models.dac import DACAutoencoder
+
+            self._autoencoder = DACAutoencoder(device=self.device)
+        return self._autoencoder
 
     # -- serving modes ---------------------------------------------------
     def quantize_int8(self) -> "Zonos":
@@ -237,8 +256,8 @@ class Zonos:
         """Cache storage of later ``generate`` calls, the counterpart of
         zonos_tpu/utils/quant_env.py ``set_storage_env``: ``kv`` None (the
         compute dtype), ``"f8"`` or ``"int8"`` for the transformer's KV cache;
-        ``ssm`` None (the batch-aware default), ``"fp32"``, ``"bf16"`` or
-        ``"f8"`` for the hybrid's SSM state.  The hybrid's attention layers
+        ``ssm`` None (the batch-aware default), ``"fp32"``, ``"bf16"``,
+        ``"f8"``, ``"int8"`` or ``"int4"`` for the hybrid's SSM state.  The hybrid's attention layers
         keep their KV cache in the compute dtype whatever ``kv`` says."""
         if kv is not None and kv not in KV_STORAGE:
             raise ValueError(f"KV cache storage {kv!r}: want None|f8|int8")
@@ -281,6 +300,7 @@ class Zonos:
     def generate(
         self,
         prefix_conditioning: torch.Tensor,  # [2B, cond_len, d_model]
+        audio_prefix_codes: np.ndarray | torch.Tensor | None = None,  # [B, K, P]
         max_new_tokens: int = 86 * 30,
         cfg_scale: float = 2.0,
         batch_size: int = 1,
@@ -289,41 +309,206 @@ class Zonos:
         step_limits: np.ndarray | list[int] | int | None = None,
     ) -> list[np.ndarray]:
         """Sample DAC codes; returns a list of per-sample [K, T_i] int arrays
-        (EOS-trimmed).  ``step_limits`` caps new frames per sample (or for
-        all); ``seed`` is a scalar or one seed per sample.  On the card the
-        decode steps are CUDA-graph replays."""
+        (EOS-trimmed, the audio prefix cut off).  ``audio_prefix_codes``
+        [B, K, P] (``DACAutoencoder.load_prefix_audio``) are prefilled after
+        the conditioning and continued.  ``step_limits`` caps new frames per
+        sample (or for all); ``seed`` is a scalar or one seed per sample.  On
+        the card the decode steps are CUDA-graph replays."""
         return self._generate(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
                               sampling_params, seed, step_limits,
-                              graphs=self.device.type == "cuda")
+                              graphs=self.device.type == "cuda",
+                              audio_prefix_codes=audio_prefix_codes)
 
     @torch.inference_mode()
     def _generate(self, prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                  sampling_params, seed, step_limits, graphs: bool) -> list[np.ndarray]:
+                  sampling_params, seed, step_limits, graphs: bool,
+                  audio_prefix_codes=None) -> list[np.ndarray]:
         """``generate``; ``graphs`` False runs every decode step eagerly (on
         the card too: what the graphs are held against)."""
         run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                            sampling_params, seed, step_limits)
+                            sampling_params, seed, step_limits, audio_prefix_codes)
         step_graphs = _StepGraphs(self, run) if graphs else None
         steps = 0
         for step in range(run.max_steps):
             if step and step % SYNC_INTERVAL == 0 and int(run.state.remaining.max()) <= 0:
                 break
-            band = band_of(run.pos0 + step + 1)  # the attended length; the device holds it too
-            if step_graphs is None:
-                self._decode_step(run, band)
-            else:
-                step_graphs.step(band)
+            self._step(run, step_graphs, step)
             steps += 1
+        self._record_stats(steps, step_graphs)
+        return self._trim(run.delayed.cpu().numpy(), int(run.offset), step_limits,
+                          run.prefix_audio_len)
+
+    def stream_generate(
+        self,
+        prefix_conditioning: torch.Tensor,  # [2, cond_len, d_model] (batch 1)
+        audio_prefix_codes: np.ndarray | torch.Tensor | None = None,
+        max_new_tokens: int = 86 * 30,
+        cfg_scale: float = 2.0,
+        sampling_params: dict | SamplingParams | None = None,
+        seed=423,
+        chunk_frames: int = 43,
+        margin_frames: int = 32,
+    ):
+        """Streaming synthesis at batch 1: yields float32 waveform chunks
+        (44.1 kHz, [samples]) while the decode runs.  Each sample is final:
+        the concatenation equals the full decode of the same codes, as
+        :meth:`stream_generate_batch` says (zonos_tpu/models/tts.py:754-800)."""
+        if prefix_conditioning.shape[0] != 2:
+            raise ValueError("stream_generate supports batch_size=1 only")
+        for events in self.stream_generate_batch(
+                prefix_conditioning, audio_prefix_codes=audio_prefix_codes,
+                max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+                sampling_params=sampling_params, seed=seed, chunk_frames=chunk_frames,
+                margin_frames=margin_frames, batch_size=1):
+            for _row, chunk in events:
+                yield chunk
+
+    def stream_generate_batch(
+        self,
+        prefix_conditioning: torch.Tensor,  # [2B, cond_len, d_model]
+        audio_prefix_codes: np.ndarray | torch.Tensor | None = None,
+        max_new_tokens: int = 86 * 30,
+        cfg_scale: float = 2.0,
+        sampling_params: dict | SamplingParams | None = None,
+        seed=423,
+        chunk_frames: int = 43,
+        margin_frames: int = 32,
+        batch_size: int = 1,
+        step_limits=None,
+        active_rows=None,
+    ):
+        """Batched streaming synthesis (zonos_tpu/models/tts.py:802-986): the B
+        rows ride one decode; after each chunk of ``chunk_frames`` steps this
+        yields a list of ``(row, waveform_chunk)`` events.  A row stops
+        yielding at its EOS or its ``step_limits`` cap, as ``generate`` ends
+        it.
+
+        Steady chunks are vocoded together from a window with at least
+        ``margin_frames`` of real codes on each side of the emitted part,
+        which makes them final iff the margin covers the DAC decoder's
+        receptive half-width (``autoencoder.receptive_field_frames``; a
+        smaller margin raises ``ValueError``).  A row's last chunk is vocoded
+        on exactly its own codes, so each row's chunks concatenate to the
+        full decode of its codes.  A window's start is pulled down so its
+        width is a multiple of 32 frames, as JAX buckets it.  ``active_rows``
+        [B] bool: False rows (padding) yield nothing and are not vocoded.
+        The decode steps are CUDA-graph replays on the card, as in
+        ``generate``; the host reads the codes once a chunk."""
+        if prefix_conditioning.shape[0] != 2 * batch_size:
+            raise ValueError(f"prefix_conditioning rows ({prefix_conditioning.shape[0]}) "
+                             f"!= 2*batch_size ({2 * batch_size})")
+        rf = self.autoencoder.receptive_field_frames
+        if margin_frames < rf:
+            raise ValueError(f"margin_frames={margin_frames} is below the DAC decoder's receptive "
+                             f"half-width ({rf} frames): emitted chunks would not be final")
+        with torch.inference_mode():
+            run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
+                                sampling_params, seed, step_limits, audio_prefix_codes)
+        step_graphs = _StepGraphs(self, run) if self.device.type == "cuda" else None
+        K, B, P = self.config.num_codebooks, batch_size, run.prefix_audio_len
+        hop = self.autoencoder.hop
+        limits = (None if step_limits is None
+                  else np.broadcast_to(np.asarray(step_limits, np.int64), (B,)))
+        emitted = np.zeros((B,), np.int64)  # frames emitted, after the prefix
+        ends = np.full((B,), -1, np.int64)  # a row's final length once known
+        row_done = (np.zeros((B,), bool) if active_rows is None
+                    else ~np.asarray(active_rows, bool))
+
+        def finalized_codes() -> np.ndarray:
+            """[B, K, avail] final codes after the prefix (masked ids zeroed),
+            and each row's end once its EOS or its limit is among them."""
+            out = revert_delay_pattern(run.delayed.cpu().numpy())[:, :, :int(run.offset) - K]
+            is_eos = out[:, 0, P:] == self.eos_token_id
+            avail_now = is_eos.shape[1]
+            pos = np.zeros((B,), np.int64) if avail_now == 0 else is_eos.argmax(axis=1)
+            for i in range(B):
+                if ends[i] >= 0:
+                    continue
+                # a first EOS at frame 0 (or none) means full length: the end stays open
+                cand = int(pos[i]) if (is_eos[i].any() and pos[i] > 0) else None
+                if limits is not None:
+                    lim = int(limits[i])
+                    if cand is None or cand > lim:
+                        cand = lim if avail_now >= lim else None
+                if cand is not None:
+                    ends[i] = cand
+            out = np.where(out >= self.config.codebook_size, 0, out)
+            return out[:, :, P:]
+
+        def decode_rows(codes_w: np.ndarray) -> np.ndarray:
+            return self.autoencoder.decode(codes_w)[:, 0]  # [R, samples]
+
+        def bucket_w0(w0: int, hi: int) -> int:
+            """Pull the window's start down to a width of a multiple of 32
+            frames; more left context only brings it closer to the full decode."""
+            width = -(-(hi - w0) // 32) * 32
+            return max(0, hi - width)
+
+        step = 0
+        done = False
+        while not done:
+            with torch.inference_mode():
+                for _ in range(min(chunk_frames, run.max_steps - step)):
+                    self._step(run, step_graphs, step)
+                    step += 1
+            done = step >= run.max_steps or int(run.state.remaining.max()) <= 0
+            codes = finalized_codes()
+            avail = codes.shape[2]
+            if done:
+                for i in range(B):
+                    if ends[i] < 0:
+                        ends[i] = avail if limits is None else min(avail, limits[i])
+            hi_steady = avail if done else avail - margin_frames
+            events: list[tuple[int, np.ndarray]] = []
+            steady: list[int] = []
+            for i in range(B):
+                if row_done[i]:
+                    continue
+                if ends[i] >= 0:
+                    # the end is known, so the rest of the row is final: vocode it on the row's
+                    # exact codes
+                    lo = int(emitted[i])
+                    if ends[i] > lo:
+                        w0 = bucket_w0(max(0, lo - margin_frames), int(ends[i]))
+                        wav = decode_rows(codes[i:i + 1, :, w0:ends[i]])[0]
+                        events.append((i, wav[(lo - w0) * hop:(ends[i] - w0) * hop]))
+                        emitted[i] = ends[i]
+                    row_done[i] = True
+                elif hi_steady > emitted[i]:
+                    steady.append(i)
+            if steady:
+                w0 = bucket_w0(max(0, int(min(emitted[i] for i in steady)) - margin_frames),
+                               avail)
+                wavs = decode_rows(codes[steady, :, w0:avail])
+                for j, i in enumerate(steady):
+                    lo = int(emitted[i])
+                    events.append((i, wavs[j, (lo - w0) * hop:(hi_steady - w0) * hop]))
+                    emitted[i] = hi_steady
+            self._record_stats(step, step_graphs)
+            if events:
+                yield events
+            if row_done.all():
+                break
+
+    def _step(self, run: "_DecodeRun", step_graphs: "_StepGraphs | None", step: int) -> None:
+        """Decode step ``step`` of ``run``: eagerly, or as a graph replay."""
+        band = band_of(run.pos0 + step + 1)  # the attended length; the device holds it too
+        if step_graphs is None:
+            self._decode_step(run, band)
+        else:
+            step_graphs.step(band)
+
+    def _record_stats(self, steps: int, step_graphs: "_StepGraphs | None") -> None:
         self.decode_stats = {"steps": steps, "graphs": 0, "capture_s": 0.0}
         if step_graphs is not None:
             self.decode_stats.update(graphs=len(step_graphs.graphs),
                                      capture_s=step_graphs.capture_s)
-        return self._trim(run.delayed.cpu().numpy(), int(run.offset), step_limits)
 
     def _prefill(self, prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                 sampling_params, seed, step_limits) -> "_DecodeRun":
-        """Everything before the first decode step: the cache, the prefill and
-        its sampled frame, and the decode loop's state on the device."""
+                 sampling_params, seed, step_limits, audio_prefix_codes=None) -> "_DecodeRun":
+        """Everything before the first decode step: the cache, the prefill over
+        the conditioning, the delayed audio prefix and the first column, its
+        sampled frame, and the decode loop's state on the device."""
         cfg = self.config
         K = cfg.num_codebooks
         eos_id, mask_id = cfg.eos_token_id, cfg.masked_token_id
@@ -342,11 +527,21 @@ class Zonos:
         params, bp = self.params, self.params["backbone"]
         dev = self.device
 
+        prefix_audio_len = 0
+        if audio_prefix_codes is not None:
+            audio_prefix_codes = (audio_prefix_codes.to(torch.int64)
+                                  if isinstance(audio_prefix_codes, torch.Tensor)
+                                  else torch.as_tensor(np.asarray(audio_prefix_codes),
+                                                       dtype=torch.int64))
+            if audio_prefix_codes.dim() != 3 or audio_prefix_codes.shape[:2] != (B, K):
+                raise ValueError(f"audio_prefix_codes of shape {tuple(audio_prefix_codes.shape)}, "
+                                 f"expected [{B}, {K}, P]")
+            prefix_audio_len = audio_prefix_codes.shape[2]
         cond_len = prefix.shape[1]
-        audio_len = max_new_tokens
+        audio_len = prefix_audio_len + max_new_tokens
         total_seq = find_multiple(cond_len + audio_len + K, 64)
         window = max(sampling.repetition_penalty_window, 1)
-        prefill_len = 1
+        prefill_len = prefix_audio_len + 1
         # one cache row per backbone row: 2B with CFG, B without
         cache = self.backbone.make_cache(cfg.backbone, prefix.shape[0], total_seq,
                                          self.compute_dtype, dev, **self.storage)
@@ -355,9 +550,11 @@ class Zonos:
         sampled = sampling.temperature > 0
 
         codes = torch.full((B, K, audio_len), UNKNOWN_TOKEN, dtype=torch.int64, device=dev)
+        if prefix_audio_len:
+            codes[..., :prefix_audio_len] = audio_prefix_codes.to(dev)
         delayed = apply_delay_pattern(codes, mask_id)  # [B, K, audio_len + K]
 
-        # ---- prefill over the text prefix + the first delayed frame -------
+        # ---- prefill over the text prefix + the delayed audio prefix -------
         audio_embeds = embed_codes(params, delayed[..., :prefill_len])
         if use_cfg:
             audio_embeds = audio_embeds.repeat(2, 1, 1)
@@ -396,7 +593,8 @@ class Zonos:
             draws=torch.arange(STEP_DRAWS, dtype=torch.int64, device=dev),
             bias=bias, window_cols=torch.arange(min(window, delayed.shape[2]), device=dev),
             penalty=scalar(sampling.repetition_penalty), one=scalar(1.0),
-            pos0=cond_len + prefill_len, prefill_len=prefill_len, window=window,
+            pos0=cond_len + prefill_len, prefill_len=prefill_len,
+            prefix_audio_len=prefix_audio_len, window=window,
             max_steps=max_steps, cfg_scale=cfg_scale, use_cfg=use_cfg, sampling=sampling)
 
     def _decode_step(self, run: "_DecodeRun", band: Band) -> None:
@@ -440,9 +638,10 @@ class Zonos:
         run.offset.add_(active.to(run.offset.dtype))
         run.step.add_(1)
 
-    def _trim(self, delayed: np.ndarray, offset: int, step_limits) -> list[np.ndarray]:
+    def _trim(self, delayed: np.ndarray, offset: int, step_limits,
+              prefix_audio_len: int = 0) -> list[np.ndarray]:
         """Revert the delay, cut at ``offset - K``, then per sample at the first
-        codebook-0 EOS and at its step limit."""
+        codebook-0 EOS and at its step limit, and cut the audio prefix off."""
         K = self.config.num_codebooks
         out = revert_delay_pattern(delayed)
         # first EOS per sample in codebook 0; 0 (no hit, or a hit at frame 0)
@@ -457,8 +656,8 @@ class Zonos:
         for i in range(out.shape[0]):
             end = min(int(eos_pos[i]), out.shape[2])
             if limits is not None:
-                end = min(end, int(limits[i]))
-            results.append(out[i, :, :end].copy())
+                end = min(end, prefix_audio_len + int(limits[i]))
+            results.append(out[i, :, prefix_audio_len:end].copy())
         return results
 
 
@@ -481,7 +680,8 @@ class _DecodeRun:
     penalty: torch.Tensor  # fp32 0-d: the repetition penalty
     one: torch.Tensor  # fp32 0-d 1.0: the penalty in EOS mode
     pos0: int  # cache row of the first decode step
-    prefill_len: int
+    prefill_len: int  # the audio prefix's frames and the first column
+    prefix_audio_len: int
     window: int
     max_steps: int
     cfg_scale: float

@@ -8,8 +8,8 @@ zonos_tpu/ops/ssm.py:31-254).
 - :func:`ssd_decode_step`: one recurrence step with JAX's algebra, the
   output from the OLD state, ``y = dA (C.s) + (B.C) dt x + D x``; K7
   (``kernels/ssm_state.py``) supplies ``C.s`` and writes the new state in
-  place in its storage dtype where it takes the state's width, its plain
-  version otherwise.
+  place in its storage dtype (and an int8 or int4 state's scales) where it
+  takes the state's width, its plain version otherwise.
 - :func:`causal_conv1d_prefill` / :func:`causal_conv1d_step`: the depthwise
   causal conv and its streaming state (the tail of the padded pre-activation
   input), as plain tensor code.
@@ -40,19 +40,21 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
 
 
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                    Cm: torch.Tensor, D: torch.Tensor, state: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    Cm: torch.Tensor, D: torch.Tensor, state: torch.Tensor,
+                    scale: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, H, P], dt [B, H], A [H], B/C [B, G, N], D [H] fp32; state
-    [B, H, P, N] in its storage dtype, updated in place.  Returns
-    (y [B, H, P] fp32, state)."""
+    [B, H, P, N] in its storage dtype (int4: [B, H, P, N/2] packed), updated
+    in place, and for an int8 or int4 state its ``scale`` [B, H, 1, 1] fp32,
+    updated in place too.  Returns (y [B, H, P] fp32, state)."""
     Bsz, H, P = x.shape
-    N = state.shape[-1]
     Bh = Bm.repeat_interleave(H // Bm.shape[1], dim=1)  # [B, H, N]
     Ch = Cm.repeat_interleave(H // Cm.shape[1], dim=1)
     dA = torch.exp(dt * A[None, :])  # [B, H]
     xdt = x * dt[..., None]  # [B, H, P]
-    args = (state.view(Bsz * H, P, N), Ch.reshape(Bsz * H, N), Bh.reshape(Bsz * H, N),
-            dA.reshape(Bsz * H, 1), xdt.reshape(Bsz * H, P))
+    N = Bh.shape[-1]
+    args = (state.view(Bsz * H, P, state.shape[-1]), Ch.reshape(Bsz * H, N),
+            Bh.reshape(Bsz * H, N), dA.reshape(Bsz * H, 1), xdt.reshape(Bsz * H, P),
+            None if scale is None else scale.view(Bsz * H))
     step = (ssm_state.fused_state_step if ssm_state.kernel_takes(*args)
             else ssm_state.fused_state_step_plain)
     y_state, _ = step(*args)
