@@ -51,6 +51,26 @@ Phases, each of which fails the run (non-zero exit) on error:
      ``stream_generate_batch`` at batch 4, 260 frames: codes equal to
      ``generate``'s, each row's chunks within 1e-4 x max|full| of the full
      decode; the time to first audio.
+   - checkpoint transformer / checkpoint hybrid: each in-memory flagship
+     exported by ``export_zonos_checkpoint`` into a temporary models
+     directory and read back by ``Zonos.from_pretrained``: every leaf equal
+     bit for bit (the fp32 leaves rounded to bf16, the vocabulary's pad rows
+     zero), a 130-token greedy generate's codes equal bit for bit; the
+     file's GB, the write and load seconds, the load's peak device memory;
+     K2 (and K6, K7 on the hybrid);
+   - speaker: a ResNet293 and an LDA ``.pt`` in the reference's key names
+     (random, from a seed) in that directory; ``make_speaker_embedding`` of
+     a 10-s clip on the card within 1e-3 x max|ref| of the CPU path; the
+     tower's device ms and warm wall at 3 and 10 s beside its FLOPs and
+     fp32 bound;
+   - quickstart: the README's quick start with every file from that
+     directory (``from_pretrained``, ``load_audio``,
+     ``make_speaker_embedding``, ``make_cond_dict``, ``generate`` of 260
+     frames with EOS banned, ``autoencoder.save_codes`` with the DAC read
+     from an HF-named ``descript/dac_44khz/model.safetensors``); K1, K2, K3,
+     K5; the wall of each step;
+   - ecapa: ECAPA-TDNN at C 1024 on a 3-s mel, the card within 1e-3 x
+     max|ref| of the CPU.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
    loop and the CUDA graphs on one batch-1 generate (470 new tokens, through
    all three bands of cache lengths; 130 on the hybrid int4), same seed, EOS
@@ -91,6 +111,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -1617,6 +1638,376 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: reference checkpoints and voice cloning
+# ---------------------------------------------------------------------------
+
+REPOS = {"transformer": "Zyphra/Zonos-v0.1-transformer", "hybrid": "Zyphra/Zonos-v0.1-hybrid"}
+CHECKPOINT_NEW_TOKENS = 130  # [checkpoint ...]: the greedy generate held bit for bit
+# greedy decoding takes the argmax in plain torch: no K3 there
+CHECKPOINT_KERNELS = {"transformer": ("decode_attention_single",),
+                      "hybrid": ("decode_attention_single", "ssd_chunked", "fused_state_step")}
+QUICKSTART_KERNELS = TRANSFORMER_KERNELS  # K1, K2, K3 and K5 (260 frames pass 256 cache rows)
+QUICKSTART_TEXT = "Hello, world! This is a test of the Zonos text to speech model."
+SPEAKER_SECONDS = (3, 10)  # [speaker]: the tower timed at these clip lengths; 10 s is embedded
+SPEAKER_SEED, DAC_FILE_SEED, ECAPA_SEED = 4321, 8765, 2468
+
+
+@contextlib.contextmanager
+def temporary_models_dir():
+    """A temporary local models directory, ``ZONOS_TPU_MODELS_DIR`` pointed at
+    it while the block runs and restored after."""
+    old = os.environ.get("ZONOS_TPU_MODELS_DIR")
+    with tempfile.TemporaryDirectory() as path:
+        os.environ["ZONOS_TPU_MODELS_DIR"] = path
+        try:
+            yield path
+        finally:
+            if old is None:
+                os.environ.pop("ZONOS_TPU_MODELS_DIR")
+            else:
+                os.environ["ZONOS_TPU_MODELS_DIR"] = old
+
+
+def bf16_reference(model):
+    """The in-memory model as a bf16 file holds it: its fp32 leaves (the
+    Fourier features; the hybrid's A_log, D, dt_bias) rounded to bf16, as the
+    loader casts every leaf; the bf16 tensors themselves shared, not copied."""
+    import torch
+
+    from zonos_tpu_torch import Zonos
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [cast(v) for v in tree]
+        return tree.to(torch.bfloat16)
+
+    return Zonos(model.config, params=cast(model.params), device="cuda")
+
+
+def check_loaded_leaves(tag: str, kind: str, ref, loaded) -> int:
+    """Every leaf of ``loaded`` equals ``ref``'s bit for bit, the
+    embeddings' and heads' pad rows past the reference's zero."""
+    import torch
+
+    cfg = ref.config
+    Vp, Vi, Vo = cfg.padded_vocab_size, cfg.input_vocab_size, cfg.output_vocab_size
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                fail(f"{tag} leaves {sorted(set(a) ^ set(b))} at {path} differ")
+            return sum(walk(a[k], b[k], f"{path}/{k}") for k in a)
+        if isinstance(a, (list, tuple)):
+            return sum(walk(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(a, b)))
+        if b.dtype != torch.bfloat16 or a.shape != b.shape:
+            fail(f"{tag} {path}: loaded {b.dtype} {tuple(b.shape)}, expected bf16 {tuple(a.shape)}")
+        if path == "/embeddings":
+            a, b, pad = a[:, :Vi], b[:, :Vi], b[:, Vi:]
+        elif path == "/heads":
+            cols = (torch.arange(b.shape[1], device=b.device) % Vp) < Vo
+            a, b, pad = a[:, cols], b[:, cols], b[:, ~cols]
+        else:
+            pad = None
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f"{tag} {path}: the loaded leaf differs from the in-memory model's")
+        if pad is not None and pad.count_nonzero().item():
+            fail(f"{tag} {path}: the vocabulary's pad rows are not zero")
+        return 1
+
+    return walk(ref.params, loaded.params, "")
+
+
+def phase_checkpoint(card: str, kind: str, model, models_dir: str) -> dict:
+    """``[checkpoint kind]``: the in-memory flagship exported with
+    ``export_zonos_checkpoint`` into ``models_dir`` as the reference's repo
+    (``config.json``, ``model.safetensors`` in bf16) and read back by
+    ``Zonos.from_pretrained``: every leaf equal to the in-memory model's
+    (its fp32 leaves rounded to bf16) bit for bit, and a 130-token greedy
+    generate's codes equal bit for bit; with the launch counts of the loaded
+    model's generate.  Prints the file's size, the write and load seconds and
+    the peak device memory during the load."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch import Zonos, export_zonos_checkpoint, make_cond_dict
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    tag = f"[checkpoint {kind}]"
+    ref = bf16_reference(model)
+    out = os.path.join(models_dir, REPOS[kind])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = export_zonos_checkpoint(ref.config, ref.params, out)
+    t_write = time.perf_counter() - t0
+    gb = os.path.getsize(path) / 1e9
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded = Zonos.from_pretrained(REPOS[kind], device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    params_gb = sum(t.numel() * t.element_size() for t in _leaves(loaded.params)) / 1e9
+    n = check_loaded_leaves(tag, kind, ref, loaded)
+
+    prefix = ref.prepare_conditioning(make_cond_dict(text=TEXTS[0], speaker=None))
+    if not torch.equal(prefix, loaded.prepare_conditioning(make_cond_dict(text=TEXTS[0],
+                                                                          speaker=None))):
+        fail(f"{tag} the loaded model's conditioning differs from the in-memory model's")
+    greedy = SamplingParams.greedy()
+    want = ref.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy)[0]
+    reset_launch_counts()
+    got = loaded.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy)[0]
+    counts = dict(launch_counts)
+    check_replayed(tag, loaded.decode_stats)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"{tag} the loaded model's greedy codes differ from the in-memory model's")
+    for name in CHECKPOINT_KERNELS[kind]:
+        if counts[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched by the loaded model's generate")
+    print(f"{tag} {gb:.3f} GB written in {t_write:.1f} s, read by from_pretrained in "
+          f"{t_load:.1f} s (file warm in the page cache); peak device memory of the load "
+          f"{peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held before, for {params_gb:.3f} GB "
+          f"of parameters; {n} leaves equal bit for bit; greedy codes of {CHECKPOINT_NEW_TOKENS} "
+          f"new tokens equal bit for bit ({got.shape[1]} frames); launches {counts} ({card})",
+          flush=True)
+    del loaded, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tone_clip(seconds: float, rate: int, seed: int):
+    """A 220-Hz tone plus noise, [1, samples] float32."""
+    import numpy as np
+
+    t = np.arange(int(seconds * rate)) / rate
+    noise = np.random.default_rng(seed).normal(size=t.shape)
+    return (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * noise).astype(np.float32)[None]
+
+
+def speaker_tower_flops(frames: int, in_planes: int = 64, blocks=(10, 20, 64, 3),
+                        acoustic_dim: int = 80, embd_dim: int = 256) -> float:
+    """The ResNet293 tower's multiply-adds x 2 on ``frames`` mel frames (the
+    convolutions, the pooling's projections and the bottleneck)."""
+    H, W = acoustic_dim, frames
+    flops = 2.0 * 9 * in_planes * H * W  # stem
+    cin = in_planes
+    for stage_idx, n in enumerate(blocks):
+        cout = in_planes * 2**stage_idx
+        for b in range(n):
+            stride = (1 if stage_idx == 0 else 2) if b == 0 else 1
+            if stride == 2:
+                H, W = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+            flops += 2.0 * 9 * (cin + cout) * cout * H * W
+            if stride != 1 or cin != cout:
+                flops += 2.0 * cin * cout * H * W
+            cin = cout
+    feat = cin * H
+    return flops + 2.0 * W * feat * 128 * 2 + 2.0 * 2 * feat * embd_dim
+
+
+def phase_speaker(card: str, model, models_dir: str) -> None:
+    """``[speaker]``: a ResNet293 tower and an LDA head in the reference's
+    key names (random weights and BatchNorm statistics from a seed) written
+    as ``.pt`` files into ``models_dir``; ``model.make_speaker_embedding`` of
+    a 10-s clip at 24 kHz on the card against the port's CPU path on the same
+    files (within 1e-3 x max|ref|); the tower's warm wall and device ms at 3
+    and 10 s beside its FLOPs and the bound they give at the fp32 rate."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.models.speaker import (
+        LDA_FILE,
+        SPEAKER_REPO,
+        TOWER_FILE,
+        SpeakerEmbeddingLDA,
+    )
+    from zonos_tpu_torch.models.speaker.convert import random_reference_state_dicts
+    from zonos_tpu_torch.models.speaker.resnet import speaker_embed_forward
+
+    tag = "[speaker]"
+    sd, lda = random_reference_state_dicts(torch.Generator().manual_seed(SPEAKER_SEED))
+    repo = os.path.join(models_dir, SPEAKER_REPO)
+    os.makedirs(repo, exist_ok=True)
+    torch.save(sd, os.path.join(repo, TOWER_FILE))
+    torch.save(lda, os.path.join(repo, LDA_FILE))
+    wav = tone_clip(SPEAKER_SECONDS[-1], 24000, SPEAKER_SEED)
+    t0 = time.perf_counter()
+    got = model.make_speaker_embedding(wav, 24000)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = model.make_speaker_embedding(wav, 24000)
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = SpeakerEmbeddingLDA(device="cpu")(wav, 24000)[1].reshape(1, 1, -1)
+    t_cpu = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    if got.shape != (1, 1, 128) or got.dtype != np.float32 or not np.isfinite(got).all():
+        fail(f"{tag} embedding of shape {got.shape}, dtype {got.dtype}")
+    if not np.array_equal(got, again):
+        fail(f"{tag} two embeddings of one clip differ")
+    if not err <= 1e-3 * np.abs(want).max():
+        fail(f"{tag} the card's embedding is {err:.3g} from the CPU path's "
+             f"(tolerance 1e-3 x {np.abs(want).max():.3g})")
+    print(f"{tag} make_speaker_embedding of a {SPEAKER_SECONDS[-1]}-s clip at 24 kHz: [1, 1, 128] "
+          f"float32, max abs err {err:.3g} against the port's CPU path on the same files "
+          f"(tolerance 1e-3 x {np.abs(want).max():.3g}); wall {t_first:.2f} s the first time "
+          f"(files read, tower moved to the card), {t_warm:.3f} s warm, {t_cpu:.1f} s on the "
+          f"CPU ({card})", flush=True)
+    tower = model._spk_tower.model
+    for seconds in SPEAKER_SECONDS:
+        clip = tone_clip(seconds, 24000, SPEAKER_SEED)
+        t0 = time.perf_counter()
+        mel = tower.mel(clip, 24000)
+        t_mel = time.perf_counter() - t0
+        with torch.inference_mode():
+            ms, _ = device_ms(lambda: speaker_embed_forward(tower.params, mel), calls=3, reps=5,
+                              warmup=2)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                speaker_embed_forward(tower.params, mel)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        frames = mel.shape[-1]
+        flops = speaker_tower_flops(frames)
+        bound = flops / FP32_FLOPS_PER_S * 1e3
+        print(f"{tag} tower at {seconds} s ({frames} frames): {ms:.2f} device ms a call, warm "
+              f"wall {statistics.median(walls) * 1e3:.2f} ms (median of 3); mel on the host "
+              f"{t_mel * 1e3:.1f} ms; {flops / 1e12:.3f} TFLOP, bound {bound:.2f} ms at the fp32 "
+              f"rate (cuDNN fp32 convolutions, no port kernel; {card})", flush=True)
+
+
+def phase_quickstart(card: str, models_dir: str) -> dict:
+    """``[quickstart]``: the README's quick start through the port with every
+    file from ``models_dir``: ``from_pretrained`` on the transformer,
+    ``load_audio`` of a wav written here, ``make_speaker_embedding``,
+    ``make_cond_dict(text, speaker, language="en-us")``, ``generate`` (default
+    sampling, 260 frames, EOS banned) and ``autoencoder.save_codes``, the DAC
+    read from an HF-named ``descript/dac_44khz/model.safetensors`` (weight_g
+    / weight_v, written from a seed).  The launch counts are zeroed before
+    and read after the chain: K1, K2, K3 and K5 must have launched."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from zonos_tpu_torch import Zonos, load_audio, make_cond_dict
+    from zonos_tpu_torch.audio import save_audio
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.models.dac.codec import DACConfig, init_dac_params
+    from zonos_tpu_torch.models.dac.convert import export_dac_state_dict
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.utils.checkpoint import save_safetensors
+
+    tag = "[quickstart]"
+    dac_params = init_dac_params(DACConfig(), torch.Generator().manual_seed(DAC_FILE_SEED))
+    sd = export_dac_state_dict(dac_params, torch.Generator().manual_seed(DAC_FILE_SEED))
+    os.makedirs(os.path.join(models_dir, "descript", "dac_44khz"), exist_ok=True)
+    save_safetensors(os.path.join(models_dir, "descript", "dac_44khz", "model.safetensors"), sd)
+    voice = os.path.join(models_dir, "voice.wav")
+    save_audio(voice, tone_clip(SPEAKER_SECONDS[-1], 24000, SPEAKER_SEED + 1)[0], 24000)
+    walls = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    reset_launch_counts()
+    model = step("from_pretrained", lambda: Zonos.from_pretrained(REPOS["transformer"]))
+    wav, sr = step("load_audio", lambda: load_audio(voice))
+    speaker = step("make_speaker_embedding", lambda: model.make_speaker_embedding(wav, sr))
+    cond = step("make_cond_dict", lambda: make_cond_dict(text=QUICKSTART_TEXT, speaker=speaker,
+                                                         language="en-us"))
+    prefix = step("prepare_conditioning", lambda: model.prepare_conditioning(cond))
+    codes = step("generate", lambda: model.generate(
+        prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, sampling_params=SamplingParams(ban_eos=True)))
+    out = os.path.join(models_dir, "sample.wav")
+    step("save_codes", lambda: model.autoencoder.save_codes([out], codes))
+    counts = dict(launch_counts)
+    check_replayed(tag, model.decode_stats)
+    c = codes[0]
+    if c.shape[0] != 9 or not 1 <= c.shape[1] <= TRANSFORMER_NEW_TOKENS or c.min() < 0 or \
+            c.max() >= 1024:
+        fail(f"{tag} codes of shape {c.shape}, range {c.min()}..{c.max()}")
+    dac = model.autoencoder
+    written = _flat(dac_params)
+    dac_err = max(((a - written[k].cuda()).abs().max() / written[k].abs().max().clamp_min(1e-12))
+                  .item() for k, a in _flat(dac.params).items())
+    if not dac_err <= 1e-5:  # weight norm folded back: g v / ||v|| within rounding of w
+        fail(f"{tag} the DAC read from the models directory is {dac_err:.3g} (relative) from "
+             f"the one written there")
+    decoded = dac.decode(c[None])
+    sr_out, data = wavfile.read(out)
+    if decoded.shape != (1, 1, c.shape[1] * 512) or sr_out != 44100 or data.size == 0 or \
+            data.size > c.shape[1] * 512 or not np.isfinite(decoded).all():
+        fail(f"{tag} decode {decoded.shape}, the wav at {sr_out} Hz with {data.size} samples")
+    for name in QUICKSTART_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched on the quick start")
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    print(f"{tag} {c.shape[1]} frames -> {decoded.shape[-1]} samples at 44100 Hz (512 a frame), "
+          f"the saved wav {data.size} samples after trim and fade; walls: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()) + f" ({card})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ecapa(card: str) -> None:
+    """``[ecapa]``: ECAPA-TDNN at C 1024 (random weights from a seed) on the
+    log-mel of a 3-s clip, on the card against the CPU within 1e-3 x
+    max|ref|."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.models.speaker.ecapa import ecapa_forward, init_ecapa_params
+    from zonos_tpu_torch.models.speaker.mel import log_mel_features
+
+    tag = "[ecapa]"
+    params = init_ecapa_params(torch.Generator().manual_seed(ECAPA_SEED), C=1024)
+    mel = torch.from_numpy(log_mel_features(tone_clip(3, 16000, ECAPA_SEED)))
+    with torch.inference_mode():
+        want = ecapa_forward(params, mel).numpy()
+        card_params = _to_cuda(params)
+        mel_cuda = mel.cuda()
+        got = ecapa_forward(card_params, mel_cuda).cpu().numpy()
+        ms, _ = device_ms(lambda: ecapa_forward(card_params, mel_cuda), calls=3, reps=5)
+    err = float(np.abs(got - want).max())
+    if got.shape != (1, 192) or not err <= 1e-3 * np.abs(want).max():
+        fail(f"{tag} shape {got.shape}, max abs err {err:.3g} against the CPU "
+             f"(tolerance 1e-3 x {np.abs(want).max():.3g})")
+    print(f"{tag} C 1024, a 3-s mel ({mel.shape[-1]} frames) -> [1, 192]: max abs err {err:.3g} "
+          f"against the CPU (tolerance 1e-3 x {np.abs(want).max():.3g}); {ms:.2f} device ms a "
+          f"call ({card})", flush=True)
+
+
+def _flat(tree, path: str = "") -> dict:
+    """{path: leaf} of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flat(sub, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
 
@@ -2611,6 +3002,13 @@ def main(argv: list[str]) -> int:
     counts["stream transformer"] = phase_stream(card, model, dac)
     print(f"[time] transformer prefix and stream done {time.perf_counter() - t0:.1f} s",
           flush=True)
+    with temporary_models_dir() as models_dir:
+        counts["checkpoint transformer"] = phase_checkpoint(card, "transformer", model, models_dir)
+        phase_speaker(card, model, models_dir)
+        counts["quickstart"] = phase_quickstart(card, models_dir)
+    phase_ecapa(card)
+    print(f"[time] checkpoint, speaker, quick start and ECAPA done "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     quantize_model("transformer", model, "int8")  # the bf16 model, quantized in place
     path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
     phase_profile_batch64(model, card)
@@ -2627,6 +3025,9 @@ def main(argv: list[str]) -> int:
     prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
     counts["prefix hybrid"] = phase_prefix(card, "hybrid", model, prefix, audio_codes,
                                            PREFIX_KERNELS + ("ssd_chunked", "fused_state_step"))
+    with temporary_models_dir() as models_dir:
+        counts["checkpoint hybrid"] = phase_checkpoint(card, "hybrid", model, models_dir)
+    print(f"[time] hybrid checkpoint done {time.perf_counter() - t0:.1f} s", flush=True)
     quantize_model("hybrid", model, "int4")
     counts["hybrid int4"] = phase_hybrid_quantized(card, model, prefix, HYBRID_INT4_KERNELS)
     graph["hybrid int4"] = phase_graph(card, "hybrid int4", model, prefix,

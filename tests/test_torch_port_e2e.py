@@ -29,7 +29,7 @@ from zonos_tpu.models.dac.codec import dac_decode as jax_dac_decode
 from zonos_tpu.models.dac.codec import init_dac_params as jax_init_dac_params
 from zonos_tpu.models.tts import Zonos as JaxZonos
 from zonos_tpu.ops.sampling import SamplingParams as JaxSamplingParams
-from zonos_tpu_torch import DACAutoencoder, Zonos, ZonosConfig, make_cond_dict
+from zonos_tpu_torch import DACAutoencoder, SpeakerEmbeddingLDA, Zonos, ZonosConfig, make_cond_dict
 from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
 from zonos_tpu_torch.convert import convert_dac_params, convert_zonos_params
 from zonos_tpu_torch.models.dac.codec import DACConfig
@@ -159,23 +159,43 @@ def test_tiny_dac_decode_matches_jax(jax_codes):
 
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     code = textwrap.dedent(f"""
-        import sys
-        sys.modules["jax"] = None
-        sys.modules["zonos_tpu"] = None
-        import copy, numpy as np
+        import importlib.abc, sys
+        BLOCKED = {{"jax", "zonos_tpu", "safetensors", "xxhash", "huggingface_hub", "datasets"}}
+
+        class Block(importlib.abc.MetaPathFinder):  # leaves sys.modules alone, as scipy reads it
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+
+        sys.meta_path.insert(0, Block())
+        import copy, numpy as np, torch
         from zonos_tpu_torch import DACAutoencoder, Zonos, ZonosConfig, make_cond_dict
         from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
         from zonos_tpu_torch.models.dac.codec import DACConfig
+        import zonos_tpu_torch.models.dac.convert, zonos_tpu_torch.models.speaker.ecapa
+        from zonos_tpu_torch.models.speaker import SpeakerEmbeddingLDA
+        from zonos_tpu_torch.models.speaker.resnet import init_speaker_params
+        from zonos_tpu_torch.speaker_db import SpeakerUtils
+        from zonos_tpu_torch.utils.checkpoint import export_zonos_checkpoint
+        from zonos_tpu_torch.utils.hub import hub_download
         d = copy.deepcopy(TRANSFORMER_CONFIG_DICT)
         d["backbone"].update({{"d_model": 64, "n_layer": 2, "attn_mlp_d_intermediate": 128,
                               "attn_cfg": {{"num_heads": 4, "num_heads_kv": 2}}}})
         m = Zonos(ZonosConfig.from_dict(d), device="cpu")
-        codes = m.generate(m.prepare_conditioning(make_cond_dict(text="Hi there.")),
+        export_zonos_checkpoint(m.config, m.params, "models/tiny/zonos")
+        m = Zonos.from_pretrained("tiny/zonos", device="cpu")
+        tower = init_speaker_params(torch.Generator().manual_seed(0), in_planes=8,
+                                    blocks=(1, 1, 1, 1))
+        m._spk_tower = SpeakerEmbeddingLDA(params=tower, device="cpu")  # the LDA: no file
+        wav = np.random.default_rng(0).standard_normal((1, 12000)).astype(np.float32)
+        spk = m.make_speaker_embedding(wav, 24000)
+        assert spk.shape == (1, 1, 128) and np.isfinite(spk).all()
+        codes = m.generate(m.prepare_conditioning(make_cond_dict(text="Hi there.", speaker=spk)),
                            max_new_tokens=6, seed=1)
         dac = DACAutoencoder(cfg=DACConfig(**{TINY_DAC!r}), device="cpu")
         dac.save_codes([{str(tmp_path / "out.wav")!r}], codes)
-        assert not any(n == "jax" or n.startswith(("jax.", "zonos_tpu."))
-                       for n, mod in sys.modules.items() if mod is not None)
+        SpeakerUtils(m).get_speaker_embedding({str(tmp_path / "out.wav")!r})
+        assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
         print("OK", codes[0].shape)
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -204,3 +224,7 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
         Zonos(ZonosConfig.from_dict(_tiny_dict()))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DACAutoencoder(cfg=DACConfig(**TINY_DAC))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpeakerEmbeddingLDA()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Zonos.from_local(str(REPO / "no-such-config.json"))

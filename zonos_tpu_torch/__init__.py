@@ -12,6 +12,15 @@ hand-written CUDA C++ under ``csrc/``, each beside a plain PyTorch version
     model = Zonos(ZonosConfig.from_dict(TRANSFORMER_CONFIG_DICT))
     codes = model.generate(model.prepare_conditioning(make_cond_dict(text="Hello!")))
     DACAutoencoder().save_codes(["out.wav"], codes)
+
+or, with the reference checkpoints under ``$ZONOS_TPU_MODELS_DIR`` (default
+``./models/<repo_id>/``; nothing is downloaded), the README's quick start::
+
+    model = Zonos.from_pretrained("Zyphra/Zonos-v0.1-transformer")
+    wav, sr = load_audio("voice.wav")
+    speaker = model.make_speaker_embedding(wav, sr)
+    prefix = model.prepare_conditioning(make_cond_dict(text="Hello!", speaker=speaker))
+    model.autoencoder.save_codes(["out.wav"], model.generate(prefix))
 """
 
 import torch as _torch
@@ -27,15 +36,28 @@ _torch.exp(_torch.zeros(4))
 
 from zonos_tpu_torch.conditioning import make_cond_dict, supported_language_codes  # noqa: E402
 from zonos_tpu_torch.config import BackboneConfig, PrefixConditionerConfig, ZonosConfig  # noqa: E402
+from zonos_tpu_torch.audio import load_audio  # noqa: E402
 from zonos_tpu_torch.models.dac import DACAutoencoder  # noqa: E402
+from zonos_tpu_torch.models.speaker import SpeakerEmbedding, SpeakerEmbeddingLDA  # noqa: E402
 from zonos_tpu_torch.models.tts import Zonos  # noqa: E402
+from zonos_tpu_torch.speaker_db import SpeakerUtils  # noqa: E402
+from zonos_tpu_torch.utils.checkpoint import (  # noqa: E402
+    export_zonos_checkpoint,
+    load_zonos_checkpoint,
+)
 
 __all__ = [
     "BackboneConfig",
     "DACAutoencoder",
     "PrefixConditionerConfig",
+    "SpeakerEmbedding",
+    "SpeakerEmbeddingLDA",
+    "SpeakerUtils",
     "ZonosConfig",
     "Zonos",
+    "export_zonos_checkpoint",
+    "load_audio",
+    "load_zonos_checkpoint",
     "make_cond_dict",
     "supported_language_codes",
 ]

@@ -154,7 +154,7 @@ def conditioner_forward(params: dict, spec: ConditionerSpec, value) -> torch.Ten
         cond = params["embed"][value.long()]  # [b, T, d]
     elif spec.type == "Fourier":
         x = (value.float() - spec.min_val) / (spec.max_val - spec.min_val)
-        f = 2 * math.pi * (x @ params["weight"].T)  # [b, s, out/2]
+        f = 2 * math.pi * _mm(x, params["weight"].T)  # [b, s, out/2]; bf16 after a load
         # the reference emits bf16 here even in fp32 runs
         cond = torch.cat([torch.cos(f), torch.sin(f)], dim=-1).to(torch.bfloat16)
     elif spec.type == "Integer":

@@ -1,7 +1,7 @@
 """Carry weights across from the JAX package.
 
-Both functions take the JAX package's parameter tree as numpy arrays
-(``jax.tree.map(np.asarray, params)``) and return the port's parameters as
+Each function takes the JAX package's parameter tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``) and returns the port's parameters as
 tensors on ``device``.  float32 arrays and ``ml_dtypes`` bfloat16 and
 float8_e4m3fn arrays are accepted; their bytes are reinterpreted through
 ``uint16``/``uint8`` because ``torch.from_numpy`` rejects those dtypes.
@@ -14,6 +14,12 @@ Layouts:
 - DAC (encoder, quantizers, decoder): conv ``[K, C_in, C_out]`` -> torch ``[C_out, C_in, K]``;
   transposed conv ``[K, C_in, C_out]`` -> torch ``[C_in, C_out, K]`` (torch's
   transposed conv has the kernel flip the JAX version applies at call time).
+- Speaker tower (ResNet293) and ECAPA-TDNN: conv2d HWIO -> OIHW, conv1d NLC
+  -> NCL; matrices and folded BatchNorms as they are.
+
+Reference-format checkpoints (safetensors and ``.pt`` files with the
+reference's key names) load through ``utils/checkpoint.py``,
+``models/dac/convert.py`` and ``models/speaker/convert.py`` instead.
 """
 
 from __future__ import annotations
@@ -121,3 +127,69 @@ def convert_dac_params(params: dict, device="cpu") -> dict:
             for q in params["quantizers"]
         ],
     }
+
+
+def _f32(a, device) -> torch.Tensor:
+    return to_tensor(np.asarray(a, np.float32), device)
+
+
+def _bn(p: dict, device) -> dict:
+    return {"scale": _f32(p["scale"], device), "shift": _f32(p["shift"], device)}
+
+
+def convert_speaker_params(params: dict, device="cpu") -> dict:
+    """JAX speaker-tower params (numpy leaves, zonos_tpu/models/speaker/resnet.py)
+    -> the port's: conv ``[kh, kw, C_in, C_out]`` (HWIO) -> torch ``[C_out,
+    C_in, kh, kw]``; BatchNorm scales and shifts, the pooling's and the
+    bottleneck's ``[in, out]`` matrices as they are."""
+
+    def c2(w):
+        return _f32(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)), device)
+
+    def block(b):
+        out = {"conv1": c2(b["conv1"]), "bn1": _bn(b["bn1"], device),
+               "conv2": c2(b["conv2"]), "bn2": _bn(b["bn2"], device)}
+        if "down_conv" in b:
+            out["down_conv"] = c2(b["down_conv"])
+            out["down_bn"] = _bn(b["down_bn"], device)
+        return out
+
+    r, asp = params["resnet"], params["asp"]
+    return {
+        "resnet": {"stem_conv": c2(r["stem_conv"]), "stem_bn": _bn(r["stem_bn"], device),
+                   "stages": [[block(b) for b in stage] for stage in r["stages"]]},
+        "asp": {"att1_w": _f32(asp["att1_w"], device), "att1_b": _f32(asp["att1_b"], device),
+                "att_bn": _bn(asp["att_bn"], device), "att2_w": _f32(asp["att2_w"], device),
+                "att2_b": _f32(asp["att2_b"], device)},
+        "bottleneck_w": _f32(params["bottleneck_w"], device),
+        "bottleneck_b": _f32(params["bottleneck_b"], device),
+    }
+
+
+def convert_ecapa_params(params: dict, device="cpu") -> dict:
+    """JAX ECAPA-TDNN params (numpy leaves, zonos_tpu/models/speaker/ecapa.py)
+    -> the port's: conv ``[K, C_in, C_out]`` (NLC) -> torch ``[C_out, C_in,
+    K]`` (NCL), the squeeze-excitation's ``[1, C_in, C_out]`` likewise."""
+
+    def c1(w):
+        return _f32(np.transpose(np.asarray(w, np.float32), (2, 1, 0)), device)
+
+    def conv(p):
+        return {"w": c1(p["w"]), "b": _f32(p["b"], device)}
+
+    def block(p):
+        se = p["se"]
+        return {
+            "conv1": conv(p["conv1"]), "bn1": _bn(p["bn1"], device),
+            "convs": [conv(c) for c in p["convs"]], "bns": [_bn(b, device) for b in p["bns"]],
+            "conv3": conv(p["conv3"]), "bn3": _bn(p["bn3"], device),
+            "se": {"w1": c1(se["w1"]), "b1": _f32(se["b1"], device),
+                   "w2": c1(se["w2"]), "b2": _f32(se["b2"], device)},
+        }
+
+    out = {k: conv(params[k]) for k in ("conv1", "layer4", "att1", "att2")}
+    out.update({k: block(params[k]) for k in ("layer1", "layer2", "layer3")})
+    out.update({k: _bn(params[k], device) for k in ("bn1", "att_bn", "bn5", "bn6")})
+    out["fc6_w"] = _f32(params["fc6_w"], device)
+    out["fc6_b"] = _f32(params["fc6_b"], device)
+    return out

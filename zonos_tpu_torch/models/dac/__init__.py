@@ -1,7 +1,9 @@
 """DAC autoencoder: a wav file or waveform -> codes (the audio prefix of a
 voice continuation), and codes -> 44.1 kHz waveform -> wav files
-(zonos_tpu/models/dac/__init__.py).  Weights are a random init from a
-``torch.Generator`` or come from :func:`zonos_tpu_torch.convert.convert_dac_params`."""
+(zonos_tpu/models/dac/__init__.py).  Weights come from ``params``, else
+from ``descript/dac_44khz/model.safetensors`` in the local models directory
+(``utils/hub.py``; HF ``DacModel`` naming, ``models/dac/convert.py``), else,
+with a warning, from a random init drawn from a ``torch.Generator``."""
 
 from __future__ import annotations
 
@@ -27,7 +29,10 @@ from zonos_tpu_torch.models.dac.codec import (
     decoder_receptive_field_frames,
     init_dac_params,
 )
+from zonos_tpu_torch.models.dac.convert import convert_dac_state_dict
+from zonos_tpu_torch.utils.checkpoint import load_safetensors
 from zonos_tpu_torch.utils.device import resolve_device
+from zonos_tpu_torch.utils.hub import hub_download
 
 logger = logging.getLogger("zonos_tpu_torch.dac")
 
@@ -46,9 +51,18 @@ class DACAutoencoder:
         self.hop = self.cfg.hop_length
         self.receptive_field_frames = decoder_receptive_field_frames(self.cfg)
         if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_dac_params(self.cfg, gen, self.device)
+            params = self._load_params(seed)
         self.params = params
+
+    def _load_params(self, seed: int) -> dict:
+        try:
+            path = hub_download("descript/dac_44khz", "model.safetensors")
+        except FileNotFoundError:
+            logger.warning("DAC checkpoint not found locally; using random codec weights "
+                           "(decoded audio is noise until a checkpoint is provided)")
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return init_dac_params(self.cfg, gen, self.device)
+        return convert_dac_state_dict(load_safetensors(path), self.cfg, self.device)
 
     def preprocess(self, wav: np.ndarray, sr: int) -> np.ndarray:
         """Resample to 44.1 kHz and left-pad with zeros to a multiple of the

@@ -16,7 +16,6 @@ computes them outside Pallas.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 
 from zonos_tpu_torch.kernels.snake_conv import snake_residual_unit
 from zonos_tpu_torch.models.dac.layers import conv1d, conv_transpose1d, snake
+from zonos_tpu_torch.utils.device import fp32_convolutions
 
 
 @dataclass(frozen=True)
@@ -127,17 +127,6 @@ def init_dac_params(cfg: DACConfig, generator: torch.Generator, device="cpu") ->
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _fp32_convolutions():
-    """cuDNN runs fp32 convolutions in TF32 unless told not to; the DAC is fp32."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
 def _res_unit(p: dict, x: torch.Tensor, dilation: int) -> torch.Tensor:
     """``x + conv1x1(snake(conv_k7_dil(snake(x))))``: K5 on the card."""
     return snake_residual_unit(p, x, dilation)
@@ -147,7 +136,7 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
-@_fp32_convolutions()
+@fp32_convolutions()
 def dac_encode_latents(params: dict, cfg: DACConfig, audio: torch.Tensor) -> torch.Tensor:
     """audio [B, T, 1] -> latents [B, T/512, hidden] (T a multiple of the hop)."""
     p = params["encoder"]
@@ -163,7 +152,7 @@ def dac_encode_latents(params: dict, cfg: DACConfig, audio: torch.Tensor) -> tor
     return conv1d(x, p["conv2"]["w"], p["conv2"]["b"], padding=1)
 
 
-@_fp32_convolutions()
+@fp32_convolutions()
 def rvq_encode(params: dict, latents: torch.Tensor) -> torch.Tensor:
     """Residual VQ: latents [B, T, H] -> codes [B, K, T] int64.  Each codebook
     projects the residual to its 8 dims, takes the nearest code by cosine
@@ -204,7 +193,7 @@ def decoder_receptive_field_frames(cfg: DACConfig) -> int:
     return -(-half // cfg.hop_length)
 
 
-@_fp32_convolutions()
+@fp32_convolutions()
 def dac_decode_latents(params: dict, cfg: DACConfig, latents: torch.Tensor) -> torch.Tensor:
     """quantized latents [B, T, H] -> waveform [B, T*512, 1] in [-1, 1]."""
     p = params["decoder"]
@@ -221,7 +210,7 @@ def dac_decode_latents(params: dict, cfg: DACConfig, latents: torch.Tensor) -> t
     return torch.tanh(x)
 
 
-@_fp32_convolutions()
+@fp32_convolutions()
 def dac_decode(params: dict, cfg: DACConfig, codes: torch.Tensor) -> torch.Tensor:
     """codes [B, K, T] -> waveform [B, T*512, 1]."""
     return dac_decode_latents(params, cfg, rvq_decode(params, codes))

@@ -7,7 +7,8 @@ stream kept in fp32 while every matmul runs in the compute dtype.
 Parameters keep the JAX package's layout: ``layers_list`` holds one dict per
 layer, matmul weights ``[in, out]`` applied as ``x @ w`` (or int8/int4
 dicts, through ``matmul_w``); ``A_log``, ``D`` and
-``dt_bias`` are fp32 whatever the compute dtype.
+``dt_bias`` are fp32 whatever the compute dtype in a random init, and in the
+compute dtype after a checkpoint load (as the JAX loader casts them).
 
 The cache is a list with one dict per layer, updated in place:
 
@@ -233,15 +234,19 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B, S, G, N).float().contiguous()
     Cm = xBC[..., d_inner + G * N:].reshape(B, S, G, N).float().contiguous()
     dt = F.softplus(dt_raw.float() + lp["dt_bias"])  # [B, S, H]
-    A = -torch.exp(lp["A_log"])
+    # a checkpoint load casts A_log and D to the compute dtype, as the JAX
+    # loader does: A is then rounded there and widened exactly, as JAX
+    # promotes it against dt
+    A = -torch.exp(lp["A_log"]).float()
+    D = lp["D"].float()
     if prefill:
         # prefill starts from the zero state, as the conv above does: the JAX
         # package passes its fresh cache's zeros, which K6 reads as no state
-        y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, lp["D"])
+        y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, D)
         store_ssm(st, final)
     else:
         state = st["ssm_q4"] if "ssm_q4" in st else st["ssm"]
-        y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], lp["D"], state,
+        y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, state,
                                st.get("ssm_scale"))
         y = y[:, None]
 
@@ -312,3 +317,46 @@ def hybrid_decode_step(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache
     if not isinstance(pos, StepPosition):
         pos = StepPosition.at(pos, x.device)
     return _run(cfg, params, x, cache, pos, prefill=False), cache
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion (mamba_ssm state-dict naming)
+# ---------------------------------------------------------------------------
+
+
+def convert_hybrid_backbone(sd: dict, zcfg, put) -> dict:
+    """The reference hybrid's ``backbone.*`` tensors -> ``layers_list``
+    (zonos_tpu/models/hybrid.py:373-407); ``put`` moves a tensor to the
+    device and casts it (``utils/checkpoint.py``).  An attention layer's
+    fused projection is ``mixer.Wqkv.weight`` or ``mixer.in_proj.weight``."""
+    cfg: BackboneConfig = zcfg.backbone
+    layers = []
+    for i in range(cfg.n_layer):
+        pre = f"backbone.layers.{i}."
+        lp: dict = {"norm_scale": put(sd[pre + "norm.weight"])}
+        if pre + "norm.bias" in sd:
+            lp["norm_bias"] = put(sd[pre + "norm.bias"])
+        if is_attn_layer(cfg, i):
+            name = "mixer.Wqkv.weight" if pre + "mixer.Wqkv.weight" in sd else "mixer.in_proj.weight"
+            lp["wqkv"] = put(sd[pre + name], True)
+            lp["wo"] = put(sd[pre + "mixer.out_proj.weight"], True)
+        else:
+            lp["in_proj"] = put(sd[pre + "mixer.in_proj.weight"], True)
+            lp["conv_w"] = put(sd[pre + "mixer.conv1d.weight"][:, 0, :], True)  # [C,1,K] -> [K,C]
+            lp["conv_b"] = put(sd[pre + "mixer.conv1d.bias"])
+            lp["A_log"] = put(sd[pre + "mixer.A_log"])
+            lp["D"] = put(sd[pre + "mixer.D"])
+            lp["dt_bias"] = put(sd[pre + "mixer.dt_bias"])
+            lp["mixer_norm"] = put(sd[pre + "mixer.norm.weight"])
+            lp["out_proj"] = put(sd[pre + "mixer.out_proj.weight"], True)
+        if pre + "mlp.fc1.weight" in sd:
+            lp["norm2_scale"] = put(sd[pre + "norm2.weight"])
+            if pre + "norm2.bias" in sd:
+                lp["norm2_bias"] = put(sd[pre + "norm2.bias"])
+            lp["w1"] = put(sd[pre + "mlp.fc1.weight"], True)
+            lp["w2"] = put(sd[pre + "mlp.fc2.weight"], True)
+        layers.append(lp)
+    out = {"layers_list": layers, "normf_scale": put(sd["backbone.norm_f.weight"])}
+    if "backbone.norm_f.bias" in sd:
+        out["normf_bias"] = put(sd["backbone.norm_f.bias"])
+    return out

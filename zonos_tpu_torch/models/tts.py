@@ -184,6 +184,7 @@ class Zonos:
         # the last generate's decode: steps run, CUDA graphs captured, capture seconds
         self.decode_stats: dict | None = None
         self._autoencoder = None
+        self._spk_tower = None
 
     def init_params(self, seed: int, dtype=torch.bfloat16) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -201,17 +202,54 @@ class Zonos:
     def compute_dtype(self) -> torch.dtype:
         return self.params["embeddings"].dtype
 
+    @classmethod
+    def from_local(cls, config_path: str, model_path: str | None = None,
+                   device: str | torch.device = "cuda", dtype=torch.bfloat16) -> "Zonos":
+        """A model from reference-format files (zonos_tpu/models/tts.py:468-489):
+        the parameters are built from ``model_path`` on ``device``, every
+        leaf in ``dtype`` (``utils/checkpoint.py``); without ``model_path``
+        a random init from seed 0."""
+        from zonos_tpu_torch.utils.checkpoint import load_zonos_checkpoint
+
+        device = resolve_device(device)
+        cfg = ZonosConfig.from_json(config_path)
+        params = None if model_path is None else load_zonos_checkpoint(cfg, model_path, device,
+                                                                       dtype)
+        return cls(cfg, params=params, device=device, dtype=dtype)
+
+    @classmethod
+    def from_pretrained(cls, repo_id: str, device: str | torch.device = "cuda",
+                        dtype=torch.bfloat16) -> "Zonos":
+        """``config.json`` and ``model.safetensors`` of ``repo_id`` from the
+        local models directory (``utils/hub.py``; nothing is downloaded)."""
+        from zonos_tpu_torch.utils.hub import hub_download
+
+        return cls.from_local(hub_download(repo_id, "config.json"),
+                              hub_download(repo_id, "model.safetensors"), device, dtype)
+
     @property
     def autoencoder(self):
-        """The DAC codec on the model's device, built at first use with random
-        weights from seed 0 (zonos_tpu/models/tts.py:493-498, whose
-        checkpoint loading is not ported yet); set ``_autoencoder`` to use
-        another."""
+        """The DAC codec on the model's device, built at first use: the
+        ``descript/dac_44khz`` checkpoint from the models directory, or
+        random weights from seed 0 without it (zonos_tpu/models/tts.py:493-498);
+        set ``_autoencoder`` to use another."""
         if self._autoencoder is None:
             from zonos_tpu_torch.models.dac import DACAutoencoder
 
             self._autoencoder = DACAutoencoder(device=self.device)
         return self._autoencoder
+
+    def make_speaker_embedding(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        """A reference clip -> the ``[1, 1, 128]`` float32 LDA speaker
+        embedding ``make_cond_dict(speaker=...)`` takes
+        (zonos_tpu/models/tts.py:500-509); the tower, built at first use from
+        the models directory's speaker checkpoints, runs on the model's device."""
+        if self._spk_tower is None:
+            from zonos_tpu_torch.models.speaker import SpeakerEmbeddingLDA
+
+            self._spk_tower = SpeakerEmbeddingLDA(device=self.device)
+        _, lda = self._spk_tower(wav, sr)
+        return np.asarray(lda, np.float32).reshape(1, 1, -1)
 
     # -- serving modes ---------------------------------------------------
     def quantize_int8(self) -> "Zonos":

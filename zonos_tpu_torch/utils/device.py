@@ -7,6 +7,8 @@ the tests do).  Nothing falls back silently.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN runs fp32 convolutions in TF32 unless told not to: inside this
+    context it runs them in fp32; every other cuDNN setting, and the flags
+    after it, are as they were.  Also a decorator (``@fp32_convolutions()``)."""
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=c.benchmark, benchmark_limit=c.benchmark_limit,
+                 deterministic=c.deterministic, allow_tf32=False):
+        yield
