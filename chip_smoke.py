@@ -51,6 +51,20 @@ Phases, each of which fails the run (non-zero exit) on error:
      ``stream_generate_batch`` at batch 4, 260 frames: codes equal to
      ``generate``'s, each row's chunks within 1e-4 x max|full| of the full
      decode; the time to first audio.
+   - serve transformer: the REST server (``ServerState``, ``serve`` on
+     127.0.0.1) over that model, after the batcher's ``warmup`` and
+     ``warmup_streaming``: four concurrent 2-s ``/v1/tts`` requests in
+     one batch, two concurrent streams, and a three-segment ``long: true``
+     request whose WAV equals the offline ``synthesize_long``'s byte for
+     byte; K1, K2, K3, K5; the walls, each stream's time to first audio and
+     the captures' seconds. serve speakers: ``/v1/speakers`` on that server
+     with the speaker files of ``[speaker]``; serve transformer int8: one
+     such round after ``quantize_int8()``: K4.
+   - cobatch: one request alone and as row 0 at batch 4, 8 and 64: the
+     frames that differ from its solo codes, the first operation whose
+     row-0 result differs (a dispatch-mode trace), and a row alone against
+     inside a batch for each library product and K1, K2, K4 (reported; the
+     card's contract is recorded as measured).
    - checkpoint transformer / checkpoint hybrid: each in-memory flagship
      exported by ``export_zonos_checkpoint`` into a temporary models
      directory and read back by ``Zonos.from_pretrained``: every leaf equal
@@ -1068,7 +1082,8 @@ def phase_main_path(card: str, kind: str, model, dac, batch: int, expect: tuple,
     def generate(prefix, rows, seed):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=rows, seed=seed)
+        codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=rows, seed=seed,
+                               progress_bar=False)
         torch.cuda.synchronize()
         check_replayed(tag, model.decode_stats)
         return codes, time.perf_counter() - t
@@ -1221,7 +1236,8 @@ def phase_hybrid_quantized(card: str, model, prefix, expect: tuple,
     reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=1, seed=7)
+    codes = model.generate(prefix, max_new_tokens=new_tokens, batch_size=1, seed=7,
+                           progress_bar=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     counts = dict(launch_counts)
@@ -1302,7 +1318,8 @@ def phase_prefix(card: str, kind: str, model, prefix, audio_codes, expect: tuple
         torch.cuda.synchronize()
         t = time.perf_counter()
         outs.append(model.generate(prefix, audio_prefix_codes=audio_codes,
-                                   max_new_tokens=PREFIX_NEW_TOKENS, batch_size=1, seed=7)[0])
+                                   max_new_tokens=PREFIX_NEW_TOKENS, batch_size=1, seed=7,
+                                   progress_bar=False)[0])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         check_replayed(tag, model.decode_stats)
@@ -1385,7 +1402,7 @@ def phase_stream(card: str, model, dac) -> dict:
         streamed = model._trim(run.delayed.cpu().numpy(), int(run.offset), None,
                                run.prefix_audio_len)
         codes = model.generate(prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, batch_size=rows,
-                               seed=seeds)
+                               seed=seeds, progress_bar=False)
         worst = 0.0
         for i in range(rows):
             if streamed[i].shape != codes[i].shape or not np.array_equal(streamed[i], codes[i]):
@@ -1437,7 +1454,7 @@ def phase_hybrid_int8(card: str, model) -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         codes = model.generate(prefix, max_new_tokens=HYBRID_INT8_NEW_TOKENS, batch_size=B,
-                               seed=seeds)
+                               seed=seeds, progress_bar=False)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = dict(launch_counts)
@@ -1759,9 +1776,11 @@ def phase_checkpoint(card: str, kind: str, model, models_dir: str) -> dict:
                                                                           speaker=None))):
         fail(f"{tag} the loaded model's conditioning differs from the in-memory model's")
     greedy = SamplingParams.greedy()
-    want = ref.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy)[0]
+    want = ref.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy,
+                        progress_bar=False)[0]
     reset_launch_counts()
-    got = loaded.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy)[0]
+    got = loaded.generate(prefix, max_new_tokens=CHECKPOINT_NEW_TOKENS, sampling_params=greedy,
+                          progress_bar=False)[0]
     counts = dict(launch_counts)
     check_replayed(tag, loaded.decode_stats)
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -1929,7 +1948,8 @@ def phase_quickstart(card: str, models_dir: str) -> dict:
                                                          language="en-us"))
     prefix = step("prepare_conditioning", lambda: model.prepare_conditioning(cond))
     codes = step("generate", lambda: model.generate(
-        prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, sampling_params=SamplingParams(ban_eos=True)))
+        prefix, max_new_tokens=TRANSFORMER_NEW_TOKENS, sampling_params=SamplingParams(ban_eos=True),
+        progress_bar=False))
     out = os.path.join(models_dir, "sample.wav")
     step("save_codes", lambda: model.autoencoder.save_codes([out], codes))
     counts = dict(launch_counts)
@@ -2005,6 +2025,597 @@ def _to_cuda(tree):
     if isinstance(tree, (list, tuple)):
         return [_to_cuda(v) for v in tree]
     return tree.cuda()
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: serving
+# ---------------------------------------------------------------------------
+
+# [serve ...]: four requests of one cond bucket (64 phoneme tokens), so that they co-batch
+SERVE_TEXTS = (TEXTS[0], TEXTS[3], TEXTS[5], TEXTS[6])
+SERVE_SECONDS = 2.0
+SERVE_STREAMS = 2
+# K1 runs in the long-form segments: each has a step budget of 512 frames (past 256 cache rows)
+SERVE_KERNELS = TRANSFORMER_KERNELS
+SERVE_INT8_KERNELS = ("decode_attention_single", "fused_sample", "snake_conv1d",
+                      "fused_layer_tail")
+# a 3-s segment budget splits this text into three segments
+LONG_TEXT = " ".join((TEXTS[0], TEXTS[1], TEXTS[7]))
+LONG_BUDGET, LONG_SEED, LONG_SEGMENTS = 3.0, 99, 3
+# [cobatch]: one request alone and as row 0 among peers of its cond bucket (64 tokens)
+COBATCH_TEXT = "Every request should sound the same alone or in a batch."
+COBATCH_FRAMES, COBATCH_SEED, COBATCH_BATCHES = 256, 1234, (4, 8, 64)
+COBATCH_TRACED_STEPS = 12  # decode steps the op-by-op comparison covers after the prefill
+
+
+def _peer_texts(n: int) -> list[str]:
+    names = ("Anna", "Boris", "Clara", "David", "Elena", "Felix", "Grace", "Henry", "Irene",
+             "James", "Karen", "Louis", "Maria", "Nolan", "Olive", "Peter")
+    things = ("a red kite", "the old map", "a green lamp", "the blue door")
+    return [f"{who} found {what} near the river today."
+            for who, what in itertools.product(names, things)][:n]
+
+
+def _http():
+    """An opener that never goes through a proxy: the server is on 127.0.0.1."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _post(base: str, path: str, body, timeout: float = 600.0):
+    import urllib.request
+
+    data, ctype = ((body, "audio/wav") if isinstance(body, bytes)
+                   else (json.dumps(body).encode(), "application/json"))
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": ctype})
+    return _http().open(req, timeout=timeout)
+
+
+def _wav_samples(tag: str, data: bytes):
+    """The samples of a 16-bit mono WAV body as float32 in [-1, 1]; fails
+    unless it is 44.1 kHz with samples."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(data), "rb") as w:
+        sr, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), "<i2").astype(np.float32) / 32767.0
+    if sr != 44100 or pcm.size == 0:
+        fail(f"{tag} a WAV at {sr} Hz with {pcm.size} samples")
+    return pcm
+
+
+def _concurrently(fn, n: int, tag: str) -> list:
+    """``fn(i)`` for i < n, each on its own thread, all started together."""
+    import threading
+
+    results, errors = [None] * n, []
+
+    def one(i):
+        try:
+            results[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{tag} {errors or 'a request did not return'}")
+    return results
+
+
+class Served:
+    """A ``ServerState`` over ``model`` and its HTTP server on 127.0.0.1
+    (a free port), serving on a daemon thread until ``close()``."""
+
+    def __init__(self, model, **batcher_kwargs):
+        from zonos_tpu_torch.serving import ServerState, serve
+
+        self.state = ServerState(model, model_name="flagship", **batcher_kwargs)
+        self.httpd = serve(self.state, host="127.0.0.1", port=0)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.state.close()
+
+
+def _tts_round(tag: str, served: Served, seconds: float = SERVE_SECONDS) -> list[float]:
+    """The four ``SERVE_TEXTS`` as concurrent ``/v1/tts`` requests (default
+    sampling, ``seconds`` each); every WAV finite with samples, and the four
+    in one batch.  Returns each request's wall."""
+    import numpy as np
+
+    batches = served.state.batcher.snapshot()["batches"]
+
+    def one(i):
+        t = time.perf_counter()
+        with _post(served.base, "/v1/tts", {"text": SERVE_TEXTS[i], "max_seconds": seconds,
+                                            "seed": 100 + i}) as r:
+            pcm = _wav_samples(tag, r.read())
+        return time.perf_counter() - t, pcm
+
+    out = _concurrently(one, len(SERVE_TEXTS), tag)
+    snap = served.state.batcher.snapshot()
+    if snap["max_batch_seen"] < len(SERVE_TEXTS) or snap["batches"] != batches + 1:
+        fail(f"{tag} the {len(SERVE_TEXTS)} requests did not co-batch: {snap}")
+    for _, pcm in out:
+        if not np.isfinite(pcm).all() or pcm.size > seconds * 44100 + 512:
+            fail(f"{tag} a WAV of {pcm.size} samples (at most {seconds} s) or non-finite")
+    return [wall for wall, _ in out]
+
+
+def phase_serve(card: str, model, dac) -> tuple[dict, Served]:
+    """``[serve transformer]``: ``python -m zonos_tpu_torch.serving``'s
+    server (``ServerState`` and ``serve`` on 127.0.0.1) over the full-width
+    bf16 transformer, after the batcher's ``warmup`` and ``warmup_streaming``
+    (the server's ``--warmup``): four concurrent ``/v1/tts`` requests of 2 s that must
+    share one batch, two concurrent ``/v1/tts/stream`` requests, and one
+    ``long: true`` request with carry and three segments whose WAV must equal,
+    byte for byte, the offline ``longform.synthesize_long`` on the same model
+    after ``normalize_loudness``.  The launch counts are zeroed before the
+    first request and read after the last: K1, K2, K3 and K5.  Prints the
+    walls, each stream's time to first audio (at the client), and the CUDA
+    graph captures' seconds.  Returns the counts and the server, left
+    running for ``[serve speakers]``."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch import longform
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+    from zonos_tpu_torch.serving.batching import program_frames_bucket
+    from zonos_tpu_torch.serving.server import wav_bytes
+
+    tag = "[serve transformer]"
+    model._autoencoder = dac
+    served = Served(model, max_batch=8, max_wait_ms=500.0)
+    t = time.perf_counter()
+    n_warm = served.state.batcher.warmup(cond_lens=(64,), max_new_tokens=512)
+    t_warm = time.perf_counter() - t
+    n_warm_stream = served.state.batcher.warmup_streaming(cond_lens=(64,), max_new_tokens=512)
+    t_warm_stream = time.perf_counter() - t - t_warm
+    print(f"{tag} warmup: {n_warm} single-step generates (batch buckets 1-8, cond 64) in "
+          f"{t_warm:.2f} s; warmup_streaming: {n_warm_stream} generates and window decodes in "
+          f"{t_warm_stream:.2f} s ({card})", flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()  # the card is idle: no request is in flight
+    walls = _tts_round(tag, served)
+    snap = served.state.batcher.snapshot()
+    capture_tts = snap["capture_seconds"]
+
+    def stream(i):
+        t = time.perf_counter()
+        first, chunks = None, []
+        with _post(served.base, "/v1/tts/stream", {"text": SERVE_TEXTS[i],
+                                                   "max_seconds": SERVE_SECONDS,
+                                                   "seed": 200 + i}) as r:
+            while True:
+                piece = r.read1(1 << 16)
+                if not piece:
+                    break
+                first = first if first is not None else time.perf_counter() - t
+                chunks.append(piece)
+        pcm = np.frombuffer(b"".join(chunks), "<i2")
+        if pcm.size == 0:
+            fail(f"{tag} stream {i} returned no samples")
+        return first, time.perf_counter() - t, pcm.size
+
+    streams = _concurrently(stream, SERVE_STREAMS, tag)
+    snap = served.state.batcher.snapshot()
+    capture_stream = snap["capture_seconds"] - capture_tts
+    if snap["streams"] != SERVE_STREAMS:
+        fail(f"{tag} {snap['streams']} streams counted, expected {SERVE_STREAMS}")
+
+    body = {"text": LONG_TEXT, "long": True, "max_segment_seconds": LONG_BUDGET,
+            "seed": LONG_SEED}
+    t = time.perf_counter()
+    with _post(served.base, "/v1/tts", body) as r:
+        served_wav = r.read()
+    t_long = time.perf_counter() - t
+    snap = served.state.batcher.snapshot()
+    counts = dict(launch_counts)  # the server alone: the offline run below is not counted
+    capture_long = snap["capture_seconds"] - capture_tts - capture_stream
+
+    frames = max(9, min(86 * 30, int(min(LONG_BUDGET * 1.2 + 1.0, 30.0) * 86)))
+    t = time.perf_counter()
+    wav, seg_codes = longform.synthesize_long(
+        model, LONG_TEXT, language="en-us", sampling_params=SamplingParams(), cfg_scale=2.0,
+        seed=LONG_SEED, max_segment_seconds=LONG_BUDGET, carry_frames=43,
+        max_new_tokens=program_frames_bucket(frames))
+    t_offline = time.perf_counter() - t
+    if len(seg_codes) != LONG_SEGMENTS:
+        fail(f"{tag} the long-form text split into {len(seg_codes)} segments, not "
+             f"{LONG_SEGMENTS}")
+    want = wav_bytes(model.autoencoder.normalize_loudness(wav, 44100, target_lufs=-23.0))
+    if served_wav != want:
+        a, b = _wav_samples(tag, served_wav), _wav_samples(tag, want)
+        n = min(a.size, b.size)
+        first = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+        fail(f"{tag} the served long-form WAV ({a.size} samples) differs from the offline "
+             f"synthesize_long's ({b.size}), first at sample {first}")
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in SERVE_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched by the server")
+    frames_long = sum(c.shape[1] for c in seg_codes)
+    print(f"{tag} 4 concurrent /v1/tts requests of {SERVE_SECONDS} s in one batch of 4: walls "
+          + ", ".join(f"{w:.2f}" for w in walls) + f" s; captures {capture_tts * 1e3:.1f} ms "
+          f"for that batch ({card})", flush=True)
+    print(f"{tag} {SERVE_STREAMS} concurrent /v1/tts/stream requests of {SERVE_SECONDS} s in one "
+          f"batch: time to first audio at the client "
+          + ", ".join(f"{s[0] * 1e3:.1f}" for s in streams) + " ms, walls "
+          + ", ".join(f"{s[1]:.2f}" for s in streams) + f" s; captures "
+          f"{capture_stream * 1e3:.1f} ms ({card})", flush=True)
+    print(f"{tag} long: true with carry, {LONG_SEGMENTS} segments, {frames_long} frames "
+          f"({frames_long / FRAMES_PER_S:.2f} s of audio): wall {t_long:.2f} s served, "
+          f"{t_offline:.2f} s offline; WAV equal byte for byte to the offline synthesize_long "
+          f"after normalize_loudness; captures {capture_long * 1e3:.1f} ms over "
+          f"{LONG_SEGMENTS} generates ({card})", flush=True)
+    print(f"{tag} batcher stats: {served.state.batcher.snapshot()}", flush=True)
+    return counts, served
+
+
+def phase_serve_speakers(card: str, served: Served, model) -> None:
+    """``[serve speakers]``: ``POST /v1/speakers`` with a 16-bit WAV of a
+    10-s clip at 24 kHz on the server of ``[serve transformer]``, with the
+    speaker tower's files of ``[speaker]`` in the models directory: the
+    stored embedding must equal ``make_speaker_embedding`` of the same
+    samples bit for bit; then one ``/v1/tts`` with that ``speaker_id``."""
+    import io
+    import wave
+
+    import numpy as np
+
+    tag = "[serve speakers]"
+    clip = tone_clip(SPEAKER_SECONDS[-1], 24000, SPEAKER_SEED + 2)[0]
+    pcm16 = (np.clip(clip, -1, 1) * 32767.0).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(24000)
+        w.writeframes(pcm16.tobytes())
+    t = time.perf_counter()
+    with _post(served.base, "/v1/speakers", buf.getvalue()) as r:
+        sid = json.loads(r.read())["speaker_id"]
+    t_register = time.perf_counter() - t
+    stored = served.state.speakers[sid]
+    want = model.make_speaker_embedding((pcm16.astype(np.float32) / 32768.0)[None, :], 24000)
+    if stored.shape != (1, 1, 128) or not np.array_equal(stored, want):
+        fail(f"{tag} the stored embedding {stored.shape} differs from make_speaker_embedding's")
+    t = time.perf_counter()
+    with _post(served.base, "/v1/tts", {"text": TEXTS[2], "speaker_id": sid,
+                                        "max_seconds": 1.0}) as r:
+        pcm = _wav_samples(tag, r.read())
+    t_tts = time.perf_counter() - t
+    print(f"{tag} speaker_id {sid} registered in {t_register:.2f} s, embedding equal to "
+          f"make_speaker_embedding's bit for bit; a 1-s /v1/tts with it in {t_tts:.2f} s "
+          f"({pcm.size} samples; {card})", flush=True)
+
+
+def phase_serve_int8(card: str, model) -> dict:
+    """``[serve transformer int8]``: a server over the transformer after
+    ``quantize_int8()``; one round of the four concurrent ``/v1/tts``
+    requests (one batch of 4, 8 CFG rows), the launch counts zeroed before
+    and read after: K2, K3, K5 and K4."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    tag = "[serve transformer int8]"
+    served = Served(model, max_batch=8, max_wait_ms=500.0)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        walls = _tts_round(tag, served)
+        counts = dict(launch_counts)
+        snap = served.state.batcher.snapshot()
+    finally:
+        served.close()
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    for name in SERVE_INT8_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched by the server")
+    print(f"{tag} 4 concurrent /v1/tts requests of {SERVE_SECONDS} s in one batch of 4 on int8 "
+          f"weights: walls " + ", ".join(f"{w:.2f}" for w in walls) + f" s; captures "
+          f"{snap['capture_seconds'] * 1e3:.1f} ms ({card})", flush=True)
+    return counts
+
+
+def _row0(t, ref_shape, B: int):
+    """Row 0's part of ``t`` (a tensor of a batch-``B`` run) for comparison
+    with the batch-1 run's tensor of shape ``ref_shape``: on the first axis
+    whose size is B times the reference's, the first rows (a CFG stack of
+    cond over uncond rows: the first rows of each half); the whole tensor
+    where no axis differs; None where the shapes do not correspond."""
+    import torch
+
+    if tuple(t.shape) == tuple(ref_shape):
+        return t
+    if t.dim() != len(ref_shape):
+        return None
+    diff = [a for a in range(t.dim()) if t.shape[a] != ref_shape[a]]
+    a = diff[0]
+    s1, sb = ref_shape[a], t.shape[a]
+    if sb != B * s1 or any(t.shape[d] != ref_shape[d] for d in diff[1:]):
+        return None
+    if s1 % 2:
+        return t.narrow(a, 0, s1)
+    return torch.cat([t.narrow(a, 0, s1 // 2), t.narrow(a, sb // 2, s1 // 2)], dim=a)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal values, NaN where NaN."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _tensors(obj) -> list:
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for o in obj for t in _tensors(o)]
+    return []
+
+
+def first_difference(model, prefix_of, seeds_of, B: int,
+                     steps: int = COBATCH_TRACED_STEPS) -> str:
+    """The first operation whose result for the request (row 0) differs
+    between batch 1 and batch ``B``: the prefill of the conditioning prefix
+    ``prefix_of(rows)`` and ``steps`` eager decode steps with the seeds
+    ``seeds_of(rows)`` run under a dispatch mode that keeps every aten op's output at batch 1 and compares row 0's
+    part of it at batch ``B``, op by op.  A kernel of the port (launched
+    through its C entry point, outside aten) is checked through the op that
+    next reads its output: when that op's inputs already differ, the kernels
+    launched since the previous op are named."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from zonos_tpu_torch.kernels import launch_counts
+    from zonos_tpu_torch.kernels.decode_attention import band_of
+
+    class Found(Exception):
+        pass
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self, rows: int, ref: list | None):
+            super().__init__()
+            self.rows, self.ref, self.log, self.stage = rows, ref, [], ""
+            self.before = dict(launch_counts)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            launched = {k: n - self.before[k] for k, n in launch_counts.items()
+                        if n != self.before[k]}
+            ins = _tensors(args) + _tensors(list(kwargs.values())) if launched else []
+            out = func(*args, **kwargs)
+            self.before = dict(launch_counts)
+            outs = _tensors(out)
+            i = len(self.log)
+            if self.ref is None:
+                self.log.append((str(func), self.stage, [t.detach().clone() for t in ins],
+                                 [t.detach().clone() for t in outs]))
+                return out
+            if i >= len(self.ref):
+                raise Found(f"the batch-{self.rows} run has more ops than batch 1's, from "
+                            f"op #{i} {func} ({self.stage})")
+            name, stage, ref_ins, ref_outs = self.ref[i]
+            self.log.append(None)
+            if name != str(func):
+                raise Found(f"the op sequences part at op #{i} ({stage}): {name} at batch 1, "
+                            f"{func} at batch {self.rows}")
+            for got, want in zip(ins, ref_ins):
+                part = _row0(got, want.shape, self.rows)
+                if part is not None and not _same_bits(part, want):
+                    raise Found(f"kernel(s) {sorted(launched)} launched before op #{i} {name} "
+                                f"({stage}): their output for row 0 differs")
+            for got, want in zip(outs, ref_outs):
+                part = _row0(got, want.shape, self.rows)
+                if part is not None and not _same_bits(part, want):
+                    err = float((part.float() - want.float()).abs().max()) \
+                        if part.is_floating_point() else float("nan")
+                    shapes = [tuple(t.shape) for t in _tensors(args)]
+                    raise Found(f"op #{i} {name} ({stage}): its output for row 0 differs (max "
+                                f"abs diff {err:.3g}, inputs {shapes} at batch {self.rows}; its "
+                                f"inputs for row 0 equal)")
+            return out
+
+    def run(rows: int, ref):
+        rec = Recorder(rows, ref)
+        with torch.inference_mode():
+            prefix = prefix_of(rows)
+            with rec:
+                rec.stage = "prefill"
+                dr = model._prefill(prefix, COBATCH_FRAMES, 2.0, rows, None, seeds_of(rows), None)
+                for step in range(steps):
+                    rec.stage = f"decode step {step + 1}"
+                    model._decode_step(dr, band_of(dr.pos0 + step + 1))
+        torch.cuda.synchronize()
+        return rec.log
+
+    ref = run(1, None)
+    try:
+        run(B, ref)
+    except Found as e:
+        return str(e)
+    return (f"none: all {len(ref)} ops of the prefill and {steps} decode steps give row 0 the "
+            f"same bits at batch {B}")
+
+
+def _cobatch_isolated(model) -> list[str]:
+    """Rows 0 and B of a batch against the same two rows alone (the CFG
+    pair), bit for bit, for each operation of the step whose kernel or plan
+    the row count may choose: every layer-0 product and the heads (cuBLAS, M
+    = 2 against 2B), the prefill's ``w2`` (M = 2 x 71 against 2B x 71), K2
+    and K1 (``grid_cap``) and K4 (``split_count``, on int8 weights made
+    here)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.decode_attention import (
+        decode_attention_single,
+        flash_decode_attention,
+    )
+    from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
+
+    gen = torch.Generator(device="cuda").manual_seed(COBATCH_SEED)
+    batches = (2,) + COBATCH_BATCHES
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def against(name, fn, make):
+        """fn on the two rows of make(1), and on the 2B rows of make(B) with
+        the pair placed at rows 0 and B."""
+        one = make(1)
+        ref = fn(*one)
+        same = []
+        for B in batches:
+            args = make(B)
+            for a, a1 in zip(args, one):
+                a[[0, B]] = a1
+            same.append(f"{2 * B}:{'=' if torch.equal(fn(*args)[[0, B]], ref) else 'x'}")
+        return f"{name}: " + " ".join(same)
+
+    lines = []
+    lp = model.params["backbone"]["layers"]
+    with torch.inference_mode():
+        for name in ("wqkv", "wo", "w1", "w2"):
+            w = lp[name][0]
+            lines.append(against(f"{name} {tuple(w.shape)} product (cuBLAS), rows",
+                                 lambda x, w=w: x @ w, lambda B, w=w: (rnd(2 * B, w.shape[0]),)))
+        w = model.params["heads"]
+        lines.append(against(f"heads {tuple(w.shape)} product (cuBLAS), rows",
+                             lambda x: x @ w, lambda B: (rnd(2 * B, w.shape[0]),)))
+        w = lp["w2"][0]
+        L = 71
+        lines.append(against(f"prefill w2 product [2B x {L}, {w.shape[0]}] (cuBLAS), rows",
+                             lambda x: (x.reshape(-1, w.shape[0]) @ w).reshape(x.shape[0], L, -1),
+                             lambda B: (rnd(2 * B, L, w.shape[0]),)))
+        Hkv, H, D, S = 4, 16, 128, 1024
+        for name, fn, length in (("K2", decode_attention_single, 200),
+                                 ("K1", flash_decode_attention, 700)):
+            lines.append(against(f"{name} at length {length}, rows",
+                                 lambda q, k, v, fn=fn, length=length: fn(q, k, v,
+                                                                          *on_card(length)),
+                                 lambda B: (rnd(2 * B, 1, H, D), rnd(2 * B, Hkv, S, D),
+                                            rnd(2 * B, Hkv, S, D))))
+        tail = layer_tail_args(gen, 2)
+        lines.append(against("K4 (int8 tail), rows", lambda a, r: fused_layer_tail(a, r, *tail[2:]),
+                             lambda B: (rnd(2 * B, tail[0].shape[1]), rnd(2 * B, tail[1].shape[1]))))
+    torch.cuda.synchronize()
+    return lines
+
+
+def _frames_differing(a, b) -> tuple[int, int | None]:
+    """(frames where any codebook differs, counting a length difference as
+    differing frames; the first such frame or None)."""
+    import numpy as np
+
+    n = min(a.shape[1], b.shape[1])
+    diff = (a[:, :n] != b[:, :n]).any(axis=0)
+    count = int(diff.sum()) + abs(a.shape[1] - b.shape[1])
+    first = int(np.argmax(diff)) if diff.any() else (n if a.shape[1] != b.shape[1] else None)
+    return count, first
+
+
+def phase_cobatch(card: str, model) -> dict:
+    """``[cobatch]``: does a request's output on the card depend on its
+    co-batched peers?  One request (its text, a speaker from the seed, seed
+    1234, default sampling, 256 frames) through the batcher's own
+    ``build_batch_prefix`` and ``generate`` alone at batch 1, and as row 0 at
+    batch 4, 8 and 64 among peers of other texts, speakers and seeds in the
+    same cond bucket.  Prints the frames that differ from the solo codes at
+    each batch and whether row 0's conditioning prefix is the solo one bit
+    for bit (``build_batch_prefix`` computes each request's rows on their
+    own); the first operation of the prefill and 12 decode steps whose row-0
+    result differs between batch 1 and batch 4 (``first_difference``); the
+    request in all 4 rows against alone; and, operation by operation, a row
+    alone against inside a batch (``_cobatch_isolated``).  It fails if row
+    0's conditioning differs; the rest it reports, and the contract on the
+    card is recorded as the numbers show it."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.serving import build_batch_prefix
+
+    tag = "[cobatch]"
+    rng = np.random.default_rng(COBATCH_SEED)
+    request = make_cond_dict(text=COBATCH_TEXT,
+                             speaker=rng.normal(size=(1, 1, 128)).astype(np.float32))
+    peers = [make_cond_dict(text=t, speaker=rng.normal(size=(1, 1, 128)).astype(np.float32))
+             for t in _peer_texts(max(COBATCH_BATCHES) - 1)]
+
+    def run(B: int):
+        prefix = build_batch_prefix(model, [request] + peers[:B - 1], 32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = model.generate(prefix, max_new_tokens=COBATCH_FRAMES, batch_size=B,
+                               seed=[COBATCH_SEED] + [5000 + i for i in range(B - 1)],
+                               progress_bar=False)
+        torch.cuda.synchronize()
+        return prefix, codes[0], time.perf_counter() - t
+
+    prefix1, solo, t1 = run(1)
+    result = {"solo_frames": int(solo.shape[1])}
+    print(f"{tag} the request alone: {solo.shape[1]} frames in {t1:.2f} s ({card})", flush=True)
+    for B in COBATCH_BATCHES:
+        prefix, codes, dt = run(B)
+        if prefix.shape[1] != prefix1.shape[1]:
+            fail(f"{tag} batch {B}: a peer left the request's cond bucket "
+                 f"({prefix.shape[1]} rows, alone {prefix1.shape[1]})")
+        same_prefix = torch.equal(prefix[0], prefix1[0]) and torch.equal(prefix[B], prefix1[1])
+        if not same_prefix:
+            fail(f"{tag} batch {B}: row 0's conditioning prefix differs from the solo one")
+        n, first = _frames_differing(solo, codes)
+        result[B] = {"frames": int(codes.shape[1]), "differing": n, "first": first,
+                     "prefix_equal": same_prefix}
+        print(f"{tag} batch {B}: row 0 {codes.shape[1]} frames, {n} differ from the solo codes "
+              f"(first at frame {first}); its conditioning prefix "
+              f"{'equal to' if same_prefix else 'differs from'} the solo one bit for bit; "
+              f"generate {dt:.2f} s ({card})", flush=True)
+    t = time.perf_counter()
+    where = first_difference(
+        model, lambda rows: build_batch_prefix(model, [request] + peers[:rows - 1], 32),
+        lambda rows: [COBATCH_SEED] + [5000 + i for i in range(rows - 1)], COBATCH_BATCHES[0],
+        steps=COBATCH_TRACED_STEPS)
+    result["first_difference"] = where
+    print(f"{tag} first operation of the prefill and {COBATCH_TRACED_STEPS} decode steps whose "
+          f"row-0 result "
+          f"differs between batch 1 and batch {COBATCH_BATCHES[0]}: {where} "
+          f"({time.perf_counter() - t:.1f} s to trace)", flush=True)
+
+    B = COBATCH_BATCHES[0]
+    same = model.generate(torch.cat([prefix1[0:1]] * B + [prefix1[1:2]] * B, dim=0),
+                          max_new_tokens=COBATCH_FRAMES, batch_size=B, seed=[COBATCH_SEED] * B,
+                          progress_bar=False)
+    n, first = _frames_differing(solo, same[0])
+    result["identical_rows"] = {"differing": n, "first": first,
+                                "rows_equal": all(np.array_equal(same[0], c) for c in same)}
+    print(f"{tag} the request in all {B} rows (its prefix and seed): {n} frames differ from "
+          f"the solo codes (first at frame {first}), the rows "
+          f"{'equal' if result['identical_rows']['rows_equal'] else 'unequal'} to each other "
+          f"({card})", flush=True)
+    for line in _cobatch_isolated(model):
+        print(f"{tag} row 0 alone (2 rows with CFG) against inside 2B rows, = equal, x "
+              f"differs: {line}", flush=True)
+    print(json.dumps({"cobatch": result, "card": card}), flush=True)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -3002,9 +3613,15 @@ def main(argv: list[str]) -> int:
     counts["stream transformer"] = phase_stream(card, model, dac)
     print(f"[time] transformer prefix and stream done {time.perf_counter() - t0:.1f} s",
           flush=True)
+    counts["serve transformer"], served = phase_serve(card, model, dac)
+    print(f"[time] serve transformer done {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_cobatch(card, model)
+    print(f"[time] cobatch done {time.perf_counter() - t0:.1f} s", flush=True)
     with temporary_models_dir() as models_dir:
         counts["checkpoint transformer"] = phase_checkpoint(card, "transformer", model, models_dir)
         phase_speaker(card, model, models_dir)
+        phase_serve_speakers(card, served, model)
+        served.close()
         counts["quickstart"] = phase_quickstart(card, models_dir)
     phase_ecapa(card)
     print(f"[time] checkpoint, speaker, quick start and ECAPA done "
@@ -3013,6 +3630,8 @@ def main(argv: list[str]) -> int:
     path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
     phase_profile_batch64(model, card)
     print(f"[time] transformer int8 b64 profile done {time.perf_counter() - t0:.1f} s", flush=True)
+    counts["serve transformer int8"] = phase_serve_int8(card, model)
+    print(f"[time] serve transformer int8 done {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
     model = load_model("transformer")  # a fresh seed-0 model

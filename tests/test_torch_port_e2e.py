@@ -178,6 +178,9 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         from zonos_tpu_torch.speaker_db import SpeakerUtils
         from zonos_tpu_torch.utils.checkpoint import export_zonos_checkpoint
         from zonos_tpu_torch.utils.hub import hub_download
+        import zonos_tpu_torch.apps.cli, zonos_tpu_torch.serving, zonos_tpu_torch.utils.profiling
+        from zonos_tpu_torch.longform import split_sentences
+        assert split_sentences("One. Two!") == ["One.", "Two!"]
         d = copy.deepcopy(TRANSFORMER_CONFIG_DICT)
         d["backbone"].update({{"d_model": 64, "n_layer": 2, "attn_mlp_d_intermediate": 128,
                               "attn_cfg": {{"num_heads": 4, "num_heads_kv": 2}}}})

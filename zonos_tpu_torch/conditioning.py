@@ -143,11 +143,21 @@ def _project(p: dict, projection: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _device_of(params: dict) -> torch.device:
+    """The device of a conditioner's first tensor, nested dicts included (a
+    Passthrough conditioner without an uncond vector holds only its
+    projection's)."""
+    for t in params.values():
+        if isinstance(t, torch.Tensor):
+            return t.device
+    return next(_device_of(t) for t in params.values() if isinstance(t, dict) and t)
+
+
 def conditioner_forward(params: dict, spec: ConditionerSpec, value) -> torch.Tensor:
     """One conditioner: raw input array (numpy or tensor) -> [b, seq, out_dim]."""
     if value is None:
         return params["uncond_vector"][None, None, :]
-    device = next(t for t in params.values() if isinstance(t, torch.Tensor)).device
+    device = _device_of(params)
     value = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value,
                             device=device)
     if spec.type == "Espeak":

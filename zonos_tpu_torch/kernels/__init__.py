@@ -41,3 +41,27 @@ def launches_since(before: dict[str, int]) -> dict[str, int]:
 def add_launches(counts: dict[str, int]) -> None:
     for name, n in counts.items():
         launch_counts[name] += n
+
+
+# each kernel source under csrc/ and the module of its wrapper
+_MODULES = {"decode_attention": "decode_attention", "sampling": "sampling",
+            "snake_conv": "snake_conv", "ssd_chunked": "ssd", "ssm_state": "ssm_state",
+            "layer_tail": "layer_tail", "int4_matmul": "int4_matmul"}
+
+
+def load_all(device_index: int) -> int:
+    """Build (where not built yet) and load every kernel library for the card
+    ``device_index``, with each one's attributes set there, so that no later
+    first launch does it; returns how many libraries."""
+    import importlib
+
+    from zonos_tpu_torch.kernels._build import build_all, library
+
+    build_all(tuple(_MODULES))
+    for source, module in _MODULES.items():
+        mod = importlib.import_module(f"zonos_tpu_torch.kernels.{module}")
+        if hasattr(mod, "_library"):  # the libraries that set attributes on the device
+            mod._library(device_index)
+        else:
+            library(source, mod._SIGNATURES)
+    return len(_MODULES)

@@ -93,6 +93,15 @@ class DACAutoencoder:
         wav = dac_decode(self.params, self.cfg, codes)  # [B, samples, 1]
         return wav.transpose(1, 2).cpu().numpy()
 
+    # -- post-processing (zonos_tpu/models/dac/__init__.py:106-110) -----
+    def trim_silence(self, wav: np.ndarray, threshold: float = 1e-5,
+                     frame_size: int = 512) -> np.ndarray:
+        return trim_silence(wav, threshold, frame_size)
+
+    def normalize_loudness(self, audio: np.ndarray, sr: int,
+                           target_lufs: float = -19.0) -> np.ndarray:
+        return normalize_loudness(audio, sr, target_lufs)
+
     def codes_to_wavs(self, codes) -> list[np.ndarray]:
         """Decode + normalize to -23 LUFS + trim + fade, per sample."""
         if isinstance(codes, (list, tuple)):
@@ -107,8 +116,8 @@ class DACAutoencoder:
                 logger.warning("empty code sequence, skipping decode")
                 continue
             wav = self.decode(c)[0]  # [1, samples]
-            wav = normalize_loudness(wav, self.sampling_rate, -23.0)
-            wav = trim_silence(wav)
+            wav = self.normalize_loudness(wav, self.sampling_rate, -23.0)
+            wav = self.trim_silence(wav)
             results.append(fade_in_out(wav))
         return results
 

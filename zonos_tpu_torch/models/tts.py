@@ -34,8 +34,10 @@ so that the concatenated chunks equal the full decode of the same codes.
 from __future__ import annotations
 
 import math
+import sys
 import time
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -344,6 +346,8 @@ class Zonos:
         batch_size: int = 1,
         sampling_params: dict | SamplingParams | None = None,
         seed=423,
+        progress_bar: bool = True,
+        callback: Callable[[np.ndarray, int, int], bool] | None = None,
         step_limits: np.ndarray | list[int] | int | None = None,
     ) -> list[np.ndarray]:
         """Sample DAC codes; returns a list of per-sample [K, T_i] int arrays
@@ -351,27 +355,47 @@ class Zonos:
         [B, K, P] (``DACAutoencoder.load_prefix_audio``) are prefilled after
         the conditioning and continued.  ``step_limits`` caps new frames per
         sample (or for all); ``seed`` is a scalar or one seed per sample.  On
-        the card the decode steps are CUDA-graph replays."""
+        the card the decode steps are CUDA-graph replays.
+
+        Every ``SYNC_INTERVAL`` steps, where the host reads ``remaining``
+        anyway, and once at the end, ``progress_bar`` rewrites one line on
+        stderr and ``callback(frame, done, total)`` is called, as JAX's host
+        chunks call it (zonos_tpu/models/tts.py:693-728): ``frame`` is
+        ``delayed[..., offset:offset + 1]`` [B, K, 1] at that point, ``done``
+        the steps taken as ``max_steps - max(remaining)``, ``total`` the
+        step budget.  A callback that returns a false value stops the decode;
+        the codes so far are trimmed as a finished run's are."""
         return self._generate(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
                               sampling_params, seed, step_limits,
                               graphs=self.device.type == "cuda",
-                              audio_prefix_codes=audio_prefix_codes)
+                              audio_prefix_codes=audio_prefix_codes,
+                              progress_bar=progress_bar, callback=callback)
 
     @torch.inference_mode()
     def _generate(self, prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
                   sampling_params, seed, step_limits, graphs: bool,
-                  audio_prefix_codes=None) -> list[np.ndarray]:
+                  audio_prefix_codes=None, progress_bar: bool = False,
+                  callback=None) -> list[np.ndarray]:
         """``generate``; ``graphs`` False runs every decode step eagerly (on
         the card too: what the graphs are held against)."""
         run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
                             sampling_params, seed, step_limits, audio_prefix_codes)
         step_graphs = _StepGraphs(self, run) if graphs else None
+        bar = _ProgressLine(run.max_steps) if progress_bar else None
         steps = 0
-        for step in range(run.max_steps):
-            if step and step % SYNC_INTERVAL == 0 and int(run.state.remaining.max()) <= 0:
-                break
-            self._step(run, step_graphs, step)
-            steps += 1
+        try:
+            for step in range(run.max_steps + 1):
+                # the host's only reads: at a chunk boundary and after the last step
+                if step == run.max_steps or (step and step % SYNC_INTERVAL == 0):
+                    remaining = int(run.state.remaining.max())
+                    go_on = self._report(run, remaining, bar, callback)
+                    if not go_on or remaining <= 0 or step == run.max_steps:
+                        break
+                self._step(run, step_graphs, step)
+                steps += 1
+        finally:
+            if bar is not None:
+                bar.close()
         self._record_stats(steps, step_graphs)
         return self._trim(run.delayed.cpu().numpy(), int(run.offset), step_limits,
                           run.prefix_audio_len)
@@ -527,6 +551,20 @@ class Zonos:
                 yield events
             if row_done.all():
                 break
+
+    @staticmethod
+    def _report(run: "_DecodeRun", remaining: int, bar: "_ProgressLine | None",
+                callback) -> bool:
+        """A chunk boundary's progress line and callback; False stops the
+        decode."""
+        done = min(run.max_steps, run.max_steps - remaining)
+        if bar is not None:
+            bar.update(done)
+        if callback is None:
+            return True
+        off = int(run.offset)
+        frame = run.delayed[..., off:off + 1].cpu().numpy()
+        return bool(callback(frame, done, run.max_steps))
 
     def _step(self, run: "_DecodeRun", step_graphs: "_StepGraphs | None", step: int) -> None:
         """Decode step ``step`` of ``run``: eagerly, or as a graph replay."""
@@ -697,6 +735,24 @@ class Zonos:
                 end = min(end, prefix_audio_len + int(limits[i]))
             results.append(out[i, :, prefix_audio_len:end].copy())
         return results
+
+
+class _ProgressLine:
+    """The decode's progress as one line on stderr, rewritten in place: the
+    counterpart of JAX's tqdm bar, with no dependency."""
+
+    def __init__(self, total: int):
+        self.total, self.t0 = total, time.perf_counter()
+        self.update(0)
+
+    def update(self, done: int) -> None:
+        rate = done / max(time.perf_counter() - self.t0, 1e-9)
+        sys.stderr.write(f"\rGenerating: {done}/{self.total} steps, {rate:.1f} steps/s")
+        sys.stderr.flush()
+
+    def close(self) -> None:
+        sys.stderr.write("\n")
+        sys.stderr.flush()
 
 
 @dataclass
