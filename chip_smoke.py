@@ -8,15 +8,18 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles every kernel under zonos_tpu_torch/csrc/ (one nvcc per
    source, in parallel) and prints the build time.
-3. kernels: holds each kernel (K1-K8, and K1/K2 over f8 and int8 caches)
-   against its plain PyTorch version on the same inputs at flagship shapes
+3. kernels: holds each kernel (K1-K8, G1 and N1, and K1/K2 over f8 and int8
+   caches) against its plain PyTorch version on the same inputs at flagship
+   shapes
    (K3 over both of its routes, batch 1, 4 and 64 and every branch of its
    function; K6 at L 1 to 1024, batch 16 and two groups at widths that are
    not tile multiples, and a row alone, at batch 2 and inside batch 16 bit
    for bit; K7 over int8 and int4 states at batch 1 and 8 with CFG, and a
    row alone against it inside batch 8; K5 also at the DAC encoder's
-   residual units of a 3-s clip), with the tolerance stated beside each
-   check.
+   residual units of a 3-s clip; G1 on every weight ``matmul_w`` gives it,
+   bf16 and int8, at 1 to 64 x 142 rows, a request's rows alone and first
+   in a batch bit for bit, and N1 likewise; K1 and K2 by every grid their
+   split allows, bit for bit), with the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -60,11 +63,14 @@ Phases, each of which fails the run (non-zero exit) on error:
      the captures' seconds. serve speakers: ``/v1/speakers`` on that server
      with the speaker files of ``[speaker]``; serve transformer int8: one
      such round after ``quantize_int8()``: K4.
-   - cobatch: one request alone and as row 0 at batch 4, 8 and 64: the
-     frames that differ from its solo codes, the first operation whose
-     row-0 result differs (a dispatch-mode trace), and a row alone against
-     inside a batch for each library product and K1, K2, K4 (reported; the
-     card's contract is recorded as measured).
+   - cobatch: one request alone and as row 0 at batch 4, 8 and 64: it
+     fails if any frame differs from its solo codes, or with the request in
+     all 4 rows; it prints the first operation whose row-0 result differs
+     (a dispatch-mode trace) and, operation by operation, a row alone
+     against inside a batch (G1's products, K8, N1, the prefill's
+     attention, K1, K2, K4); cobatch int8 at batch 4 and 64 after
+     ``quantize_int8()`` (held the same way), cobatch hybrid at batch 4
+     (reported).
    - checkpoint transformer / checkpoint hybrid: each in-memory flagship
      exported by ``export_zonos_checkpoint`` into a temporary models
      directory and read back by ``Zonos.from_pretrained``: every leaf equal
@@ -83,6 +89,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      frames with EOS banned, ``autoencoder.save_codes`` with the DAC read
      from an HF-named ``descript/dac_44khz/model.safetensors``); K1, K2, K3,
      K5; the wall of each step;
+   - apps: ``batch_cli`` over four texts, ``srt`` over a three-segment SRT
+     and ``cli --verbose_sampling`` (one trace line a decode step, read at
+     the polls), each through its own ``main`` and ``load_model`` on the
+     files of that directory; G1, N1, K2, K3, K5; walls and WAV lengths;
    - ecapa: ECAPA-TDNN at C 1024 on a 3-s mel, the card within 1e-3 x
      max|ref| of the CPU.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
@@ -92,8 +102,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    capture time and graphs captured.  The bf16 and quantized transformer
    paths and the bf16 hybrid path are each followed by a profile of their
    batch-1 decode step, eager and under the graphs (the steady-state step's
-   wall, the median of three pairs of generates, and device busy time and
-   idle share, top kernels, the port's kernels' ms per step); the int8 path
+   wall, the median of three pairs of generates under the graphs, one pair
+   eager, and device busy time and idle share, top kernels, the port's
+   kernels' ms per step); the int8 path
    also by one at batch 64 with the f8 KV cache (K4 at 128 rows).
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
@@ -158,14 +169,18 @@ TEXTS = [
     "It was the best of times, it was the worst of times.",
     "Rain in the morning, sunshine in the afternoon.",
 ]
+# G1 and N1 (every bf16 or int8 product and every norm on the card) run on every path with
+# bf16 or int8 weights
+PRODUCT_KERNELS = ("gemm", "row_norm")
 TRANSFORMER_KERNELS = ("flash_decode_attention", "decode_attention_single", "fused_sample",
-                       "snake_conv1d")
+                       "snake_conv1d") + PRODUCT_KERNELS
 HYBRID_KERNELS = TRANSFORMER_KERNELS + ("ssd_chunked", "fused_state_step")
 INT8_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_int8",
                                       "decode_attention_single_int8", "fused_layer_tail")
-INT4_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_f8", "decode_attention_single_f8",
-                                      "int4_matmul")
-HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul")
+# int4 weights everywhere, the heads too: K8, no G1
+INT4_KERNELS = tuple(k for k in TRANSFORMER_KERNELS if k != "gemm") + (
+    "flash_decode_attention_f8", "decode_attention_single_f8", "int4_matmul")
+HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul", "row_norm")
 HYBRID_INT4_NEW_TOKENS = 130
 # the [graph] phases: 470 new tokens after the smoke's 54-row prefix take the cache past 512
 # rows, through K2's band and both of K1's
@@ -177,8 +192,8 @@ STREAM_BATCH = 4  # [stream transformer]: stream_generate_batch's rows
 # [main hybrid int8]: batch 8 (16 CFG rows), each SSM-state storage under the CUDA graphs
 HYBRID_INT8_BATCH, HYBRID_INT8_NEW_TOKENS = 8, 130
 # (its cache stays within 256 rows: K2, not K1)
-HYBRID_INT8_KERNELS = ("ssd_chunked", "fused_sample", "decode_attention_single")
-PREFIX_KERNELS = ("flash_decode_attention", "fused_sample")
+HYBRID_INT8_KERNELS = ("ssd_chunked", "fused_sample", "decode_attention_single") + PRODUCT_KERNELS
+PREFIX_KERNELS = ("flash_decode_attention", "fused_sample") + PRODUCT_KERNELS
 # the flagship transformer's matmul weights [din, dout] (the heads: 9 x 1152 columns)
 FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384),
                     "w2": (8192, 2048), "heads": (2048, 10368)}
@@ -186,6 +201,11 @@ FLAGSHIP_WEIGHTS = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w1": (2048, 16384
 # the transformer's shapes); in_proj's 8512 columns end in a part-filled tile
 HYBRID_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
 INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
+# G1's checks: both row tiles (16 and 64 rows), splits in parallel CTAs and in turn, ragged
+# row tiles; a decode step's rows with CFG (2, 8, 128), a batch-1 prefill (142) and batch 64's
+GEMM_CHECK_ROWS = (1, 2, 8, 16, 17, 128, 142, 64 * 142)
+# G1's timed rows: decode steps at batch 1, 4 and 64 with CFG; the batch-1 and batch-64 prefills
+GEMM_TIMED_ROWS = (2, 8, 128, 142, 64 * 142)
 LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
 # K2's cluster plan at its edges: one CTA (1 to 64 rows), three (65 to 96), four (97 to
 # 128), five (129), six (192), seven (224), eight (255, 256) at 1 and 2 batch rows; two
@@ -892,6 +912,55 @@ def check_decode_attention_quantized(gen) -> dict:
     return worst
 
 
+def check_attention_grids(gen) -> None:
+    """K1 and K2 run by every grid their split allows (clusters of g CTAs,
+    each running n / g ranks in turn, as larger batches launch them)
+    against one CTA a rank, bit for bit, over bf16, f8 and int8 caches at
+    batch 1 with CFG: the grid follows the batch, the bits of a row's output
+    must not."""
+    import torch
+
+    from zonos_tpu_torch.kernels import decode_attention as da
+
+    real, checked = da.grid_cap, 0
+    try:
+        for kernel, lengths, S in (("K2", (1, 65, 100, 200, 256), 256),
+                                   ("K1", (257, 300, 1000, 2000), 2048)):
+            single = da.decode_attention_single if kernel == "K2" else da.flash_decode_attention
+            held = (da.decode_attention_single_held_out if kernel == "K2"
+                    else da.flash_decode_attention_held_out)
+            q, k_new, v_new = held_out_inputs(gen, 2)
+            k, v = (torch.randn((2, 4, S, 128), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            caches = {"bf16": None, **{st: quantized_cache(gen, st, 2, 4, S)
+                                       for st in ("f8", "int8")}}
+            for length in lengths:
+                for storage, cache in caches.items():
+                    if cache is None:
+                        call = lambda: single(q, k, v, *on_card(length))  # noqa: E731
+                    else:
+                        kq, vq, ks, vs = cache
+                        pos, band = on_card(length - 1, held_out=True)
+                        call = lambda: held(q, kq, vq, k_new, v_new, pos, ks, vs,  # noqa: E731
+                                            band=band)
+                    ref = None
+                    for g in (16, 8, 4, 2, 1):
+                        da.grid_cap = lambda *a, g=g: g
+                        got = call()
+                        torch.cuda.synchronize()
+                        if ref is None:
+                            ref = got
+                        elif not torch.equal(got, ref):
+                            fail(f"{kernel} {storage} length {length}: a grid of {g} CTAs a "
+                                 f"pair gives other bits than one CTA a rank")
+                        checked += 1
+    finally:
+        da.grid_cap = real
+    print(f"[kernels] K1/K2 by every grid of their split (16, 8, 4, 2, 1 CTAs a pair) equal to "
+          f"one CTA a rank bit for bit, {checked} launches over bf16, f8 and int8 caches",
+          flush=True)
+
+
 def int4_weight(gen, din: int, dout: int) -> dict:
     """A random N(0, 1/din) weight quantized to int4, groups of 128 rows."""
     import torch
@@ -975,6 +1044,109 @@ def check_layer_tail(gen) -> float:
               f"{int((got == ref).sum())}/{ref.numel()} outputs equal to the plain version's",
               flush=True)
     print(f"[kernels] K4 worst / max|ref| {worst_rel:.3g} (tolerance 1e-2)", flush=True)
+    return worst
+
+
+def _pair_in_batch(fn, one, rows: int, gen) -> bool:
+    """fn on the operand ``one`` (its first axis: a request's rows) against
+    fn on ``rows`` random rows with ``one`` placed first: the request's part
+    of the output the same bits?"""
+    import torch
+
+    big = torch.randn((rows,) + tuple(one.shape[1:]), generator=gen, device="cuda").to(one.dtype)
+    big[:one.shape[0]] = one
+    ref, got = fn(one), fn(big)[:one.shape[0]]
+    torch.cuda.synchronize()
+    return torch.equal(ref, got)
+
+
+def check_gemm(gen) -> float:
+    """G1 vs its plain version (fp32 sums of the bf16 products rounded once;
+    int8: then times the bf16 scales) at M in GEMM_CHECK_ROWS (both row
+    tiles, both ways of running the splits, ragged edges) for every weight
+    ``matmul_w`` gives it on the main paths: the flagship transformer's four
+    layer weights and the heads, the hybrid's in_proj and out_proj, in bf16
+    and int8.  Tolerance: 2 bf16 ulps of max|ref| (only the fp32 summation
+    order differs before the one rounding).  Then a request's rows alone
+    against the same rows first in a batch, bit for bit: 2 rows (a decode
+    step with CFG) in 128, and 142 (a batch-1 prefill) in 64 x 142.  Returns
+    the largest absolute error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+    from zonos_tpu_torch.ops.quant import quantize_weight_int8
+
+    worst, by_weight = 0.0, {}
+    for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
+        wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+        for kind, args in (("bf16", (wf.bfloat16(),)),
+                           ("int8", tuple(quantize_weight_int8(wf).values()))):
+            for M in GEMM_CHECK_ROWS:
+                x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+                ref = gemm_plain(x, *args).float()
+                got = gemm(x, *args).float()
+                torch.cuda.synchronize()
+                err, top = float((got - ref).abs().max()), float(ref.abs().max())
+                if not err <= 2 * bf16_ulp(top) or not bool(torch.isfinite(got).all()):
+                    fail(f"gemm {name} {kind} [{din},{dout}] M={M}: max abs err {err} > 2 bf16 "
+                         f"ulps of {top}")
+                worst = max(worst, err)
+                by_weight[f"{name} {kind}"] = max(by_weight.get(f"{name} {kind}", 0.0),
+                                                  err / bf16_ulp(top))
+            for rows, big in ((2, 128), (142, 64 * 142)):
+                one = torch.randn((rows, din), generator=gen, device="cuda").bfloat16()
+                if not _pair_in_batch(lambda x: gemm(x, *args), one, big, gen):
+                    fail(f"gemm {name} {kind}: {rows} rows alone and first in {big} differ")
+    print(f"[kernels] G1 ok at M in {GEMM_CHECK_ROWS}: max abs err {worst:.3g}; worst in bf16 "
+          f"ulps of max|ref| by weight " + ", ".join(f"{n} {r:.2g}" for n, r in by_weight.items())
+          + " (tolerance 2); 2 rows alone = first in 128, 142 alone = first in 9088, bit for bit",
+          flush=True)
+    return worst
+
+
+def check_row_norm(gen) -> float:
+    """N1 vs its plain versions: LayerNorm and RMSNorm (with and without
+    bias) of bf16 and fp32 rows of the flagship widths (d 2048, and the
+    hybrid mixer's 4096) at 1, 2, 8, 128 and 9088 rows.  Tolerance: 2 ulps of
+    max|ref| in the output dtype (bf16, or fp32 as 2^-22 of it): only the
+    fp32 statistics' summation order differs.  Then 2 rows alone against
+    first in 128, bit for bit.  Returns the largest absolute error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.row_norm import (
+        layer_norm,
+        layer_norm_plain,
+        rms_norm,
+        rms_norm_plain,
+    )
+
+    worst = 0.0
+    for d in (2048, 4096):
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        cases = (("layer", lambda x: layer_norm(x, scale, bias),
+                  lambda x: layer_norm_plain(x, scale, bias)),
+                 ("rms", lambda x: rms_norm(x, scale), lambda x: rms_norm_plain(x, scale)),
+                 ("rms+bias", lambda x: rms_norm(x, scale, bias=bias),
+                  lambda x: rms_norm_plain(x, scale, bias=bias)))
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, fn, plain in cases:
+                for rows in (1, 2, 8, 128, 9088):
+                    x = (3 + 2 * torch.randn((rows, d), generator=gen, device="cuda")).to(dtype)
+                    ref, got = plain(x).float(), fn(x).float()
+                    torch.cuda.synchronize()
+                    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+                    ulp = bf16_ulp(top) if dtype == torch.bfloat16 else top * 2.0 ** -22
+                    if not err <= 2 * ulp:
+                        fail(f"row_norm {name} {dtype} d={d} rows={rows}: max abs err {err} > 2 "
+                             f"ulps of {top}")
+                    worst = max(worst, err)
+                one = (3 + 2 * torch.randn((2, d), generator=gen, device="cuda")).to(dtype)
+                if not _pair_in_batch(fn, one, 128, gen):
+                    fail(f"row_norm {name} {dtype} d={d}: 2 rows alone and first in 128 differ")
+    print(f"[kernels] N1 ok (LayerNorm, RMSNorm, RMSNorm + bias; bf16 and fp32 rows of 2048 and "
+          f"4096 at 1-9088 rows): max abs err {worst:.3g} (tolerance 2 ulps of max|ref|); 2 rows "
+          f"alone = first in 128, bit for bit", flush=True)
     return worst
 
 
@@ -1494,10 +1666,11 @@ def phase_hybrid_int8(card: str, model) -> dict:
 
 
 # kernel-name fragments -> the port's kernel, for the profile's per-kernel line
-_PORT_KERNELS = (("flash_cluster", "K1"), ("cluster_pass", "K2"),
-                 ("fused_sample", "K3"), ("tail_pass", "K4"), ("tail_layer_norm", "K4"),
-                 ("snake_conv1d", "K5"),
-                 ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"))
+_PORT_KERNELS = (("flash_cluster", "K1"), ("flash_ranks", "K1"), ("cluster_pass", "K2"),
+                 ("pass_ranks", "K2"), ("fused_sample", "K3"), ("tail_pass", "K4"),
+                 ("tail_layer_norm", "K4"), ("snake_conv1d", "K5"),
+                 ("ssd_chunked", "K6"), ("state_step", "K7"), ("int4_matmul", "K8"),
+                 ("gemm_kernel", "G1"), ("row_norm_kernel", "N1"))
 # kernel-name fragments -> category, for the profile summary
 _CATEGORIES = (
     ("port kernels", tuple(frag for frag, _ in _PORT_KERNELS)),
@@ -1509,7 +1682,8 @@ def phase_profile(kind: str, model, prefix, card: str, batch: int = 1, sampling=
     """Where a decode step's time goes, for the eager loop and for the CUDA
     graphs.  A decode step in the steady state: the wall time of a generate
     of 64 new tokens (128 under the graphs, whose steps are cheap) less that
-    of one of 32, the median over three such pairs (shares are printed only
+    of one of 32, the median over three such pairs under the graphs and one
+    eagerly (shares are printed only
     where that median is positive and above the busy time), and the device-busy time of one of 24 less one of 8, each
     over the steps between them (the cache stays in K2's band, so each
     generate captures one graph, and the prefill, the eager first step and
@@ -1548,9 +1722,10 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
         return wall, steps, sum(e.self_device_time_total for e in kernels) / 1e3, kernels
 
     run(8)  # a new batch's shapes: libraries pick their kernels before anything is timed
-    # the steady step's wall: the median over three (short, long) pairs, so that one disturbed
-    # generate does not make it negative
-    pairs = [(run(new_tokens), run(more_tokens)) for _ in range(3)]
+    # the steady step's wall: the median over three (short, long) pairs under the graphs, so
+    # that one disturbed generate does not make it negative; one pair of the eager loop (its
+    # steps are 5-10x slower and its spread is recorded beside it, PERF.md section 5)
+    pairs = [(run(new_tokens), run(more_tokens)) for _ in range(3 if graphs else 1)]
     wall = statistics.median((w2 - w1) / (s2 - s1) for (w1, s1), (w2, s2) in pairs)
     wall2, steps2 = pairs[-1][1]
     traced1, traced_steps1, busy1, _ = profiled(8)
@@ -1566,7 +1741,7 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
               f"busy and idle shares not measured (steady wall {wall:.2f} ms/step, busy "
               f"{busy:.2f}: no share within 0-100%)")
     print(f"{tag} batch-{batch} decode step in the steady state: wall {wall:.2f} ms/step "
-          f"(median over 3 pairs of {more_tokens} less {new_tokens} new tokens, "
+          f"(median over {len(pairs)} pairs of {more_tokens} less {new_tokens} new tokens, "
           f"{steps2 - pairs[-1][0][1]} steps), device busy "
           f"{busy:.2f} ms/step (24 less 8, {traced_steps2 - traced_steps1} steps) = "
           f"{shares} (wall under the "
@@ -1661,8 +1836,9 @@ def _leaves(tree):
 REPOS = {"transformer": "Zyphra/Zonos-v0.1-transformer", "hybrid": "Zyphra/Zonos-v0.1-hybrid"}
 CHECKPOINT_NEW_TOKENS = 130  # [checkpoint ...]: the greedy generate held bit for bit
 # greedy decoding takes the argmax in plain torch: no K3 there
-CHECKPOINT_KERNELS = {"transformer": ("decode_attention_single",),
-                      "hybrid": ("decode_attention_single", "ssd_chunked", "fused_state_step")}
+CHECKPOINT_KERNELS = {"transformer": ("decode_attention_single",) + PRODUCT_KERNELS,
+                      "hybrid": ("decode_attention_single", "ssd_chunked", "fused_state_step")
+                      + PRODUCT_KERNELS}
 QUICKSTART_KERNELS = TRANSFORMER_KERNELS  # K1, K2, K3 and K5 (260 frames pass 256 cache rows)
 QUICKSTART_TEXT = "Hello, world! This is a test of the Zonos text to speech model."
 SPEAKER_SECONDS = (3, 10)  # [speaker]: the tower timed at these clip lengths; 10 s is embedded
@@ -1982,6 +2158,133 @@ def phase_quickstart(card: str, models_dir: str) -> dict:
     return counts
 
 
+APPS_TEXTS = TEXTS[:4]
+APPS_NEW_TOKENS = 172  # [apps]: batch_cli's budget, 2 s of audio a text
+APPS_TRACE_STEPS = 64  # [apps]: cli --verbose_sampling's decode steps (EOS banned: exactly these)
+APPS_SRT = ("1\n00:00:00,000 --> 00:00:01,200\nThe quick brown fox jumps over the lazy dog.\n\n"
+            "2\n00:00:01,500 --> 00:00:02,500\nSpeech synthesis is wonderful.\n\n"
+            "3\n00:00:03,000 --> 00:00:03,800\nHow are you today?\n")
+APPS_KERNELS = ("gemm", "row_norm", "decode_attention_single", "fused_sample", "snake_conv1d")
+
+
+def phase_apps(card: str, models_dir: str) -> dict:
+    """``[apps]``: the offline apps on the card as a user runs them, each
+    through its own ``main`` and ``load_model`` (the transformer read from
+    ``models_dir``, where ``[checkpoint transformer]`` wrote it, and the DAC
+    ``[quickstart]`` wrote): ``batch_cli`` over four texts in one batch
+    (scored), ``srt`` over a three-segment SRT written here (4 candidates a
+    segment, the concatenation), and ``cli --verbose_sampling`` for 64 decode
+    steps (EOS banned through a wrapped ``generate``), whose trace lines are
+    counted: one a step, read at the polls.  Prints each app's wall and its
+    WAVs' sample counts at 44.1 kHz; the launch counts are zeroed before and
+    read after: G1, N1, K2, K3 and K5."""
+    import logging
+
+    import torch
+
+    from zonos_tpu_torch.apps import batch_cli, cli, common, srt
+    from zonos_tpu_torch.audio.io import load_audio
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.models.tts import SYNC_INTERVAL
+    from zonos_tpu_torch.ops import sampling
+
+    tag = "[apps]"
+    out_dir = os.path.join(models_dir, "apps")
+    os.makedirs(out_dir, exist_ok=True)
+    walls, made = {}, []
+    real_load = common.load_model
+
+    def load(args):  # the apps' own loader; the model kept for its decode stats
+        m = real_load(args)
+        made.append(m)
+        if args.verbose_sampling:  # EOS banned, so that the trace spans the polls
+            generate = m.generate
+
+            def banned(*a, **kw):
+                kw["sampling_params"] = {**kw["sampling_params"], "ban_eos": True}
+                return generate(*a, **kw)
+
+            m.generate = banned
+        return m
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def samples(paths) -> list[int]:
+        rates_and_lengths = [(load_audio(p)[1], load_audio(p)[0].shape[1]) for p in paths]
+        if any(sr != 44100 or n == 0 for sr, n in rates_and_lengths):
+            fail(f"{tag} WAVs at (rate, samples) {rates_and_lengths}")
+        return [n for _, n in rates_and_lengths]
+
+    for mod in (batch_cli, cli, srt):
+        mod.load_model = load
+    reset_launch_counts()
+    try:
+        paths = run("batch_cli", lambda: batch_cli.main(
+            ["--text", *APPS_TEXTS, "--max_new_tokens", str(APPS_NEW_TOKENS),
+             "--output_dir", os.path.join(out_dir, "batch"), "--score"]))
+        batch_samples = samples(paths)
+        srt_path = os.path.join(out_dir, "three.srt")
+        with open(srt_path, "w") as f:
+            f.write(APPS_SRT)
+        run("srt", lambda: srt.main([srt_path, "--output_dir", os.path.join(out_dir, "srt"),
+                                     "--candidates", "4",
+                                     "--concat", os.path.join(out_dir, "srt.wav")]))
+        srt_paths = [os.path.join(out_dir, "srt", f"seg_{i:04d}.wav") for i in (1, 2, 3)]
+        if not all(os.path.exists(p) for p in srt_paths):
+            fail(f"{tag} srt wrote {sorted(os.listdir(os.path.join(out_dir, 'srt')))}")
+        srt_samples = samples(srt_paths + [os.path.join(out_dir, "srt.wav")])
+
+        lines = []
+
+        class Count(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        handler = Count(level=logging.DEBUG)
+        trace_log = logging.getLogger("zonos_tpu_torch.sampling.trace")
+        trace_log.addHandler(handler)
+        trace_log.propagate = False  # counted here, not printed
+        try:
+            out = os.path.join(out_dir, "verbose.wav")
+            run("cli --verbose_sampling", lambda: cli.main(
+                ["--text", TEXTS[1], "--output", out, "--max_new_tokens",
+                 str(APPS_TRACE_STEPS), "--no_progress_bar", "--verbose_sampling"]))
+        finally:
+            trace_log.removeHandler(handler)
+            trace_log.propagate = True
+            sampling.set_sampling_trace(False)
+        cli_samples = samples([out])
+        counts = dict(launch_counts)
+    finally:
+        for mod in (batch_cli, cli, srt):
+            mod.load_model = real_load
+    steps = made[-1].decode_stats["steps"]
+    if len(lines) != steps or steps <= SYNC_INTERVAL or not all(
+            line.startswith("probs: top=[[") for line in lines):
+        fail(f"{tag} {len(lines)} trace lines for {steps} decode steps")
+    for name in APPS_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched by the apps")
+    print(f"{tag} launches on this path: {counts}", flush=True)
+    print(f"{tag} batch_cli: {len(APPS_TEXTS)} texts in one batch, {APPS_NEW_TOKENS} new tokens, "
+          f"scored, {walls['batch_cli']:.2f} s (model load included); samples at 44.1 kHz "
+          f"{batch_samples} ({card})", flush=True)
+    print(f"{tag} srt: 3 segments x 4 candidates, {walls['srt']:.2f} s; samples at 44.1 kHz "
+          f"{srt_samples[:3]}, the concatenation {srt_samples[3]} ({card})", flush=True)
+    print(f"{tag} cli --verbose_sampling: {steps} decode steps, {len(lines)} trace lines (one a "
+          f"step, read at the polls), {walls['cli --verbose_sampling']:.2f} s; samples "
+          f"{cli_samples} ({card})", flush=True)
+    made.clear()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_ecapa(card: str) -> None:
     """``[ecapa]``: ECAPA-TDNN at C 1024 (random weights from a seed) on the
     log-mel of a 3-s clip, on the card against the CPU within 1e-3 x
@@ -2038,7 +2341,7 @@ SERVE_STREAMS = 2
 # K1 runs in the long-form segments: each has a step budget of 512 frames (past 256 cache rows)
 SERVE_KERNELS = TRANSFORMER_KERNELS
 SERVE_INT8_KERNELS = ("decode_attention_single", "fused_sample", "snake_conv1d",
-                      "fused_layer_tail")
+                      "fused_layer_tail") + PRODUCT_KERNELS
 # a 3-s segment budget splits this text into three segments
 LONG_TEXT = " ".join((TEXTS[0], TEXTS[1], TEXTS[7]))
 LONG_BUDGET, LONG_SEED, LONG_SEGMENTS = 3.0, 99, 3
@@ -2046,6 +2349,8 @@ LONG_BUDGET, LONG_SEED, LONG_SEGMENTS = 3.0, 99, 3
 COBATCH_TEXT = "Every request should sound the same alone or in a batch."
 COBATCH_FRAMES, COBATCH_SEED, COBATCH_BATCHES = 256, 1234, (4, 8, 64)
 COBATCH_TRACED_STEPS = 12  # decode steps the op-by-op comparison covers after the prefill
+COBATCH_INT8_BATCHES = (4, 64)  # the served int8 path: held as the bf16 one is
+COBATCH_HYBRID_BATCHES = (4,)  # the hybrid: reported, not held
 
 
 def _peer_texts(n: int) -> list[str]:
@@ -2339,7 +2644,9 @@ def _row0(t, ref_shape, B: int):
     import torch
 
     if tuple(t.shape) == tuple(ref_shape):
-        return t
+        # the same shape at both batches (a weight, or rows padded to a fixed batch): the
+        # first row along the first axis is the request's where rows lie there
+        return t[:1] if t.dim() and t.shape[0] > 1 and B > 1 else t
     if t.dim() != len(ref_shape):
         return None
     diff = [a for a in range(t.dim()) if t.shape[a] != ref_shape[a]]
@@ -2400,6 +2707,8 @@ def first_difference(model, prefix_of, seeds_of, B: int,
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if "empty" in str(func):  # an allocation: its bits are whatever the memory held,
+                return func(*args, **kwargs)  # and a kernel's scratch may differ by the rows
             launched = {k: n - self.before[k] for k, n in launch_counts.items()
                         if n != self.before[k]}
             ins = _tensors(args) + _tensors(list(kwargs.values())) if launched else []
@@ -2421,11 +2730,13 @@ def first_difference(model, prefix_of, seeds_of, B: int,
                             f"{func} at batch {self.rows}")
             for got, want in zip(ins, ref_ins):
                 part = _row0(got, want.shape, self.rows)
+                want = want[:part.shape[0]] if part is not None and part.dim() else want
                 if part is not None and not _same_bits(part, want):
                     raise Found(f"kernel(s) {sorted(launched)} launched before op #{i} {name} "
                                 f"({stage}): their output for row 0 differs")
             for got, want in zip(outs, ref_outs):
                 part = _row0(got, want.shape, self.rows)
+                want = want[:part.shape[0]] if part is not None and part.dim() else want
                 if part is not None and not _same_bits(part, want):
                     err = float((part.float() - want.float()).abs().max()) \
                         if part.is_floating_point() else float("nan")
@@ -2460,10 +2771,12 @@ def first_difference(model, prefix_of, seeds_of, B: int,
 def _cobatch_isolated(model) -> list[str]:
     """Rows 0 and B of a batch against the same two rows alone (the CFG
     pair), bit for bit, for each operation of the step whose kernel or plan
-    the row count may choose: every layer-0 product and the heads (cuBLAS, M
-    = 2 against 2B), the prefill's ``w2`` (M = 2 x 71 against 2B x 71), K2
-    and K1 (``grid_cap``) and K4 (``split_count``, on int8 weights made
-    here)."""
+    the row count could choose: every layer-0 product and the heads through
+    ``matmul_w`` (G1, M = 2 against 2B), the prefill's ``w2`` (M = 2 x 71
+    against 2B x 71), int4 products through ``matmul_w`` (K8, in chunks of 64
+    rows past 64), the layer norm (N1), the prefill's attention (torch: fp32
+    scores, softmax, bf16 values, over B x H_kv), K2 and K1 (``band_plan``)
+    and K4 (``split_count``, on int8 weights made here)."""
     import torch
 
     from zonos_tpu_torch.kernels.decode_attention import (
@@ -2471,6 +2784,9 @@ def _cobatch_isolated(model) -> list[str]:
         flash_decode_attention,
     )
     from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
+    from zonos_tpu_torch.ops.attention import fresh_prefill_attention
+    from zonos_tpu_torch.ops.norms import layer_norm
+    from zonos_tpu_torch.ops.quant import matmul_w
 
     gen = torch.Generator(device="cuda").manual_seed(COBATCH_SEED)
     batches = (2,) + COBATCH_BATCHES
@@ -2496,17 +2812,29 @@ def _cobatch_isolated(model) -> list[str]:
     with torch.inference_mode():
         for name in ("wqkv", "wo", "w1", "w2"):
             w = lp[name][0]
-            lines.append(against(f"{name} {tuple(w.shape)} product (cuBLAS), rows",
-                                 lambda x, w=w: x @ w, lambda B, w=w: (rnd(2 * B, w.shape[0]),)))
+            lines.append(against(f"{name} {tuple(w.shape)} product (matmul_w), rows",
+                                 lambda x, w=w: matmul_w(x, w),
+                                 lambda B, w=w: (rnd(2 * B, w.shape[0]),)))
         w = model.params["heads"]
-        lines.append(against(f"heads {tuple(w.shape)} product (cuBLAS), rows",
-                             lambda x: x @ w, lambda B: (rnd(2 * B, w.shape[0]),)))
+        lines.append(against(f"heads {tuple(w.shape)} product (matmul_w), rows",
+                             lambda x: matmul_w(x, w), lambda B: (rnd(2 * B, w.shape[0]),)))
         w = lp["w2"][0]
         L = 71
-        lines.append(against(f"prefill w2 product [2B x {L}, {w.shape[0]}] (cuBLAS), rows",
-                             lambda x: (x.reshape(-1, w.shape[0]) @ w).reshape(x.shape[0], L, -1),
-                             lambda B: (rnd(2 * B, L, w.shape[0]),)))
+        lines.append(against(f"prefill w2 product [2B x {L}, {w.shape[0]}] (matmul_w), rows",
+                             lambda x: matmul_w(x, w), lambda B: (rnd(2 * B, L, w.shape[0]),)))
+        w4 = int4_weight(gen, *FLAGSHIP_WEIGHTS["w2"])
+        lines.append(against("int4 w2 product (matmul_w: K8, chunks of 64 rows), rows",
+                             lambda x: matmul_w(x, w4),
+                             lambda B: (rnd(2 * B, FLAGSHIP_WEIGHTS["w2"][0]),)))
+        d = lp["norm1_scale"].shape[-1]
+        lines.append(against("layer norm (N1), rows",
+                             lambda x: layer_norm(x, lp["norm1_scale"][0], lp["norm1_bias"][0]),
+                             lambda B: (rnd(2 * B, L, d),)))
         Hkv, H, D, S = 4, 16, 128, 1024
+        lines.append(against(f"prefill attention over {L} rows (torch), rows",
+                             lambda q, k, v: fresh_prefill_attention(q, k, v),
+                             lambda B: (rnd(2 * B, L, H, D), rnd(2 * B, L, Hkv, D),
+                                        rnd(2 * B, L, Hkv, D))))
         for name, fn, length in (("K2", decode_attention_single, 200),
                                  ("K1", flash_decode_attention, 700)):
             lines.append(against(f"{name} at length {length}, rows",
@@ -2533,33 +2861,36 @@ def _frames_differing(a, b) -> tuple[int, int | None]:
     return count, first
 
 
-def phase_cobatch(card: str, model) -> dict:
+def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATCHES,
+                  strict: bool = True, full: bool = True) -> dict:
     """``[cobatch]``: does a request's output on the card depend on its
     co-batched peers?  One request (its text, a speaker from the seed, seed
     1234, default sampling, 256 frames) through the batcher's own
     ``build_batch_prefix`` and ``generate`` alone at batch 1, and as row 0 at
-    batch 4, 8 and 64 among peers of other texts, speakers and seeds in the
+    each of ``batches`` among peers of other texts, speakers and seeds in the
     same cond bucket.  Prints the frames that differ from the solo codes at
     each batch and whether row 0's conditioning prefix is the solo one bit
-    for bit (``build_batch_prefix`` computes each request's rows on their
-    own); the first operation of the prefill and 12 decode steps whose row-0
-    result differs between batch 1 and batch 4 (``first_difference``); the
-    request in all 4 rows against alone; and, operation by operation, a row
-    alone against inside a batch (``_cobatch_isolated``).  It fails if row
-    0's conditioning differs; the rest it reports, and the contract on the
-    card is recorded as the numbers show it."""
+    for bit; the first operation of the prefill and 12 decode steps whose
+    row-0 result differs between batch 1 and the first batch
+    (``first_difference``: always with ``full``, else where a batch
+    differed); with ``full``, the request in all 4 rows against alone and,
+    operation by operation, a row alone against inside a batch
+    (``_cobatch_isolated``).  It fails if row 0's conditioning differs, and
+    with ``strict`` if any frame of row 0 (or, with ``full``, of the
+    request in all 4 rows) differs from the solo codes: the contract the
+    served paths keep on the card (G1, N1 and the batch-free plans of K1,
+    K2, K4 and K8)."""
     import numpy as np
     import torch
 
     from zonos_tpu_torch import make_cond_dict
     from zonos_tpu_torch.serving import build_batch_prefix
 
-    tag = "[cobatch]"
     rng = np.random.default_rng(COBATCH_SEED)
     request = make_cond_dict(text=COBATCH_TEXT,
                              speaker=rng.normal(size=(1, 1, 128)).astype(np.float32))
     peers = [make_cond_dict(text=t, speaker=rng.normal(size=(1, 1, 128)).astype(np.float32))
-             for t in _peer_texts(max(COBATCH_BATCHES) - 1)]
+             for t in _peer_texts(max(batches) - 1)]
 
     def run(B: int):
         prefix = build_batch_prefix(model, [request] + peers[:B - 1], 32)
@@ -2573,8 +2904,9 @@ def phase_cobatch(card: str, model) -> dict:
 
     prefix1, solo, t1 = run(1)
     result = {"solo_frames": int(solo.shape[1])}
+    faults = []
     print(f"{tag} the request alone: {solo.shape[1]} frames in {t1:.2f} s ({card})", flush=True)
-    for B in COBATCH_BATCHES:
+    for B in batches:
         prefix, codes, dt = run(B)
         if prefix.shape[1] != prefix1.shape[1]:
             fail(f"{tag} batch {B}: a peer left the request's cond bucket "
@@ -2583,38 +2915,44 @@ def phase_cobatch(card: str, model) -> dict:
         if not same_prefix:
             fail(f"{tag} batch {B}: row 0's conditioning prefix differs from the solo one")
         n, first = _frames_differing(solo, codes)
+        if n:
+            faults.append(f"batch {B}: {n} frames differ from frame {first}")
         result[B] = {"frames": int(codes.shape[1]), "differing": n, "first": first,
                      "prefix_equal": same_prefix}
         print(f"{tag} batch {B}: row 0 {codes.shape[1]} frames, {n} differ from the solo codes "
               f"(first at frame {first}); its conditioning prefix "
               f"{'equal to' if same_prefix else 'differs from'} the solo one bit for bit; "
               f"generate {dt:.2f} s ({card})", flush=True)
-    t = time.perf_counter()
-    where = first_difference(
-        model, lambda rows: build_batch_prefix(model, [request] + peers[:rows - 1], 32),
-        lambda rows: [COBATCH_SEED] + [5000 + i for i in range(rows - 1)], COBATCH_BATCHES[0],
-        steps=COBATCH_TRACED_STEPS)
-    result["first_difference"] = where
-    print(f"{tag} first operation of the prefill and {COBATCH_TRACED_STEPS} decode steps whose "
-          f"row-0 result "
-          f"differs between batch 1 and batch {COBATCH_BATCHES[0]}: {where} "
-          f"({time.perf_counter() - t:.1f} s to trace)", flush=True)
-
-    B = COBATCH_BATCHES[0]
-    same = model.generate(torch.cat([prefix1[0:1]] * B + [prefix1[1:2]] * B, dim=0),
-                          max_new_tokens=COBATCH_FRAMES, batch_size=B, seed=[COBATCH_SEED] * B,
-                          progress_bar=False)
-    n, first = _frames_differing(solo, same[0])
-    result["identical_rows"] = {"differing": n, "first": first,
-                                "rows_equal": all(np.array_equal(same[0], c) for c in same)}
-    print(f"{tag} the request in all {B} rows (its prefix and seed): {n} frames differ from "
-          f"the solo codes (first at frame {first}), the rows "
-          f"{'equal' if result['identical_rows']['rows_equal'] else 'unequal'} to each other "
-          f"({card})", flush=True)
-    for line in _cobatch_isolated(model):
-        print(f"{tag} row 0 alone (2 rows with CFG) against inside 2B rows, = equal, x "
-              f"differs: {line}", flush=True)
-    print(json.dumps({"cobatch": result, "card": card}), flush=True)
+    if full or faults:
+        t = time.perf_counter()
+        where = first_difference(
+            model, lambda rows: build_batch_prefix(model, [request] + peers[:rows - 1], 32),
+            lambda rows: [COBATCH_SEED] + [5000 + i for i in range(rows - 1)], batches[0],
+            steps=COBATCH_TRACED_STEPS)
+        result["first_difference"] = where
+        print(f"{tag} first operation of the prefill and {COBATCH_TRACED_STEPS} decode steps whose "
+              f"row-0 result differs between batch 1 and batch {batches[0]}: {where} "
+              f"({time.perf_counter() - t:.1f} s to trace)", flush=True)
+    if full:
+        B = batches[0]
+        same = model.generate(torch.cat([prefix1[0:1]] * B + [prefix1[1:2]] * B, dim=0),
+                              max_new_tokens=COBATCH_FRAMES, batch_size=B,
+                              seed=[COBATCH_SEED] * B, progress_bar=False)
+        n, first = _frames_differing(solo, same[0])
+        rows_equal = all(np.array_equal(same[0], c) for c in same)
+        if n or not rows_equal:
+            faults.append(f"the request in all {B} rows: {n} frames differ from frame {first}, "
+                          f"rows {'equal' if rows_equal else 'unequal'}")
+        result["identical_rows"] = {"differing": n, "first": first, "rows_equal": rows_equal}
+        print(f"{tag} the request in all {B} rows (its prefix and seed): {n} frames differ from "
+              f"the solo codes (first at frame {first}), the rows "
+              f"{'equal' if rows_equal else 'unequal'} to each other ({card})", flush=True)
+        for line in _cobatch_isolated(model):
+            print(f"{tag} row 0 alone (2 rows with CFG) against inside 2B rows, = equal, x "
+                  f"differs: {line}", flush=True)
+    print(json.dumps({"cobatch": result, "tag": tag, "card": card}), flush=True)
+    if strict and faults:
+        fail(f"{tag} a request's codes depend on its co-batched peers: " + "; ".join(faults))
     return result
 
 
@@ -2812,6 +3150,72 @@ def time_int4_matmul(gen, label: str, din: int, dout: int, M: int,
             **_bound(2.0 * M * din * dout, nbytes, BF16_FLOPS_PER_S),
             "library_ms": device_ms(library_call)[0],
             "library": "torch.matmul of x by the pre-dequantized bf16 weight (4x the weight bytes)"}
+
+
+def time_gemm(gen, label: str, din: int, dout: int, M: int, int8: bool = False) -> dict:
+    """G1 on one flagship weight (bf16, or int8 with its scales) at M rows,
+    cycling over enough weights to exceed the 50 MB L2 (one set where a set
+    alone passes it).  The library yardstick is one torch.matmul of x by the
+    bf16 weight (for int8: by the integers cast to bf16 beforehand, the
+    product before the scales: twice the weight bytes).  Large M takes fewer
+    timed calls (the plain fp32 product takes milliseconds)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+    from zonos_tpu_torch.ops.quant import quantize_weight_int8
+
+    wbytes = din * dout * (1 if int8 else 2)
+    n_sets = 1 if wbytes + 2 * M * din > 64e6 else 2 + int(64e6 // (wbytes + 2 * M * din))
+    sets = []
+    for _ in range(n_sets):
+        wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+        x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+        if int8:
+            w = quantize_weight_int8(wf)
+            sets.append((x, (w["q"], w["s"]), w["q"].bfloat16()))
+        else:
+            sets.append((x, (wf.bfloat16(),), wf.bfloat16()))
+        del wf
+    cycle = itertools.cycle(sets)
+
+    def call(f):
+        x, args, _ = next(cycle)
+        return f(x, *args)
+
+    def library_call():
+        x, _, wb = next(cycle)
+        return torch.matmul(x, wb)
+
+    calls, reps = (20, 21) if M <= 256 else (3, 7)
+    nbytes = wbytes + (2 * dout if int8 else 0) + 2 * M * din + 2 * M * dout
+    return {"shape": f"{label}: x [{M},{din}] bf16 @ {'int8' if int8 else 'bf16'} "
+                     f"[{din},{dout}]{' + bf16 scales' if int8 else ''}, L2 cold",
+            "ms": device_ms(lambda: call(gemm), calls, reps)[0],
+            "plain_ms": device_ms(lambda: call(gemm_plain), calls, reps)[0],
+            **_bound(2.0 * M * din * dout, nbytes, BF16_FLOPS_PER_S),
+            "library_ms": device_ms(library_call, calls, reps)[0],
+            "library": "torch.matmul" + (" by the integers pre-cast to bf16 (no scales)"
+                                         if int8 else "")}
+
+
+def time_row_norm(gen, rows: int, d: int = 2048) -> dict:
+    """N1's LayerNorm of ``rows`` bf16 rows of width ``d`` (the flagship's
+    norms: 2 rows at batch 1 with CFG, 142 in its prefill) beside the plain
+    version and F.layer_norm (which computes the same function in one call),
+    L2 warm as in the step."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_tpu_torch.kernels.row_norm import layer_norm, layer_norm_plain
+
+    x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    return {"shape": f"LayerNorm of x [{rows},{d}] bf16, fp32 statistics, L2 warm",
+            **_times(lambda: layer_norm(x, scale, bias), lambda: layer_norm_plain(x, scale, bias)),
+            **_bound(8.0 * rows * d, 4 * rows * d + 4 * d),
+            "library_ms": device_ms(lambda: F.layer_norm(x, (d,), scale, bias))[0],
+            "library": "torch.nn.functional.layer_norm"}
 
 
 def time_layer_tail(gen, B2: int, target_ctas: int | None = None) -> dict:
@@ -3072,6 +3476,28 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
                  if (name, M) != ("w1", 2)]
                 + [time_int4_matmul(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 64)],
     })
+    out.append({
+        "name": "gemm", "id": "G1", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/gemm.cu",
+        "replaces": "zonos_tpu/models/backbone.py:46 (no TPU kernel: XLA's dot in matmul_w)",
+        **_launches("gemm", counts),
+        "max_abs_err": errs["gemm"],
+        **time_gemm(gen, "w2", *FLAGSHIP_WEIGHTS["w2"], 2),
+        "more": [time_gemm(gen, name, din, dout, M)
+                 for M in GEMM_TIMED_ROWS for name, (din, dout) in FLAGSHIP_WEIGHTS.items()
+                 if (name, M) != ("w2", 2)]
+                + [time_gemm(gen, name, *FLAGSHIP_WEIGHTS[name], M, int8=True)
+                   for M in (2, 142) for name in ("wqkv", "heads")],
+    })
+    out.append({
+        "name": "row_norm", "id": "N1", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/row_norm.cu",
+        "replaces": "zonos_tpu/ops/norms.py:16 (no TPU kernel: XLA's reductions)",
+        **_launches("row_norm", counts),
+        "max_abs_err": errs["row_norm"],
+        **time_row_norm(gen, 2),
+        "more": [time_row_norm(gen, rows) for rows in (128, 142, 64 * 142)],
+    })
     return out
 
 
@@ -3246,7 +3672,7 @@ def k2_sweep(gen, card: str) -> None:
             lo, hi, chunk_max = plan.lo, plan.hi, plan.chunk_max
         check(lib.zt_decode_attention_single(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0], k.shape[1],
-            q.shape[2] // k.shape[1], k.shape[2], rows.data_ptr(), lo, hi, n, chunk_max,
+            q.shape[2] // k.shape[1], k.shape[2], rows.data_ptr(), lo, hi, n, n, chunk_max,
             min_rows, da.attention_scale(128), torch.cuda.current_stream().cuda_stream),
             "K2 sweep")
         return out
@@ -3290,7 +3716,7 @@ def k1_sweep(gen, card: str) -> None:
         B, _, H, _ = q.shape
         Hkv, S = k.shape[1], k.shape[2]
         stream = torch.cuda.current_stream().cuda_stream
-        plan = (rows.data_ptr(), length, length, n, chunk, da.ONE_CTA_ROWS, scale, stream)
+        plan = (rows.data_ptr(), length, length, n, n, chunk, da.ONE_CTA_ROWS, scale, stream)
         if k_new is None:
             rc = lib.zt_flash_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                                out.data_ptr(), B, Hkv, H // Hkv, S, *plan)
@@ -3325,7 +3751,7 @@ def k1_sweep(gen, card: str) -> None:
             plan = da.band_plan("K1", band, pairs, S, False, sm_count(0))
             print(f"[sweep] K1 {label} length {length}, us by cluster: " + ", ".join(
                 f"{k}: {v}" for k, v in row.items())
-                + f" (default {plan.n} CTAs; {card})", flush=True)
+                + f" (default {plan.n} ranks on {plan.grid} CTAs; {card})", flush=True)
 
 
 def k5_sweep(gen, card: str, frames: int = 86) -> None:
@@ -3584,8 +4010,11 @@ def main(argv: list[str]) -> int:
     check_snake_conv_encoder(gen)
     errs.update(check_decode_attention_quantized(gen))
     check_flash_attention(gen, errs)
+    check_attention_grids(gen)
     errs["fused_layer_tail"] = check_layer_tail(gen)
     errs["int4_matmul"] = check_int4_matmul(gen)
+    errs["gemm"] = check_gemm(gen)
+    errs["row_norm"] = check_row_norm(gen)
 
     from zonos_tpu_torch import DACAutoencoder
 
@@ -3623,11 +4052,14 @@ def main(argv: list[str]) -> int:
         phase_serve_speakers(card, served, model)
         served.close()
         counts["quickstart"] = phase_quickstart(card, models_dir)
+        counts["apps"] = phase_apps(card, models_dir)
+        print(f"[time] apps done {time.perf_counter() - t0:.1f} s", flush=True)
     phase_ecapa(card)
     print(f"[time] checkpoint, speaker, quick start and ECAPA done "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     quantize_model("transformer", model, "int8")  # the bf16 model, quantized in place
     path("transformer int8", model, 4, INT8_KERNELS, TRANSFORMER_NEW_TOKENS, batch_kv="int8")
+    phase_cobatch(card, model, "[cobatch int8]", COBATCH_INT8_BATCHES, full=False)
     phase_profile_batch64(model, card)
     print(f"[time] transformer int8 b64 profile done {time.perf_counter() - t0:.1f} s", flush=True)
     counts["serve transformer int8"] = phase_serve_int8(card, model)
@@ -3642,6 +4074,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     model = load_model("hybrid")
     prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
+    phase_cobatch(card, model, "[cobatch hybrid]", COBATCH_HYBRID_BATCHES, strict=False,
+                  full=False)
     counts["prefix hybrid"] = phase_prefix(card, "hybrid", model, prefix, audio_codes,
                                            PREFIX_KERNELS + ("ssd_chunked", "fused_state_step"))
     with temporary_models_dir() as models_dir:

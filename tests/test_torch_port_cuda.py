@@ -566,8 +566,8 @@ def test_flash_cluster_kernel_held_out_matches_plain(gen, storage, B, G, pos):
 def test_flash_plan_fits_the_card(gen, storage):
     """The card holds all 8 clusters of K1's batch-1 plan at 2000 and 4095
     rows (16 CTAs each) at once up to 4 query heads a kv head (the flagship's;
-    at 8 a CTA's registers fill an SM, and at least one cluster fits), and a
-    full wave of the batch-64 plan's."""
+    at 8 a CTA's registers fill an SM, and at least one cluster fits); the
+    batch-64 plan splits the rows as batch 1's, one CTA a pair running them."""
     from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.kernels.decode_attention import band_of, band_plan, max_active_clusters
 
@@ -578,7 +578,8 @@ def test_flash_plan_fits_the_card(gen, storage):
             assert plan.n == 16
             assert max_active_clusters(storage, G, plan.n, plan.chunk_max) >= (8 if G <= 4 else 1)
         plan = band_plan("K1", band_of(2000), 512, 2048, True, sms)
-        assert max_active_clusters(storage, G, plan.n, plan.chunk_max) * plan.n >= sms
+        assert plan.split == band_plan("K1", band_of(2000), 8, 2048, True, sms).split
+        assert plan.grid == 1
 
 
 def test_decode_attention_held_out_rejects_bf16_cache(gen):
@@ -695,6 +696,111 @@ def test_fused_layer_tail_kernel_matches_plain(gen, B2, d, inter):
     assert launch_counts["fused_layer_tail"] == before + 1
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# G1, N1, and a row alone against the same row in a batch of 64 (128 rows with CFG)
+# ---------------------------------------------------------------------------
+
+GEMM_SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 10368),
+               (2048, 8512), (4096, 2048)]  # the flagships' wqkv, wo, w1, w2, heads, in/out_proj
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (int(np.floor(np.log2(max(x, 1e-30)))) - 7)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("M", [1, 2, 17, 142])
+@pytest.mark.parametrize("din,dout", GEMM_SHAPES)
+def test_gemm_kernel_matches_plain(gen, din, dout, M, int8):
+    """G1 within 2 bf16 ulps of max|ref| of its plain version (the fp32 sums
+    of the same bf16 products, in another order, rounded once)."""
+    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+
+    wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+    w = tuple(quantize_weight_int8(wf).values()) if int8 else (wf.bfloat16(),)
+    x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+    before = launch_counts["gemm"]
+    got = gemm(x, *w).float()
+    assert launch_counts["gemm"] == before + 1
+    ref = gemm_plain(x, *w).float()
+    assert (got - ref).abs().max() <= 2 * _bf16_ulp(float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 2, 130, 9088])
+def test_row_norm_kernel_matches_plain(gen, rows, dtype):
+    """N1's LayerNorm and RMSNorm (with a bias too) within 2 ulps of max|ref|
+    in the output dtype of the plain versions."""
+    from zonos_tpu_torch.kernels.row_norm import (
+        layer_norm,
+        layer_norm_plain,
+        rms_norm,
+        rms_norm_plain,
+    )
+
+    d = 2048
+    x = (3 + 2 * torch.randn((rows, d), generator=gen, device="cuda")).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    for got, ref in ((layer_norm(x, scale, bias), layer_norm_plain(x, scale, bias)),
+                     (rms_norm(x, scale), rms_norm_plain(x, scale)),
+                     (rms_norm(x, scale, bias=bias), rms_norm_plain(x, scale, bias=bias))):
+        top = float(ref.float().abs().max())
+        ulp = _bf16_ulp(top) if dtype == torch.bfloat16 else top * 2.0 ** -22
+        assert got.dtype == dtype and (got.float() - ref.float()).abs().max() <= 2 * ulp
+
+
+def _alone_and_in_batch(gen, fn, make):
+    """fn on a pair of rows (a request with CFG) and on 128 rows (batch 64)
+    with the pair at rows 0 and 64: the pair's outputs bit for bit."""
+    one = make(2)
+    ref = fn(*one)
+    args = make(128)
+    for a, a1 in zip(args, one):
+        a[[0, 64]] = a1
+    got = fn(*args)[[0, 64]]
+    torch.cuda.synchronize()
+    return torch.equal(got, ref)
+
+
+def _rnd(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+
+def test_row_alone_equals_row_in_batch_64(gen):
+    """G1 (bf16 and int8, a decode step and a 71-row prefill), K8 through
+    ``matmul_w`` (128 rows: two chunks of 64), N1, K2 (length 200), K1
+    (2000) and K4: a request's rows give the same bits alone and in a batch
+    of 64 with CFG."""
+    from zonos_tpu_torch.kernels.gemm import gemm
+    from zonos_tpu_torch.kernels.row_norm import layer_norm
+    from zonos_tpu_torch.ops.quant import matmul_w
+
+    w = (torch.randn((8192, 2048), generator=gen, device="cuda") / 90.0)
+    w8 = quantize_weight_int8(w)
+    w4 = quantize_weight_int4(w, 128)
+    scale, bias = _rnd(gen, 2048) + 1, _rnd(gen, 2048) * 0.1
+    tail = _tail_args(gen, 2)
+    cases = {
+        "G1 bf16": (lambda x: gemm(x, w.bfloat16()), lambda B: (_rnd(gen, B, 8192),)),
+        "G1 int8": (lambda x: gemm(x, w8["q"], w8["s"]), lambda B: (_rnd(gen, B, 8192),)),
+        "G1 prefill": (lambda x: matmul_w(x, w.bfloat16()), lambda B: (_rnd(gen, B, 71, 8192),)),
+        "K8": (lambda x: matmul_w(x, w4), lambda B: (_rnd(gen, B, 8192),)),
+        "N1": (lambda x: layer_norm(x, scale, bias), lambda B: (_rnd(gen, B, 71, 2048),)),
+        "K2": (lambda q, k, v: decode_attention_single(q, k, v, 200),
+               lambda B: (_rnd(gen, B, 1, 16, 128), _rnd(gen, B, 4, 256, 128),
+                          _rnd(gen, B, 4, 256, 128))),
+        "K1": (lambda q, k, v: flash_decode_attention(q, k, v, 2000),
+               lambda B: (_rnd(gen, B, 1, 16, 128), _rnd(gen, B, 4, 2048, 128),
+                          _rnd(gen, B, 4, 2048, 128))),
+        "K4": (lambda a, r: fused_layer_tail(a, r, *tail[2:]),
+               lambda B: (_rnd(gen, B, 2048), _rnd(gen, B, 2048))),
+    }
+    differ = [name for name, (fn, make) in cases.items()
+              if not _alone_and_in_batch(gen, fn, make)]
+    assert not differ, differ
 
 
 def test_fused_layer_tail_kernel_rejects_bf16_weights(gen):

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from zonos_tpu_torch.kernels import decode_attention as k12
+from zonos_tpu_torch.kernels import gemm as g1
 from zonos_tpu_torch.kernels import int4_matmul as k8
+from zonos_tpu_torch.kernels import row_norm as n1
 from zonos_tpu_torch.kernels import layer_tail as k4
 from zonos_tpu_torch.kernels import sampling as k3
 from zonos_tpu_torch.kernels import snake_conv as k5
@@ -152,6 +154,29 @@ CASES = {
     "K8 bf16 scales needed": (lambda **kw: k8.kernel_takes(2, 2048, 16384, 128, **kw),
                               dict(s_dtype=F32), False),
     "K8 65 rows": (lambda **kw: k8.kernel_takes(65, 2048, 2048, 128, **kw), {}, False),
+    # G1: bf16 x by a bf16 weight, or an int8 one with bf16 scales; K and N multiples of 16
+    "G1 flagship w2": (lambda **kw: g1.kernel_takes(2, 8192, 2048, **kw), {}, True),
+    "G1 batch-64 prefill heads": (lambda **kw: g1.kernel_takes(9088, 2048, 10368, **kw), {}, True),
+    "G1 int8 wqkv": (lambda **kw: g1.kernel_takes(2, 2048, 3072, BF, I8, BF, **kw), {}, True),
+    "G1 hybrid in_proj (8512 columns)": (lambda **kw: g1.kernel_takes(2, 2048, 8512, **kw), {},
+                                         True),
+    "G1 fp32 model": (lambda **kw: g1.kernel_takes(2, 64, 48, F32, F32, **kw), {}, False),
+    "G1 K 72": (lambda **kw: g1.kernel_takes(2, 72, 48, **kw), {}, False),
+    "G1 N 40": (lambda **kw: g1.kernel_takes(2, 64, 40, **kw), {}, False),
+    "G1 int8 without scales": (lambda **kw: g1.kernel_takes(2, 64, 48, BF, I8, **kw), {}, False),
+    "G1 bf16 weight with scales": (lambda **kw: g1.kernel_takes(2, 64, 48, BF, BF, BF, **kw), {},
+                                   False),
+    # N1: bf16 or fp32 rows of a multiple of 16, bf16 scale and bias
+    "N1 flagship LayerNorm": (lambda: n1.kernel_takes(_t(2, 1, 2048, dtype=BF), _t(2048, dtype=BF),
+                                                      _t(2048, dtype=BF)), {}, True),
+    "N1 hybrid fp32 residual": (lambda: n1.kernel_takes(_t(2, 1, 2048), _t(2048, dtype=BF)), {},
+                                True),
+    "N1 fp32 model": (lambda: n1.kernel_takes(_t(2, 1, 64), _t(64), _t(64)), {}, False),
+    "N1 d 72": (lambda: n1.kernel_takes(_t(2, 72, dtype=BF), _t(72, dtype=BF)), {}, False),
+    "N1 fp16 rows": (lambda: n1.kernel_takes(_t(2, 64, dtype=torch.float16), _t(64, dtype=BF)),
+                     {}, False),
+    "N1 scale of another width": (lambda: n1.kernel_takes(_t(2, 64, dtype=BF), _t(48, dtype=BF)),
+                                  {}, False),
 }
 
 
@@ -167,11 +192,13 @@ def test_kernel_takes(case):
 def test_layer_tail_split_count_fits_the_kernel(K, N, halves, B2):
     """Every split count the wrapper passes K4 gives splits of whole k-steps
     (16 rows, as the C launcher rounds them), none empty, each at least one
-    ring stage where K allows; the default fills at most one wave of 132 SMs,
-    and a tile's partials stay within what its last CTA adds."""
-    tiles = -(-N // k4.TILE) * -(-B2 // k4.MAX_ROWS)
+    ring stage where K allows; the default fills at most one wave of 132 SMs
+    over the column tiles (a row tile's; more rows add row tiles, never
+    change a row's splits), and a tile's partials stay within what its last
+    CTA adds."""
+    tiles = -(-N // k4.TILE)
     for target in (66, 132, 264):
-        n = k4.split_count(K, N, B2, target, halves)
+        n = k4.split_count(K, N, target, halves)
         rows = -(-K // n)
         rows = -(-rows // k4.ALIGN) * k4.ALIGN  # zt_fused_layer_tail's rows per split
         assert (n - 1) * rows < K <= n * rows

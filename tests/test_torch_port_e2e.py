@@ -179,6 +179,12 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         from zonos_tpu_torch.utils.checkpoint import export_zonos_checkpoint
         from zonos_tpu_torch.utils.hub import hub_download
         import zonos_tpu_torch.apps.cli, zonos_tpu_torch.serving, zonos_tpu_torch.utils.profiling
+        import zonos_tpu_torch.apps.batch_cli, zonos_tpu_torch.apps.srt
+        import zonos_tpu_torch.apps.sampler_explain, zonos_tpu_torch.kernels.gemm
+        import zonos_tpu_torch.kernels.row_norm, zonos_tpu_torch.text.metrics
+        from zonos_tpu_torch.audio.native import resample_native
+        from zonos_tpu_torch.text.metrics import phoneme_error_rate
+        assert phoneme_error_rate("həloʊ", "həloʊ") == 0.0
         from zonos_tpu_torch.longform import split_sentences
         assert split_sentences("One. Two!") == ["One.", "Two!"]
         d = copy.deepcopy(TRANSFORMER_CONFIG_DICT)

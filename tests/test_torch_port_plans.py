@@ -210,16 +210,19 @@ def test_cluster_plan_covers_every_row_once(bh_kv):
 
 
 def test_cluster_plan_at_the_flagship_shapes():
-    """Batch 1 with CFG (8 pairs): clusters of 8 over the band up to 256 rows,
-    32 rows a CTA at 256; up to 64 rows one CTA; batch 64 with CFG (512 pairs,
-    one CTA a pair already fills the card): one CTA."""
-    assert band_plan("K2", Band(1, 256), 8, 2048, False, SMS) == BandPlan(8, 32, 1, 256, 64)
-    assert band_plan("K2", Band(1, 256), 8, 2048, True, SMS) == BandPlan(8, 32, 0, 255, 64)
+    """Batch 1 with CFG (8 pairs): 8 ranks over the band up to 256 rows, 32
+    rows a rank at 256, one CTA a rank; up to 64 rows one rank; batch 64 with
+    CFG (512 pairs): the same 8 ranks, so that a row splits its cache rows
+    as it does alone, run by one CTA a pair (one CTA a pair already fills
+    the card)."""
+    assert band_plan("K2", Band(1, 256), 8, 2048, False, SMS) == BandPlan(8, 32, 1, 256, 64, 8)
+    assert band_plan("K2", Band(1, 256), 8, 2048, True, SMS) == BandPlan(8, 32, 0, 255, 64, 8)
     assert rank_rows(256, 8, 32) == (8, 32)
     assert rank_rows(65, 8, 32) == (3, 32)
     assert rank_rows(64, 8, 32) == (1, 64)
-    assert band_plan("K2", Band(1, 256), 512, 2048, False, SMS).n == 1
-    assert rank_rows(256, 1, 32) == (1, 256)
+    b64 = band_plan("K2", Band(1, 256), 512, 2048, False, SMS)
+    assert (b64.n, b64.grid) == (8, 1)
+    assert rank_rows(256, 8, 32) == (8, 32)
 
 
 def test_bands_cover_every_length_once():
@@ -368,25 +371,30 @@ def test_flash_plan_covers_every_row_once(bh_kv):
     for length in list(range(256, 300)) + list(range(300, 4097, 37)) + [4095, 4096]:
         grid, used, chunk = _split("K1", length, bh_kv, held_out=length == 256)
         assert grid <= MAX_FLASH_CLUSTER and (used == 1 or chunk >= ONE_CTA_ROWS)
-        assert grid == 1 or 2 * bh_kv * grid <= 2 * SMS  # clusters only while pairs leave SMs idle
+        # batch 1's split (8 pairs) at every batch: a row's split is its own
+        assert grid == _split("K1", length, 8, held_out=length == 256)[0]
         _covers_once(length, grid, used, chunk)
 
 
 def test_flash_plan_at_the_flagship_shapes():
     """Batch 1 with CFG (8 pairs): clusters of 8 up to 512 rows and of 16
     beyond (128 CTAs on 132 SMs); at 2000 rows 16 CTAs of 128, at 512 8 of
-    64; batch 2 with CFG (16 pairs): 8 CTAs a pair; batch 64 with CFG (512
-    pairs) at pos 1999: one CTA a pair, which streams all 1999 rows.  A split
-    may leave its last CTA without rows (1665 rows: 15 x 112 = 1680)."""
+    64; batch 2 (16 pairs) and batch 64 (512 pairs) with CFG the same, so
+    that a row's split does not depend on the batch (at pos 1999 with the
+    held-out row: 16 CTAs of 128).  A split may leave its last CTA without
+    rows (1665 rows: 15 x 112 = 1680)."""
     assert _split("K1", 2000, 8) == (16, 16, 128)
     assert _split("K1", 4095, 8) == (16, 16, 256)
     assert _split("K1", 512, 8) == (8, 8, 64)
     assert _split("K1", 300, 8) == (8, 5, 64)
-    assert _split("K1", 2000, 16) == (8, 8, 256)
-    assert _split("K1", 1999, 512, held_out=True) == (1, 1, 2000)
+    assert _split("K1", 2000, 16) == (16, 16, 128)
+    assert _split("K1", 1999, 512, held_out=True) == (16, 16, 128)
     assert _split("K1", 1665, 8) == (16, 16, 112)
     assert band_plan("K1", Band(513, None), 8, 4096, False, SMS) == BandPlan(16, 64, 513, 4096,
-                                                                             256)
+                                                                             256, 16)
+    # batch 64 with CFG: the same split, one CTA a pair running its 16 ranks in turn
+    assert band_plan("K1", Band(513, None), 512, 4096, False, SMS) == BandPlan(16, 64, 513, 4096,
+                                                                               256, 1)
 
 
 # the lengths each band is checked at: its edges, and inside it lengths where the split

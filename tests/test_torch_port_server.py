@@ -230,7 +230,8 @@ def test_entry_point_help(module, tmp_path):
 
 def test_entry_points_refuse_the_cpu_without_being_asked():
     """``--device cuda`` (the default) raises without a card instead of
-    running on the CPU; ``--verbose_sampling`` is not ported and says so."""
+    running on the CPU, with ``--verbose_sampling`` too (the trace runs on
+    the CPU only when asked for: ``tests/test_torch_port_apps.py``)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from zonos_tpu_torch.apps import cli
@@ -240,8 +241,8 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
         server.main(["--device", "cuda", "--port", "0"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--text", "hello"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--text", "hello", "--device", "cpu", "--verbose_sampling"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--text", "hello", "--verbose_sampling"])
 
 
 def test_cli_writes_a_wav_on_the_cpu(tmp_path, tiny, monkeypatch):

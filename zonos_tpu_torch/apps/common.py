@@ -64,7 +64,8 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                    help="Device to run on (default cuda; raises without a card).")
     g.add_argument("--verbose", action="store_true")
     g.add_argument("--verbose_sampling", action="store_true",
-                   help="Per-step sampling-distribution stats: not yet ported (raises).")
+                   help="Per-step sampling-distribution stats (zonos_tpu_torch.sampling.trace "
+                        "logger), logged at the decode loop's polls.")
     g.add_argument("--profile", default=None, metavar="DIR",
                    help="Write a torch.profiler trace of generation to DIR/trace.json.")
 
@@ -110,15 +111,19 @@ def load_model(args):
     from zonos_tpu_torch.models.tts import Zonos
     from zonos_tpu_torch.utils.device import resolve_device
 
-    if getattr(args, "verbose_sampling", False):
-        # JAX's trace is a host callback inside the decode step; the port's
-        # step replays as a CUDA graph, where no host callback can run
-        raise NotImplementedError("--verbose_sampling is not yet ported to the PyTorch port")
     device = resolve_device(args.device)
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG)
     else:
         logging.basicConfig(level=logging.INFO)
+    if getattr(args, "verbose_sampling", False):
+        from zonos_tpu_torch.ops.sampling import set_sampling_trace
+
+        # the steps write their statistics on the device; generate logs them
+        # at its polls.  The child logger's DEBUG level passes the root's
+        # INFO level; its records still reach the root's handler
+        set_sampling_trace(True)
+        logging.getLogger("zonos_tpu_torch.sampling.trace").setLevel(logging.DEBUG)
 
     name = args.model
     if os.path.isdir(name):

@@ -1,8 +1,10 @@
 """WAV read/write and resampling with scipy + stdlib.
 
-WAV via scipy.io.wavfile (int16/int32/float32 handled), polyphase resampling
-via scipy.signal.resample_poly (a windowed-sinc kernel).  The JAX package's
-native C++ resampler is not carried over: scipy is the reference it matches.
+WAV via scipy.io.wavfile (int16/int32/float32 handled); polyphase resampling
+by the repository's native C++ engine (``audio/native.py``, built on first
+use) where it builds, else by scipy.signal.resample_poly, whose default
+windowed-sinc filter the engine's design matches (as the JAX package
+dispatches, zonos_tpu/audio/io.py:46-67).
 """
 
 from __future__ import annotations
@@ -42,11 +44,19 @@ def save_audio(path: str, wav: np.ndarray, sr: int) -> None:
 
 
 def resample(wav: np.ndarray, sr_from: int, sr_to: int) -> np.ndarray:
-    """Polyphase resample along the last axis."""
+    """Polyphase resample along the last axis: the native engine for 1-D and
+    ``[channels, samples]`` input where it builds, scipy otherwise."""
     if sr_from == sr_to:
         return np.asarray(wav, np.float32)
     g = math.gcd(sr_from, sr_to)
     up, down = sr_to // g, sr_from // g
+    wav2 = np.asarray(wav, np.float32)
+    if wav2.ndim in (1, 2):
+        from zonos_tpu_torch.audio.native import resample_native
+
+        out = resample_native(wav2[None] if wav2.ndim == 1 else wav2, up, down)
+        if out is not None:
+            return out[0] if wav2.ndim == 1 else out
     return resample_poly(np.asarray(wav, np.float64), up, down, axis=-1).astype(np.float32)
 
 

@@ -39,14 +39,20 @@
 //   l = 0, acc = 0) to the combine, which rank 0's rows (or held-out row) keep finite.  When
 //   the split is one CTA, rank 0 writes the output and the cluster's other CTAs exit at
 //   once, with no cluster barrier on either side.
-// - K2 (`cluster_pass_kernel`, the band of lengths up to 256): clusters of up to 8 CTAs
-//   (the portable limit) of at least 32 rows while the grid stays within two CTAs per SM; a
-//   CTA stages its whole chunk (up to 256 rows) before it computes.  Up to 64 rows one CTA
-//   a pair, where a cluster's barriers and exchange cost more than they save.
-// - K1 (`flash_cluster_kernel`, the bands past 256): clusters of up to 16 CTAs (a
+// - The split is fixed by the band alone (kernels/decode_attention.py band_plan): n ranks
+//   of a pair's rows, each rank's partial computed the same way and the partials combined in
+//   rank order, so a row's output is the same bits alone and in any batch.  How many CTAs
+//   run a pair's ranks (the cluster's size g, a divisor of n) follows the number of pairs,
+//   to fill the card: each CTA runs n / g ranks one after another, and the combine reads the
+//   same partials whatever g is.
+// - K2 (`cluster_pass_kernel`, the band of lengths up to 256): up to 8 ranks (the portable
+//   cluster limit) of at least 32 rows; a rank stages its whole chunk (up to 256 rows)
+//   before it computes.  Up to 64 rows one rank, where a split's exchange costs more than it
+//   saves.  Clusters of 8 while the grid stays within two CTAs per SM, fewer beyond.
+// - K1 (`flash_cluster_kernel`, the bands past 256): up to 16 ranks (clusters of 16 are a
 //   non-portable size, allowed by a function attribute) of at least 64 rows, so that the 8
-//   pairs of batch 1 with CFG become 128 CTAs on 132 SMs; at batch 64 with CFG (512 pairs)
-//   fewer CTAs a pair (kernels/decode_attention.py band_plan).  A rank streams its chunk
+//   pairs of batch 1 with CFG become 128 CTAs on 132 SMs; fewer CTAs a pair once the pairs
+//   fill the card.  A rank streams its chunk
 //   through a ring of two 32 KB stages (64 rows of bf16 K and V, 128 of f8 or int8),
 //   carrying (m, l, acc) online: the next stage's copies are in flight while the current
 //   one is computed.  A CTA takes at most 64 KB of shared memory, so a 16-CTA cluster fits
@@ -81,6 +87,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -140,6 +147,34 @@ __device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
     const unsigned char* b = reinterpret_cast<const unsigned char*>(&raw);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
+      if constexpr (std::is_same<T, f8>::value) {
+        f8 v;
+        v.__x = b[i];
+        f[i] = static_cast<float>(v);
+      } else {
+        f[i] = static_cast<float>(static_cast<int8_t>(b[i]));
+      }
+    }
+  }
+}
+
+// Widens the 4 values of T at p (8-byte aligned for bf16, 4-byte aligned otherwise).
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&f)[4]) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  } else {
+    const unsigned raw = *reinterpret_cast<const unsigned*>(p);
+    const unsigned char* b = reinterpret_cast<const unsigned char*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
       if constexpr (std::is_same<T, f8>::value) {
         f8 v;
         v.__x = b[i];
@@ -431,6 +466,7 @@ struct Call {
   bf16* out;  // [B*H_kv, G, D]
   const int* rows;
   int S, lo, hi, min_rows;
+  int n;  // the split's ranks (kernels/decode_attention.py band_plan), a multiple of the grid's x
   float scale;
 
   __device__ Rows<T> rows_of(int bh) const {
@@ -531,6 +567,263 @@ __device__ __forceinline__ void cluster_attend(const Call<T>& c, int xchg) {
   }
 }
 
+// The same split run by fewer CTAs: grid (g, B * H_kv), clusters of g CTAs along x, where g
+// divides the split's n ranks and CTA c runs ranks c * per ... (per = n / g) one after
+// another (g = 1: one CTA runs them all).  Each rank's partial is the one its own CTA would
+// compute, and the first used_ctas = ceil(used / per) CTAs own the output columns and combine
+// the partials in rank order exactly as cluster_attend does, so a row's output is the same
+// bits whatever g is; g follows the number of pairs, to fill the card.  After each of its
+// ranks a CTA stores the rank's m and l into every owner and its acc into the owner of each
+// column (through distributed shared memory when g > 1).
+// - K2, whose ranks hold 32 rows (a warp's rows) each: the CTA stages all its ranks' rows at
+//   once, and warp v computes rank v's statistics from its own lanes' rows (a warp's reduction
+//   of the rank's rows gives the bits the CTA-wide reduction of one rank's stage gives: the
+//   other warps add -inf and 0) and then its value sums, lane L for columns 4L..4L+3, with
+//   attend_rows' row groups, fmaf chains and order of adding them.  Any other chunk size runs
+//   rank by rank, as K1 does.
+// - K1: rank by rank, each through attend_rows (the ring restarts at every rank).
+template <int G, typename T, bool kFlash>
+__device__ __forceinline__ void ranks_attend(const Call<T>& c, int xchg) {
+  const int grid = gridDim.x, rank = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = c.n, per = n / grid;
+  uint4 q[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    q[g] = *reinterpret_cast<const uint4*>(c.q + ((size_t)bh * G + g) * kD +
+                                           tid % kLanesPerRow * 8);
+  const int length = min(max(*c.rows, c.lo), c.hi);
+  const int used = split_ctas(length, n, c.min_rows);
+  const int chunk = round_up((length + used - 1) / used, kRowsPerPass);
+  constexpr int kStageRows = kFlash ? kFlashStageRows<T> : kBlockS;
+  constexpr int kRing = kFlash ? kFlashRing : 1;
+  const Rows<T> rows = c.rows_of(bh);
+  float m[G], l[G], acc[G];
+  bf16* out = c.out + (size_t)bh * G * kD;
+  if (used == 1) {
+    if (rank > 0) return;  // every CTA of the cluster agrees: no barrier below
+    attend_rows<G, T, kQuantized<T>, kStageRows, kRing>(q, rows, 0, min(chunk, length), true,
+                                                        c.scale, m, l, acc);
+    if (tid < kD) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) out[g * kD + tid] = __float2bfloat16(acc[g] / l[g]);
+    }
+    return;
+  }
+  const bool clustered = grid > 1;
+  const int used_ctas = (used + per - 1) / per;
+  if (clustered) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (rank >= used_ctas) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+  // the exchange area: m [n][G], l [n][G], acc [used][G][width]: G * (3 * n + per * kD)
+  // floats at most
+  const int width = (kD + used_ctas - 1) / used_ctas;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* xm = reinterpret_cast<float*>(dyn + xchg);
+  float* xl = xm + n * G;
+  float* xacc = xl + n * G;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r_begin = rank * per, r_end = min(r_begin + per, used);
+  auto store = [&](int r, const float (&rm)[G], const float (&rl)[G], const float (&racc)[G]) {
+    if (clustered && r == r_begin)
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every CTA has started
+    if (tid < kD) {  // column tid goes to the CTA that owns it
+      float* base = clustered ? cluster.map_shared_rank(xacc, tid / width) : xacc;
+      float* dst = base + r * G * width + tid % width;
+#pragma unroll
+      for (int g = 0; g < G; ++g) dst[g * width] = racc[g];
+    }
+    if (tid < used_ctas) {  // m and l go to every owner
+      float* dm = (clustered ? cluster.map_shared_rank(xm, tid) : xm) + r * G;
+      float* dl = (clustered ? cluster.map_shared_rank(xl, tid) : xl) + r * G;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        dm[g] = rm[g];
+        dl[g] = rl[g];
+      }
+    }
+  };
+  bool staged = false;
+  if constexpr (!kFlash) {
+    if (chunk == 32) {  // each rank one warp's rows
+      staged = true;
+      __shared__ float s[G][kBlockS];
+      __shared__ float kscale[kScaled<T> ? kBlockS : 1];
+      __shared__ float vscale[kScaled<T> ? kBlockS : 1];
+      __shared__ float rstat[3][kWarps][G];  // each rank's m, l and correction
+      const int sub = tid % kLanesPerRow, row_in_pass = tid / kLanesPerRow;
+      const int row0 = r_begin * 32, nrows = min(r_end * 32, length) - row0;
+      const int slot_rows = round_up(nrows, kRowsPerPass);
+      T* ks = reinterpret_cast<T*>(dyn);
+      T* vs = ks + slot_rows * kD;
+      copy_rows<T, kBlockS>(ks, rows.k + (size_t)row0 * kD, nrows, slot_rows);
+      if constexpr (kScaled<T>) copy_scales(kscale, rows.ks + row0, nrows, slot_rows);
+      commit_copies();
+      copy_rows<T, kBlockS>(vs, rows.v + (size_t)row0 * kD, nrows, slot_rows);
+      if constexpr (kScaled<T>) copy_scales(vscale, rows.vs + row0, nrows, slot_rows);
+      commit_copies();
+      float qf[G][8], held_m[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        widen8(q[g], qf[g]);
+        held_m[g] = -INFINITY;
+      }
+      const bool held = kQuantized<T> && r_begin == 0;  // rank 0 starts from the held-out row
+      if (held) {
+        float kn[8];
+        widen8(*reinterpret_cast<const uint4*>(rows.k_new + sub * 8), kn);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dot = fmaf(qf[g][i], kn[i], dot);
+#pragma unroll
+          for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          held_m[g] = dot * c.scale;
+        }
+      }
+      wait_staged<1>();  // K has landed; V may be in flight
+      for (int r = row_in_pass; r - row_in_pass < nrows; r += kRowsPerPass) {
+        float kf[8];
+        load8(ks + r * kD + sub * 8, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) dot = fmaf(qf[g][j], kf[j], dot);
+#pragma unroll
+          for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (sub == 0 && r < nrows) {
+            float sc = dot * c.scale;
+            if constexpr (kScaled<T>) sc *= kscale[r];
+            s[g][r] = sc;
+          }
+        }
+      }
+      __syncthreads();
+      // each rank's statistics from its warp's rows (row tid of the stage)
+      const bool first = held && warp == 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float sv = tid < nrows ? s[g][tid] : -INFINITY;
+        const float m0 = first ? held_m[g] : -INFINITY;
+        const float m_new = fmaxf(m0, warp_max(sv));
+        const float corr = expf(m0 - m_new);  // 0 without the held-out row (m0 = -inf)
+        const float p = tid < nrows ? expf(sv - m_new) : 0.f;
+        s[g][tid] = p;
+        const float sum = warp_sum(p);
+        if (lane == 0) {
+          rstat[0][warp][g] = m_new;
+          rstat[1][warp][g] = (first ? 1.f : 0.f) * corr + sum;
+          rstat[2][warp][g] = corr;
+        }
+      }
+      wait_staged<0>();  // V has landed; the p values and statistics are published
+      if (clustered)
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every CTA has started
+      // values: warp v sums rank v's rows, lane L its 4 columns 4L..4L+3, as attend_rows does
+      // for the rank alone: row group rg (rows rg and 16 + rg of the rank, the second only
+      // where the rank has more than 16) accumulates from its start by fmaf, the row groups
+      // of a warp are added in pairs (2w, 2w + 1) and the pairs in order
+      if (warp < r_end - r_begin) {
+        const int v = warp, r = r_begin + v;
+        const int passes = min(32, length - 32 * r) > kRowsPerPass ? 2 : 1;
+        float corr[G], held_v[4] = {0.f, 0.f, 0.f, 0.f}, t[G][4];
+#pragma unroll
+        for (int g = 0; g < G; ++g) corr[g] = rstat[2][v][g];
+        if (held && r == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) held_v[i] = __bfloat162float(rows.v_new[4 * lane + i]);
+        }
+#pragma unroll 1
+        for (int w = 0; w < kWarps; ++w) {
+          float pair[G][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rg = 2 * w + h;
+            float a[G][4];
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) a[g][i] = (rg == 0 ? held_v[i] : 0.f) * corr[g];
+            for (int k = 0; k < passes; ++k) {
+              const int row = 32 * v + k * kRowsPerPass + rg;
+              float vf[4];
+              load4(vs + row * kD + 4 * lane, vf);
+              const float row_scale = kScaled<T> ? vscale[row] : 1.f;
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+                const float p = kScaled<T> ? s[g][row] * row_scale : s[g][row];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) a[g][i] = fmaf(p, vf[i], a[g][i]);
+              }
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) pair[g][i] = h == 0 ? a[g][i] : pair[g][i] + a[g][i];
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) t[g][i] = w == 0 ? pair[g][i] : t[g][i] + pair[g][i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // column 4L + i goes to the CTA that owns it
+          const int col = 4 * lane + i;
+          float* base = clustered ? cluster.map_shared_rank(xacc, col / width) : xacc;
+          float* dst = base + r * G * width + col % width;
+#pragma unroll
+          for (int g = 0; g < G; ++g) dst[g * width] = t[g][i];
+        }
+        if (lane < used_ctas) {  // m and l go to every owner
+          float* dm = (clustered ? cluster.map_shared_rank(xm, lane) : xm) + r * G;
+          float* dl = (clustered ? cluster.map_shared_rank(xl, lane) : xl) + r * G;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            dm[g] = rstat[0][v][g];
+            dl[g] = rstat[1][v][g];
+          }
+        }
+      }
+    }
+  }
+  if (!staged) {
+    for (int r = r_begin; r < r_end; ++r) {
+      if (r > r_begin) __syncthreads();  // the previous rank's stages and partials are read
+      const int r0 = min(r * chunk, length), r1 = min(r0 + chunk, length);
+      attend_rows<G, T, kQuantized<T>, kStageRows, kRing>(q, rows, r0, r1, r == 0, c.scale, m,
+                                                          l, acc);
+      store(r, m, l, acc);
+    }
+  }
+  if (clustered) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+  const int cols = min(width, kD - rank * width);
+  for (int i = tid; i < G * cols; i += kThreads) {
+    const int g = i / cols, j = i % cols;
+    float mx = -INFINITY;
+    for (int r = 0; r < used; ++r) mx = fmaxf(mx, xm[r * G + g]);
+    float lsum = 0.f, o = 0.f;
+    for (int r = 0; r < used; ++r) {
+      const float w = expf(xm[r * G + g] - mx);  // 0 for an empty rank
+      lsum += xl[r * G + g] * w;
+      o += xacc[(r * G + g) * width + j] * w;
+    }
+    out[g * kD + rank * width + j] = __float2bfloat16(o / lsum);
+  }
+}
+
 // K2: each CTA stages its chunk (at most one 256-row block) whole.
 template <int G, typename T>
 __global__ void __launch_bounds__(kThreads) cluster_pass_kernel(Call<T> c, int xchg) {
@@ -543,19 +836,33 @@ __global__ void __launch_bounds__(kThreads) flash_cluster_kernel(Call<T> c, int 
   cluster_attend<G, T, true>(c, xchg);
 }
 
+// K2 and K1 with each CTA running several ranks (ranks_attend).
+template <int G, typename T>
+__global__ void __launch_bounds__(kThreads) pass_ranks_kernel(Call<T> c, int xchg) {
+  ranks_attend<G, T, false>(c, xchg);
+}
+
+template <int G, typename T>
+__global__ void __launch_bounds__(kThreads) flash_ranks_kernel(Call<T> c, int xchg) {
+  ranks_attend<G, T, true>(c, xchg);
+}
+
 // A launch of K1 (kFlash) or K2: the kernel, its stage, ring and cluster limit.
 template <int G, typename T, bool kFlash>
 struct Plan {
   static constexpr int kStageRows = kFlash ? kFlashStageRows<T> : kBlockS;
   static constexpr int kRing = kFlash ? kFlashRing : 1;
   static constexpr int kMaxN = kFlash ? kMaxFlashCluster : kMaxCluster;
-  // the exchange area of n ranks, at most G * (3 * kMaxN + kD) floats (n * width <= kD + n)
-  static constexpr int kMaxSmem =
-      (kFlash ? kRing * kSlotBytes : kStageBytes<T>) + G * (3 * kMaxN + kD) * (int)sizeof(float);
+  // the exchange area of n ranks, at most G * (3 * n + kD) floats (n * width <= kD + n) with
+  // one rank a CTA; with per = n / g ranks a CTA, G * (3 * n + per * kD) floats (the partials
+  // of used ranks in used_ctas >= used / per slices of width <= kD / used_ctas + 1)
+  static constexpr int kBase = kFlash ? kRing * kSlotBytes : kStageBytes<T>;
+  static constexpr int kMaxSmem = kBase + G * (3 * kMaxN + kD) * (int)sizeof(float);
+  static constexpr int kMaxRanksSmem = kBase + G * (3 * kMaxN + kMaxN * kD) * (int)sizeof(float);
 
-  static void (*kernel())(Call<T>, int) {
-    if constexpr (kFlash) return flash_cluster_kernel<G, T>;
-    else return cluster_pass_kernel<G, T>;
+  static void (*kernel(bool ranks))(Call<T>, int) {
+    if constexpr (kFlash) return ranks ? flash_ranks_kernel<G, T> : flash_cluster_kernel<G, T>;
+    else return ranks ? pass_ranks_kernel<G, T> : cluster_pass_kernel<G, T>;
   }
 
   // Where the exchange area starts: past the ring slots one rank of `chunk` rows uses, and
@@ -571,48 +878,58 @@ struct Plan {
   // zt_decode_attention_prepare when the library is loaded, so never during a capture.
   static cudaError_t allow() {
     static const cudaError_t err = [] {
-      cudaError_t e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kMaxSmem);
-      if (e == cudaSuccess && kFlash)
-        e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      cudaError_t e = cudaSuccess;
+      for (const bool ranks : {false, true}) {
+        if (e == cudaSuccess)
+          e = cudaFuncSetAttribute(kernel(ranks), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   ranks ? kMaxRanksSmem : kMaxSmem);
+        if (e == cudaSuccess && kFlash)
+          e = cudaFuncSetAttribute(kernel(ranks), cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                   1);
+      }
       return e;
     }();
     return err;
   }
 
-  // The launch of clusters of n CTAs over BH pairs whose longest chunk is chunk_max rows;
-  // refuses a band outside [0, S] and a cluster past the limit.
-  static cudaError_t config(int BH, int S, int lo, int hi, int n, int chunk_max,
+  // The launch of clusters of `grid` CTAs (a divisor of the split's n ranks) over BH pairs
+  // whose longest chunk is chunk_max rows; refuses a band outside [0, S] and a cluster past the
+  // limit.
+  static cudaError_t config(int BH, int S, int lo, int hi, int n, int grid, int chunk_max,
                             cudaStream_t stream, cudaLaunchConfig_t& cfg,
                             cudaLaunchAttribute& cluster_dim, int& xchg_bytes) {
-    if (n < 1 || n > kMaxN || chunk_max < 0 || BH < 1 || lo < 0 || lo > hi || hi > S)
+    if (n < 1 || n > kMaxN || grid < 1 || n % grid || chunk_max < 0 || BH < 1 || lo < 0 ||
+        lo > hi || hi > S)
       return cudaErrorInvalidValue;
     const cudaError_t attr = allow();
     if (attr != cudaSuccess) return attr;
-    xchg_bytes = xchg(chunk_max);
+    const bool ranks = grid < n;  // K2's several ranks a CTA are staged whole
+    xchg_bytes = ranks && !kFlash ? kStageBytes<T> : xchg(chunk_max);
     cluster_dim.id = cudaLaunchAttributeClusterDimension;
-    cluster_dim.val.clusterDim.x = n;
+    cluster_dim.val.clusterDim.x = grid;
     cluster_dim.val.clusterDim.y = 1;
     cluster_dim.val.clusterDim.z = 1;
     cfg = {};
-    cfg.gridDim = dim3(n, BH);
+    cfg.gridDim = dim3(grid, BH);
     cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = xchg_bytes + (n > 1 ? G * (3 * n + kD) * (int)sizeof(float) : 0);
+    cfg.dynamicSmemBytes =
+        xchg_bytes + (ranks ? G * (3 * n + n / grid * kD) * (int)sizeof(float)
+                            : n > 1 ? G * (3 * n + kD) * (int)sizeof(float) : 0);
     cfg.stream = stream;
     cfg.attrs = &cluster_dim;
     cfg.numAttrs = 1;
     return cudaSuccess;
   }
 
-  static int launch(const Call<T>& c, int BH, int n, int chunk_max, cudaStream_t stream) {
+  static int launch(const Call<T>& c, int BH, int grid, int chunk_max, cudaStream_t stream) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute cluster_dim;
     int xchg_bytes;
     if (c.min_rows < 1) return cudaErrorInvalidValue;
     cudaError_t err =
-        config(BH, c.S, c.lo, c.hi, n, chunk_max, stream, cfg, cluster_dim, xchg_bytes);
+        config(BH, c.S, c.lo, c.hi, c.n, grid, chunk_max, stream, cfg, cluster_dim, xchg_bytes);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, kernel(), c, xchg_bytes);
+    err = cudaLaunchKernelEx(&cfg, kernel(grid < c.n), c, xchg_bytes);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
 
@@ -621,20 +938,21 @@ struct Plan {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute cluster_dim;
     int xchg_bytes;
-    const cudaError_t err = config(1, 0, 0, 0, n, chunk, nullptr, cfg, cluster_dim, xchg_bytes);
+    const cudaError_t err =
+        config(1, 0, 0, 0, n, n, chunk, nullptr, cfg, cluster_dim, xchg_bytes);
     if (err != cudaSuccess) return err;
     cfg.gridDim = dim3(n, 1);
-    return cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg);
+    return cudaOccupancyMaxActiveClusters(clusters, kernel(false), &cfg);
   }
 };
 
 template <bool kFlash, typename T>
-int launch_by_group(const Call<T>& c, int BH, int G, int n, int chunk_max, cudaStream_t st) {
+int launch_by_group(const Call<T>& c, int BH, int G, int grid, int chunk_max, cudaStream_t st) {
   switch (G) {
-    case 1: return Plan<1, T, kFlash>::launch(c, BH, n, chunk_max, st);
-    case 2: return Plan<2, T, kFlash>::launch(c, BH, n, chunk_max, st);
-    case 4: return Plan<4, T, kFlash>::launch(c, BH, n, chunk_max, st);
-    case 8: return Plan<8, T, kFlash>::launch(c, BH, n, chunk_max, st);
+    case 1: return Plan<1, T, kFlash>::launch(c, BH, grid, chunk_max, st);
+    case 2: return Plan<2, T, kFlash>::launch(c, BH, grid, chunk_max, st);
+    case 4: return Plan<4, T, kFlash>::launch(c, BH, grid, chunk_max, st);
+    case 8: return Plan<8, T, kFlash>::launch(c, BH, grid, chunk_max, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -643,7 +961,7 @@ int launch_by_group(const Call<T>& c, int BH, int G, int n, int chunk_max, cudaS
 struct Band {
   const int* rows;  // int32 on the card: the cache rows to attend
   int lo, hi;       // the band the launch is planned for (cache rows)
-  int n, chunk_max, min_rows;
+  int n, grid, chunk_max, min_rows;  // the split's ranks, the CTAs a pair running them
 };
 
 template <typename T>
@@ -653,7 +971,7 @@ Call<T> make_call(const void* q, const void* k, const void* v, const void* ks, c
   return {static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<const float*>(ks), static_cast<const float*>(vs),
           static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-          static_cast<bf16*>(out), b.rows, S, b.lo, b.hi, b.min_rows, scale};
+          static_cast<bf16*>(out), b.rows, S, b.lo, b.hi, b.min_rows, b.n, scale};
 }
 
 // Every instantiation's attributes (and with them its module), before any capture; the
@@ -686,11 +1004,11 @@ int launch_quantized(int storage, const void* q, const void* k, const void* v,
   if (storage == 1)
     return launch_by_group<kFlash>(make_call<f8>(q, k, v, nullptr, nullptr, k_new, v_new, out, S,
                                                  b, scale),
-                                   B * Hkv, G, b.n, b.chunk_max, st);
+                                   B * Hkv, G, b.grid, b.chunk_max, st);
   if (storage == 2)
     return launch_by_group<kFlash>(make_call<int8_t>(q, k, v, k_scale, v_scale, k_new, v_new,
                                                      out, S, b, scale),
-                                   B * Hkv, G, b.n, b.chunk_max, st);
+                                   B * Hkv, G, b.grid, b.chunk_max, st);
   return cudaErrorInvalidValue;
 }
 
@@ -709,27 +1027,28 @@ int max_active_by_group(int G, int n, int chunk, int* clusters) {
 
 // q [B, 1, H, D], k/v [B, H_kv, S, D], out [B, 1, H, D]: bf16, contiguous, D = 128.
 // `rows` points at an int32 on the card: the cache rows to attend, clamped to [lo, hi]
-// (0 <= lo <= hi <= S).  K1: clusters of n CTAs (up to 16) of at least min_rows rows, the
-// longest chunk of the band chunk_max rows (it sizes the shared memory).
+// (0 <= lo <= hi <= S).  K1: a split of up to n ranks (n up to 16) of at least min_rows rows,
+// run by clusters of `grid` CTAs (a divisor of n), the longest chunk of the band chunk_max rows
+// (it sizes the shared memory).
 extern "C" int zt_flash_decode_attention(const void* q, const void* k, const void* v, void* out,
                                          int B, int Hkv, int G, int S, const int* rows, int lo,
-                                         int hi, int n, int chunk_max, int min_rows, float scale,
-                                         void* stream) {
-  const Band b{rows, lo, hi, n, chunk_max, min_rows};
+                                         int hi, int n, int grid, int chunk_max, int min_rows,
+                                         float scale, void* stream) {
+  const Band b{rows, lo, hi, n, grid, chunk_max, min_rows};
   return launch_by_group<true>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out,
                                                S, b, scale),
-                               B * Hkv, G, n, chunk_max, static_cast<cudaStream_t>(stream));
+                               B * Hkv, G, grid, chunk_max, static_cast<cudaStream_t>(stream));
 }
 
-// K2: clusters of n CTAs (up to 8).
+// K2: a split of up to n ranks (n up to 8), run by clusters of `grid` CTAs.
 extern "C" int zt_decode_attention_single(const void* q, const void* k, const void* v, void* out,
                                           int B, int Hkv, int G, int S, const int* rows, int lo,
-                                          int hi, int n, int chunk_max, int min_rows,
+                                          int hi, int n, int grid, int chunk_max, int min_rows,
                                           float scale, void* stream) {
-  const Band b{rows, lo, hi, n, chunk_max, min_rows};
+  const Band b{rows, lo, hi, n, grid, chunk_max, min_rows};
   return launch_by_group<false>(make_call<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr,
                                                 out, S, b, scale),
-                                B * Hkv, G, n, chunk_max, static_cast<cudaStream_t>(stream));
+                                B * Hkv, G, grid, chunk_max, static_cast<cudaStream_t>(stream));
 }
 
 // Quantized caches: storage 1 = f8 e4m3, 2 = int8 with k_scale/v_scale [B, H_kv, S] fp32.
@@ -740,10 +1059,11 @@ extern "C" int zt_flash_decode_attention_q(int storage, const void* q, const voi
                                            const void* v_scale, const void* k_new,
                                            const void* v_new, void* out, int B, int Hkv, int G,
                                            int S, const int* rows, int lo, int hi, int n,
-                                           int chunk_max, int min_rows, float scale,
+                                           int grid, int chunk_max, int min_rows, float scale,
                                            void* stream) {
   return launch_quantized<true>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv, G,
-                                S, Band{rows, lo, hi, n, chunk_max, min_rows}, scale, stream);
+                                S, Band{rows, lo, hi, n, grid, chunk_max, min_rows}, scale,
+                                stream);
 }
 
 extern "C" int zt_decode_attention_single_q(int storage, const void* q, const void* k,
@@ -751,10 +1071,11 @@ extern "C" int zt_decode_attention_single_q(int storage, const void* q, const vo
                                             const void* v_scale, const void* k_new,
                                             const void* v_new, void* out, int B, int Hkv, int G,
                                             int S, const int* rows, int lo, int hi, int n,
-                                            int chunk_max, int min_rows, float scale,
+                                            int grid, int chunk_max, int min_rows, float scale,
                                             void* stream) {
   return launch_quantized<false>(storage, q, k, v, k_scale, v_scale, k_new, v_new, out, B, Hkv,
-                                 G, S, Band{rows, lo, hi, n, chunk_max, min_rows}, scale, stream);
+                                 G, S, Band{rows, lo, hi, n, grid, chunk_max, min_rows}, scale,
+                                 stream);
 }
 
 // Sets every kernel's attributes (and so loads its module) once, before anything is

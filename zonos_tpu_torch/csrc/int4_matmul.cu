@@ -54,18 +54,21 @@
 //   lane that loaded them, so a trip through shared memory would only add traffic.  The
 //   first batch is issued before x and the scales are staged, whose loads are all issued
 //   before any is stored, so a CTA's prologue costs about one memory latency.
-// - Tiles and splits.  A CTA (8 warps) owns 128 columns: WC = 8 / MTI warps side by side,
-//   each 16 * MTI columns, and WR = MTI warps one above the other, each a contiguous slice
-//   of the CTA's packed rows (MTI = 8 up to 16 rows of x, 4 up to 32, 2 up to 64, which
-//   keeps the accumulators at 32-64 registers).  Above 32 rows x's pairs for 1024 packed
-//   rows would pass 227 KB, so the CTA takes its rows in chunks of 512, restaging x and
-//   the scales for each.  The WR slices are summed in one pass through shared memory, in
-//   warp order (columns swizzled by c ^ ((c / V) & 7) so that neither the fragment stores
-//   nor the row-order reads conflict on banks).  The packed rows are also split over the
-//   grid's y dimension, up to one CTA per SM in all; each split writes its fp32 partial
-//   sums and the last CTA of a column tile to finish (an atomic counter per tile) adds
-//   them in split order, so the result does not depend on the order the CTAs ran in.  The
-//   counters are the call's own, zeroed on its stream before the launch.  One launch.
+// - Tiles and splits.  A CTA (8 warps) owns 16 * MTI columns (MTI = 8 up to 16 rows of x,
+//   4 up to 32, 2 up to 64, which keeps the accumulators at 32-64 registers), one warp's
+//   width, and its 8 warps lie one above the other, each a contiguous slice of every chunk
+//   of 512 packed rows the CTA stages (x's pairs and the scales, restaged a chunk).  The
+//   chunk size and the 8 slices are the same for every M, so a row's sums run through the
+//   same k-steps in the same order alone and in a batch: more rows take narrower column
+//   tiles (more CTAs), never other slices.  The 8 slices are summed in one pass through
+//   shared memory, in warp order (columns swizzled by c ^ ((c / V) & 7) so that neither the
+//   fragment stores nor the row-order reads conflict on banks).  The packed rows are also
+//   split over the grid's y dimension, up to one CTA per SM at 128 columns a tile
+//   (kernels/int4_matmul.py split_count: from din, dout and the SM count, not M); each split
+//   writes its fp32 partial sums and the last CTA of a column tile to finish (an atomic
+//   counter per tile) adds them in split order, so the result depends neither on the order
+//   the CTAs ran in nor on M.  The counters are the call's own, zeroed on its stream before
+//   the launch.  One launch.
 // - Columns need not fill the last tile (dout % 16 == 0 suffices, so that a lane's chunk is
 //   all in or all out): the hybrid's in_proj has dout 8512.  Rows of x past M and scales
 //   past dout are not staged: they only reach accumulators that are never stored.
@@ -88,28 +91,24 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 128;             // columns per CTA
 constexpr int kStep = 8;               // packed rows per k-step of 16 k
 constexpr int kLaneBytes = 128;        // packed bytes of one batch of a lane
-constexpr int kRedLd = kTile + 4;      // row stride (floats) of the reduction buffer
 constexpr int kColAlign = 16;
 constexpr int kMaxRowsPerSplit = 1024;
+constexpr int kChunkRows = 512;        // packed rows a CTA stages at once, for every M
 constexpr int kStageUnroll = 4;        // staging items whose loads a thread has in flight
 
-// Packed rows a CTA stages at once: their x pairs, 8 * NT rows of 32-bit words, stay
-// within 128 KB of shared memory.
-__host__ __device__ constexpr int chunk_rows(int nt) {
-  return nt <= 4 ? kMaxRowsPerSplit : 32768 / (8 * nt);
-}
-
 constexpr int n_tiles(int M) { return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8; }
+// m-tiles of a warp at NT n-tiles (the CTA's columns: 16 * MTI)
+constexpr int mt_of(int nt) { return nt <= 2 ? 8 : nt == 4 ? 4 : 2; }
 
 // Shared memory words: x pairs for a chunk of rows (row stride rows + 4, which is 4 mod 8,
 // so the lanes' B loads hit 32 banks), the scale pairs of the groups they span (at most
-// ceil(rows / gs) + 1), or the reduction buffer, whichever is larger.
+// ceil(rows / gs) + 1), or the reduction buffer of the 8 warps' slices, whichever is larger.
 constexpr int smem_words(int nt, int mti, int rows, int gs) {
-  const int stage = 8 * nt * (rows + 4) + ((rows + gs - 1) / gs + 1) * kTile;
-  const int red = kWarps / (kTile / (16 * mti)) * 8 * nt * kRedLd;  // WR slices
+  const int tile = 16 * mti;
+  const int stage = 8 * nt * (rows + 4) + ((rows + gs - 1) / gs + 1) * tile;
+  const int red = kWarps * 8 * nt * (tile + 4);
   return stage > red ? stage : red;
 }
 
@@ -242,6 +241,7 @@ __device__ __forceinline__ void consume(const unsigned (&raw)[KB][2][MTI / 2], i
 // of those rows and the tile's columns below dout.  Each item is two 16-byte loads (8
 // values each) and two 16-byte stores of 8 pairs; a thread issues the loads of
 // kStageUnroll items before it stores any.
+template <int kTile>
 __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat16* s,
                                       unsigned* xs, unsigned* ss, int M, int din, int dout,
                                       int gs, int tile, int c0, int cn, int ld) {
@@ -287,8 +287,8 @@ __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat1
   }
 }
 
-// grid (ceil(dout / kTile), n_split); dynamic shared memory smem_words(NT, MTI, rows, gs)
-// words, rows = min(rows_per_split, chunk_rows(NT)).  out is [M, dout]; part
+// grid (ceil(dout / (16 * MTI)), n_split); dynamic shared memory smem_words(NT, MTI, rows,
+// gs) words, rows = min(rows_per_split, kChunkRows).  out is [M, dout]; part
 // [n_split, M, dout] and counters (one per column tile, zero on entry) serve a split
 // contraction.
 template <int NT, int MTI>
@@ -299,9 +299,10 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
                    int dout, int gs, int rows_per_split) {
   constexpr int V = 2 * MTI;                // packed bytes (columns) a lane loads per row
   constexpr int W = V / 4;                  // their 32-bit words
-  constexpr int WC = kTile / (16 * MTI);    // warps across the tile's columns
-  constexpr int WR = kWarps / WC;           // warps over the split's rows
-  static_assert(WC >= 1 && WR >= 1 && WC * WR == kWarps, "the tile must suit the warps");
+  constexpr int kTile = 16 * MTI;           // the CTA's columns: one warp's
+  constexpr int kRedLd = kTile + 4;         // row stride (floats) of the reduction buffer
+  constexpr int WC = 1;                     // warps across the tile's columns
+  constexpr int WR = kWarps;                // warps over the split's rows: 8 for every M
   constexpr int KB = kLaneBytes / (2 * V);  // k-steps of one batch
   constexpr int NR = 8 * NT;                // rows of x the n-tiles hold
   __shared__ bool is_last;
@@ -311,7 +312,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   const int tile = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
   const int r0 = split * rows_per_split;
   const int nr = min(half, r0 + rows_per_split) - r0;  // a multiple of kStep
-  const int crows = min(rows_per_split, chunk_rows(NT));
+  const int crows = min(rows_per_split, kChunkRows);
   const int ld = crows + 4;  // words a staged row of x; 4 mod 8: conflict-free B loads
   unsigned* xs = smem;
   unsigned* ss = smem + NR * ld;
@@ -344,7 +345,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     int sa = 0, sb = 0;
     if (active && r < w1) sa = issue_loads(qp, r, w1, gs, dout, ok, raw_a);
     if (c0 > r0) __syncthreads();  // every warp is done with the previous chunk's stage
-    stage(x, s, xs, ss, M, din, dout, gs, tile, c0, cn, ld);
+    stage<kTile>(x, s, xs, ss, M, din, dout, gs, tile, c0, cn, ld);
     __syncthreads();
     if (!active) continue;
     while (r < w1) {
@@ -416,10 +417,11 @@ int launch(const void* x, const void* q, const void* s, void* out, void* part, v
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       int4_matmul_kernel<NT, MTI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_words(NT, MTI, chunk_rows(NT), kStep) * (int)sizeof(unsigned));
+      smem_words(NT, MTI, kChunkRows, kStep) * (int)sizeof(unsigned));
   if (attr != cudaSuccess) return attr;
-  const int rows = rows_per_split < chunk_rows(NT) ? rows_per_split : chunk_rows(NT);
-  const dim3 grid((dout + kTile - 1) / kTile, n_split);
+  const int rows = rows_per_split < kChunkRows ? rows_per_split : kChunkRows;
+  const int tile = 16 * MTI;
+  const dim3 grid((dout + tile - 1) / tile, n_split);
   const size_t smem = (size_t)smem_words(NT, MTI, rows, gs) * sizeof(unsigned);
   int4_matmul_kernel<NT, MTI><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
@@ -447,7 +449,8 @@ extern "C" int zt_int4_matmul(const void* x, const void* q, const void* s, void*
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_split > 1) {
-    const size_t n = (size_t)(dout + kTile - 1) / kTile;
+    const int tile = 16 * mt_of(n_tiles(M));
+    const size_t n = (size_t)(dout + tile - 1) / tile;
     const cudaError_t err = cudaMemsetAsync(counters, 0, n * sizeof(unsigned), st);
     if (err != cudaSuccess) return err;
   }

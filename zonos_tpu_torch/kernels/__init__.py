@@ -25,6 +25,8 @@ launch_counts: dict[str, int] = {
     "fused_state_step_int4": 0,
     "fused_layer_tail": 0,
     "int4_matmul": 0,
+    "gemm": 0,
+    "row_norm": 0,
 }
 
 
@@ -46,7 +48,8 @@ def add_launches(counts: dict[str, int]) -> None:
 # each kernel source under csrc/ and the module of its wrapper
 _MODULES = {"decode_attention": "decode_attention", "sampling": "sampling",
             "snake_conv": "snake_conv", "ssd_chunked": "ssd", "ssm_state": "ssm_state",
-            "layer_tail": "layer_tail", "int4_matmul": "int4_matmul"}
+            "layer_tail": "layer_tail", "int4_matmul": "int4_matmul", "gemm": "gemm",
+            "row_norm": "row_norm"}
 
 
 def load_all(device_index: int) -> int:

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zonos_tpu_torch"
 SOURCES = ("decode_attention", "sampling", "snake_conv", "ssd_chunked", "ssm_state",
-           "layer_tail", "int4_matmul")
+           "layer_tail", "int4_matmul", "gemm", "row_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

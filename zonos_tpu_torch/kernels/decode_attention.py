@@ -34,10 +34,10 @@ GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernel is instantiated for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "zt_flash_decode_attention": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
-    "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
-    "zt_flash_decode_attention_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
-    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 5 + [_F, _P],
+    "zt_flash_decode_attention": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 6 + [_F, _P],
+    "zt_decode_attention_single": [_P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 6 + [_F, _P],
+    "zt_flash_decode_attention_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 6 + [_F, _P],
+    "zt_decode_attention_single_q": [_I] + [_P] * 8 + [_I] * 4 + [_P] + [_I] * 6 + [_F, _P],
     "zt_flash_max_active_clusters": [_I, _I, _I, _I, _P],
     "zt_decode_attention_prepare": [],
 }
@@ -47,7 +47,8 @@ MAX_CLUSTER = 8  # K2's CTAs in a thread-block cluster, the portable limit
 CHUNK_ROWS = 32  # K2: the fewest cache rows worth a CTA of its own in a cluster
 ONE_CTA_ROWS = 64  # K1: the same; and up to 2 x K2's CHUNK_ROWS one CTA a pair (--sweep)
 ROWS_PER_PASS = 16  # cache rows a CTA covers at once (16 lanes a row); chunks are multiples
-CTAS_PER_SM = 2  # the grid K2's plan stops splitting at
+CTAS_PER_SM = 2  # the grid K2's plan stops adding CTAs at
+FLASH_WAVES = 4  # K1: one CTA a rank while the grid fills at most this many waves
 MAX_FLASH_CLUSTER = 16  # K1's CTAs per cluster, the largest (non-portable) size
 # The bands of attended lengths (cache rows, plus the held-out row over a quantized cache)
 # whose launches share one grid: K2's up to 256 rows, K1's beyond in two (one cluster size
@@ -85,16 +86,24 @@ def band_of(length: int) -> Band:
 
 @dataclass(frozen=True)
 class BandPlan:
-    """One launch over a band: clusters of ``n`` CTAs, the split's
-    ``min_rows`` (:func:`rank_rows`), the cache rows ``[lo, hi]`` the kernel
-    clamps the length to and the longest chunk of the band, ``chunk_max``
-    (it sizes the shared memory)."""
+    """One launch over a band: a split of up to ``n`` ranks of at least
+    ``min_rows`` rows (:func:`rank_rows`), the cache rows ``[lo, hi]`` the
+    kernel clamps the length to and the longest chunk of the band,
+    ``chunk_max`` (it sizes the shared memory): what fixes a row's sums; and
+    ``grid``, the CTAs of a pair's cluster (a divisor of n, each running n /
+    grid ranks in turn), chosen by the number of pairs."""
 
     n: int
     min_rows: int
     lo: int
     hi: int
     chunk_max: int
+    grid: int
+
+    @property
+    def split(self) -> tuple[int, int, int, int, int]:
+        """The fields that fix a row's result (all but ``grid``)."""
+        return self.n, self.min_rows, self.lo, self.hi, self.chunk_max
 
 
 def _round16(rows: int) -> int:
@@ -112,45 +121,68 @@ def rank_rows(rows: int, n: int, min_rows: int) -> tuple[int, int]:
     return used, _round16(-(-rows // used))
 
 
-def grid_cap(kernel: str, bh_kv: int, sms: int = 132) -> int:
-    """The most CTAs a cluster of ``kernel`` ("K1" or "K2") gets at ``bh_kv``
-    (batch row, kv head) pairs.  K2: 8, halved while the grid would pass two
-    CTAs per SM (one CTA a pair already fills the card there).  K1: doubled
-    up to 16 while the grid stays within one CTA per SM, so that few pairs
-    still fill the card; once the pairs alone fill it, one CTA a pair streams
-    all its rows (the cluster's barriers cost more than they save there,
-    ``chip_smoke.py --sweep``)."""
+def split_cap(kernel: str, sms: int = 132) -> int:
+    """The most ranks a pair's rows split into for ``kernel`` ("K1" or "K2")
+    on a card of ``sms`` SMs.  K2: 8, the portable cluster limit.  K1: 16 (a
+    non-portable cluster size), halved while the 8 (batch row, kv head) pairs
+    of batch 1 with CFG would not find one SM a CTA.  The batch never
+    enters: the split fixes a row's sums and the order they combine in."""
     if kernel == "K2":
-        n = MAX_CLUSTER
-        while n > 1 and bh_kv * n > CTAS_PER_SM * sms:
-            n //= 2
-        return n
-    n = 1
-    while n < MAX_FLASH_CLUSTER and 2 * n * bh_kv <= sms:
-        n *= 2
+        return MAX_CLUSTER
+    n = MAX_FLASH_CLUSTER
+    while n > 1 and 8 * n > sms:
+        n //= 2
     return n
+
+
+def grid_cap(kernel: str, bh_kv: int, n: int, sms: int = 132) -> int:
+    """The most CTAs a pair's split of ``n`` ranks gets at ``bh_kv`` (batch
+    row, kv head) pairs, the fastest of every grid measured (PERF.md section
+    6).  K2: one CTA a rank while the grid stays within two CTAs per SM
+    (batch 4 with CFG and fewer), else two CTAs a pair while that does
+    (batch 8: 10.7 us against 12.4-22.5 for the other grids), else one
+    (batch 64: 50.2 us against 71.6-124.5).  K1: one CTA a rank while the
+    grid stays within four waves of one CTA an SM (batch 4: 27.6 us against
+    40.2-79.1); past that doubled up to 16 while it stays within one, so
+    that one CTA a pair runs its ranks once the pairs alone fill the card.
+    It sets the grid only, never a row's split."""
+    if kernel == "K2":
+        if bh_kv * n <= CTAS_PER_SM * sms:
+            return n
+        return 2 if 2 * bh_kv <= CTAS_PER_SM * sms else 1
+    if bh_kv * n <= FLASH_WAVES * sms:
+        return n
+    g = 1
+    while g < MAX_FLASH_CLUSTER and 2 * g * bh_kv <= sms:
+        g *= 2
+    return g
 
 
 def band_plan(kernel: str, band: Band, bh_kv: int, S: int, held_out: bool,
               sms: int = 132) -> BandPlan:
     """``kernel``'s launch over ``band`` for a cache of ``S`` rows: the cache
     rows it attends are the band's lengths (one fewer with the current row
-    held out), cut at the cache's end; the cluster size is what the longest
-    of them splits into (:func:`rank_rows`) under :func:`grid_cap`.  Raises
-    where the band does not fit the cache.  Batch 1 with CFG (8 pairs): K2 8
-    CTAs (32 rows each at 256), K1 8 CTAs up to 512 rows and 16 beyond; batch
-    64 with CFG (512 pairs): one CTA a pair."""
+    held out), cut at the cache's end; the split is what the longest of them
+    splits into (:func:`rank_rows`) under :func:`split_cap`, the same at
+    every batch (K2 8 ranks of 32 rows at 256, K1 8 up to 512 rows and 16
+    beyond); ``bh_kv`` sets the grid: the largest divisor of the split's
+    ranks within :func:`grid_cap` (batch 1 with CFG, 8 pairs: one CTA a
+    rank; batch 64, 512 pairs: one CTA a pair).  Raises where the band does
+    not fit the cache."""
     cut = 1 if held_out else 0
     lo = band.lo - cut
     hi = (S if band.hi is None else min(band.hi, S)) - cut
-    if lo < 0 or lo > hi:
+    if lo < 0 or lo > hi or bh_kv < 1:
         raise ValueError(f"the band [{band.lo}, {band.hi}] does not fit a cache of {S} rows")
     min_rows = CHUNK_ROWS if kernel == "K2" else ONE_CTA_ROWS
-    n = max(1, min(grid_cap(kernel, bh_kv, sms), -(-hi // min_rows)))
+    n = max(1, min(split_cap(kernel, sms), -(-hi // min_rows)))
     # the longest chunk: one CTA's rows up to 2 * min_rows, a cluster's at most min_rows
     # rows while it grows and ceil(hi / n) once it is full
     chunk_max = max(_round16(min(hi, 2 * min_rows)), _round16(min_rows), _round16(-(-hi // n)))
-    return BandPlan(n, min_rows, lo, hi, chunk_max)
+    grid = min(n, grid_cap(kernel, bh_kv, n, sms))
+    while n % grid:
+        grid -= 1
+    return BandPlan(n, min_rows, lo, hi, chunk_max, grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,8 +327,8 @@ def _attend(kernel: str, q, k_cache, v_cache, length, band: Band | None) -> torc
     entry = lib.zt_flash_decode_attention if kernel == "K1" else lib.zt_decode_attention_single
     name = "flash_decode_attention" if kernel == "K1" else "decode_attention_single"
     rc = entry(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-               B, H_kv, G, S, length.data_ptr(), plan.lo, plan.hi, plan.n, plan.chunk_max,
-               plan.min_rows, attention_scale(HEAD_DIM),
+               B, H_kv, G, S, length.data_ptr(), plan.lo, plan.hi, plan.n, plan.grid,
+               plan.chunk_max, plan.min_rows, attention_scale(HEAD_DIM),
                torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, name)
     launch_counts[name] += 1
@@ -426,7 +458,7 @@ def _attend_held_out(kernel: str, q, k_cache, v_cache, k_new, v_new, pos, k_scal
     rc = entry(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                *_scale_ptrs(k_scale, v_scale), k_new.data_ptr(), v_new.data_ptr(),
                out.data_ptr(), B, H_kv, G, S, pos.data_ptr(), plan.lo, plan.hi, plan.n,
-               plan.chunk_max, plan.min_rows, attention_scale(HEAD_DIM),
+               plan.grid, plan.chunk_max, plan.min_rows, attention_scale(HEAD_DIM),
                torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, name)
     launch_counts[name] += 1

@@ -1,0 +1,165 @@
+"""G1 bf16 / int8-weight product (csrc/gemm.cu) and its plain version.
+
+Replaces no TPU kernel: the JAX package computes ``matmul_w``'s products with
+XLA's ``dot`` (zonos_tpu/models/backbone.py:46-79).  On the card a library
+product (cuBLAS) picks its kernel and its split of the contraction by the row
+count, so a request's rows came out one bf16 ulp apart alone and in a batch,
+and a served request's codes changed with its co-batched peers.  G1 computes
+``x [M, K] @ w [K, N]`` (bf16 ``w``, or int8 ``q`` times bf16 column scales
+``s`` as ``(x @ q) * s``) in an order fixed by ``(K, N)`` and the card's SM
+count alone (:func:`split_count`): splits of the contraction added in split
+order, each a run of 16-k ``mma.sync`` steps in increasing k, rounded to bf16
+once.  A row's result is therefore the same bits alone and in any batch.
+
+What bounds it on an H100: at a decode step's few rows, reading the weight
+once (``2 K N`` bytes, ``K N`` for int8); at a large prefill, the tensor
+cores' bf16 rate.  The source note has the design.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels._build import check, library, sm_count
+
+TILE = 128  # columns a CTA owns; compiled into the kernel
+STAGE_ROWS = 64  # k rows of a ring stage: splits hold a multiple of it
+MIN_SPLIT_ROWS = 256  # the fewest contraction rows worth a split of their own
+MAX_SPLITS = 16  # the most splits a tile's last CTA adds
+ALIGN = 16  # K and N must be multiples of it (a k-step; 16-byte copies of int8 rows)
+SMALL_ROWS = 16  # up to this many rows the CTA's row tile is 16 rows, else 64
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "zt_gemm": [_P] * 6 + [_I] * 8 + [_P],
+    "zt_gemm_prepare": [],
+}
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one product runs: ``n_split`` splits of ``rows_per_split``
+    contraction rows (what fixes a row's result: from ``(K, N, sms)``
+    alone); the row tile ``bm`` and whether the splits run in ``parallel``
+    CTAs (chosen by the row count for speed; they change no bit)."""
+
+    n_split: int
+    rows_per_split: int
+    bm: int
+    parallel: bool
+
+
+def _split_rows(K: int, n: int) -> int:
+    """Contraction rows of each of ``n`` splits: ``ceil(K / n)`` rounded up to
+    a stage (the last split may hold fewer)."""
+    rows = -(-K // n)
+    return -(-rows // STAGE_ROWS) * STAGE_ROWS
+
+
+def split_count(K: int, N: int, sms: int) -> int:
+    """Contraction splits of a ``[K, N]`` weight: about one CTA an SM over
+    its ``ceil(N / 128)`` column tiles at a decode step's row count, each
+    split at least MIN_SPLIT_ROWS rows (rounded up to a stage), at most
+    MAX_SPLITS; the count drops splits the rounding leaves empty.  No row
+    count enters: it fixes the summation order."""
+    tiles = -(-N // TILE)
+    n = max(1, min((sms + tiles // 2) // tiles, K // MIN_SPLIT_ROWS, MAX_SPLITS))
+    return -(-K // _split_rows(K, n))
+
+
+def gemm_plan(M: int, K: int, N: int, sms: int) -> GemmPlan:
+    """The launch of ``M`` rows by a ``[K, N]`` weight on a card of ``sms``
+    SMs.  The splits come from :func:`split_count`; the splits run in
+    parallel CTAs while the row and column tiles alone leave the card short
+    of one CTA an SM, else one after another in each tile's CTA."""
+    n = split_count(K, N, sms)
+    rows = _split_rows(K, n)
+    bm = 16 if M <= SMALL_ROWS else 64
+    tiles = -(-N // TILE) * -(-M // bm)
+    return GemmPlan(n, rows, bm, n > 1 and tiles < sms)
+
+
+def gemm_plain(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w`` with fp32 sums rounded once to x's dtype; for an int8 ``w``,
+    that product by the integers, then times the bf16 scales ``s`` in x's
+    dtype (zonos_tpu/models/backbone.py:62-66)."""
+    y = (x.float() @ w.float()).to(x.dtype)  # bf16 values multiply exactly in fp32
+    return y if s is None else y * s.to(x.dtype)
+
+
+def kernel_takes(rows: int, K: int, N: int, x_dtype=torch.bfloat16, w_dtype=torch.bfloat16,
+                 s_dtype=None) -> bool:
+    """Whether G1 takes ``rows`` rows of bf16 x by a ``[K, N]`` weight of
+    these dtypes: bf16 (no scales) or int8 with bf16 scales, K and N
+    multiples of 16.  ``matmul_w`` keeps the library product otherwise (an
+    fp32 model, other widths)."""
+    weight_ok = (w_dtype == torch.bfloat16 and s_dtype is None) or (
+        w_dtype == torch.int8 and s_dtype == torch.bfloat16)
+    return (x_dtype == torch.bfloat16 and weight_ok and rows >= 1 and K >= ALIGN and N >= ALIGN
+            and K % ALIGN == 0 and N % ALIGN == 0)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None) -> tuple[int, int, int]:
+    if not (x.is_cuda and w.device == x.device and (s is None or s.device == x.device)):
+        raise ValueError("x, w (and s) must lie on the same CUDA device")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or (
+            s is not None and tuple(s.shape) != (w.shape[1],)):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}"
+                         f"{'' if s is None else f' s {tuple(s.shape)}'}")
+    M, K = x.shape
+    N = w.shape[1]
+    if not kernel_takes(M, K, N, x.dtype, w.dtype, None if s is None else s.dtype):
+        raise (TypeError if x.dtype != torch.bfloat16 or w.dtype not in (torch.bfloat16, torch.int8)
+               else ValueError)(
+            f"G1 takes bf16 x by a bf16 weight or an int8 one with bf16 scales, K and N "
+            f"multiples of {ALIGN}; got x {x.dtype} {tuple(x.shape)}, w {w.dtype} "
+            f"{tuple(w.shape)}, s {None if s is None else s.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous() and (s is None or s.is_contiguous())):
+        raise ValueError("G1 takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (x, w) + (() if s is None else (s,))):
+        raise ValueError("G1 reads x, w and s from 16-byte boundaries")
+    return M, K, N
+
+
+_prepared: set[int] = set()
+
+
+def _library(device_index: int) -> ctypes.CDLL:
+    """The library, with every kernel's attributes set on the device: once,
+    at the first launch, so never while a CUDA graph is being captured."""
+    lib = library("gemm", _SIGNATURES)
+    if device_index not in _prepared:
+        with torch.cuda.device(device_index):
+            check(lib.zt_gemm_prepare(), "gemm_prepare")
+        _prepared.add(device_index)
+    return lib
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None) -> torch.Tensor:
+    """G1 on CUDA tensors: ``x [M, K]`` bf16 by ``w [K, N]`` (bf16, or int8
+    with ``s [N]`` bf16) -> ``[M, N]`` bf16, launched by :func:`gemm_plan`;
+    CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return gemm_plain(x, w, s)
+    M, K, N = _check(x, w, s)
+    dev = x.device
+    plan = gemm_plan(M, K, N, sm_count(dev.index))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if plan.parallel:
+        part = torch.empty((plan.n_split, M, N), dtype=torch.float32, device=dev)
+        counters = torch.empty(-(-N // TILE) * -(-M // plan.bm), dtype=torch.int32, device=dev)
+        part_ptr, counters_ptr = part.data_ptr(), counters.data_ptr()
+    else:
+        part_ptr = counters_ptr = None
+    lib = _library(dev.index)
+    rc = lib.zt_gemm(x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+                     out.data_ptr(), part_ptr, counters_ptr, M, K, N,
+                     int(w.dtype == torch.int8), plan.n_split, plan.rows_per_split,
+                     int(plan.parallel), plan.bm, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "gemm")
+    launch_counts["gemm"] += 1
+    return out

@@ -20,11 +20,14 @@ for any M.  k is permuted so that the two nibbles of one packed byte are one
 A register's k-pair (rows p and p + din/2), and x is staged in shared memory
 as the matching bf16 pairs; columns are permuted within a warp so that a lane
 fills its A fragments from one 16-, 8- or 4-byte load per packed row, with
-two batches of 128 bytes a lane in flight.  A CTA owns 128 columns; the
-packed rows are split over CTAs up to one wave, and the last CTA of a column
-tile adds the splits in split order.  Left for later: ``wgmma``, TMA, a
-thread-block-cluster reduction in place of the partials and the counters'
-memset, a persistent kernel.
+two batches of 128 bytes a lane in flight.  A CTA owns one warp's 128, 64
+or 32 columns (by M) and its 8 warps take fixed slices of every 512 packed
+rows; the packed rows are split over CTAs up to one wave (by din, dout and
+the SM count, never M), and the last CTA of a column tile adds the splits in
+split order.  So a row's result is the same bits alone and among up to 63
+others, and ``matmul_w`` runs more rows in chunks of 64 through the same
+plan.  Left for later: ``wgmma``, TMA, a thread-block-cluster reduction in
+place of the partials and the counters' memset, a persistent kernel.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ from zonos_tpu_torch.kernels._build import check, library, sm_count
 MAX_ROWS = 64  # the most rows the kernel takes (a decode step's batch with CFG)
 COL_ALIGN = 16  # a lane's columns are all in or all out of dout; rows start on 16 bytes
 K_STEP = 8  # packed rows per mma k-step (16 k: each byte's two nibbles); gs % K_STEP == 0
-TILE = 128  # columns per CTA; compiled into the kernel
+TILE = 128  # columns per CTA at M <= 16 (the split plan's tile); compiled into the kernel
+MIN_TILE = 32  # columns per CTA at 33-64 rows: the most column tiles, one counter each
+CHUNK_ROWS = 512  # packed rows a CTA stages at once, for every M; compiled into the kernel
+SLICES = 8  # warps a CTA splits each chunk's rows over, for every M; compiled into the kernel
 MAX_ROWS_PER_SPLIT = 1024  # packed rows of one split; compiled into the kernel
 MIN_ROWS_PER_SPLIT = 64  # one k-step for each of up to eight warps over a split's rows
 
@@ -120,6 +126,20 @@ def split_count(din: int, dout: int, sms: int, n: int | None = None) -> int:
     return -(-half // rows)
 
 
+def int4_plan(M: int, din: int, dout: int, sms: int, n: int | None = None) -> dict:
+    """K8's launch for ``M`` rows: the packed rows' ``n_split`` splits of
+    ``rows_per_split`` (from din, dout and ``sms`` alone), each staged in
+    chunks of CHUNK_ROWS and summed in SLICES warp slices: what fixes a
+    row's sums; and the CTA's columns, ``tile`` (128, 64 or 32 as M needs
+    more n-tiles), which do not enter them."""
+    n_split = split_count(din, dout, sms, n)
+    rows = -(-(din // 2) // n_split)
+    nt = 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+    return {"n_split": n_split, "rows_per_split": -(-rows // K_STEP) * K_STEP,
+            "chunk_rows": CHUNK_ROWS, "slices": SLICES,
+            "tile": 128 if nt <= 2 else 64 if nt == 4 else 32}
+
+
 def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 n_split: int | None = None) -> torch.Tensor:
     """K8 on CUDA tensors; CPU tensors take the plain version.  ``n_split``
@@ -127,11 +147,11 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if not x.is_cuda:
         return int4_matmul_plain(x, q, s)
     M, din, dout, gs = _check(x, q, s)
-    n_split = split_count(din, dout, sm_count(x.device.index), n_split)
+    n_split = int4_plan(M, din, dout, sm_count(x.device.index), n_split)["n_split"]
     out = torch.empty((M, dout), dtype=torch.float32, device=x.device)
     part = (torch.empty((n_split, M, dout), dtype=torch.float32, device=x.device)
             if n_split > 1 else out)
-    counters = torch.empty(-(-dout // TILE), dtype=torch.int32, device=x.device)
+    counters = torch.empty(-(-dout // MIN_TILE), dtype=torch.int32, device=x.device)
     lib = library("int4_matmul", _SIGNATURES)
     rc = lib.zt_int4_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                             part.data_ptr(), counters.data_ptr(), M, din, dout, gs, n_split,

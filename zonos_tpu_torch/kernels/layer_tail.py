@@ -22,8 +22,9 @@ permute, and dequantized exactly in bf16 without conversion instructions;
 columns are permuted within a warp so that a lane's fragments are adjacent
 bytes of each row.  The weight rows and x stream through a 3-stage cp.async
 ring in shared memory (64 KB of weights in flight per SM).  Each pass splits
-its contraction over about one wave of CTAs, and the splits are added in split
-order (w1, w2: by the last CTA of a tile).  Left for later: ``wgmma`` and TMA,
+its contraction over about one wave of CTAs by its widths alone, and the
+splits are added in split order (w1, w2: by the last CTA of a tile), so a
+row's output does not depend on the batch.  Left for later: ``wgmma`` and TMA,
 a thread-block-cluster reduction in place of the partials and the counters'
 memset.
 """
@@ -49,21 +50,35 @@ _SIGNATURES = {
 }
 
 
-def split_count(K: int, N: int, B2: int, target_ctas: int, halves: int = 1) -> int:
+def split_count(K: int, N: int, target_ctas: int, halves: int = 1) -> int:
     """Contraction splits of a pass over ``K`` rows into ``N`` columns (per
     half: ``halves`` 2 for w1's up and gate): about ``target_ctas`` CTAs over
-    the column and row tiles (one per SM measured fastest: ``chip_smoke.py
+    the column tiles (one per SM measured fastest: ``chip_smoke.py
     --sweep``), at least one ring stage each, and no more than the last CTA
-    of a tile can add up quickly (MAX_SUM_BYTES of fp32 partials: at 128
-    rows, 8 splits, or 4 for w1).  A split holds ``ceil(K / n)`` rows rounded
-    up to 16 (as the kernel computes it), so the count drops splits that
-    rounding would leave empty."""
-    tiles = -(-N // TILE) * -(-B2 // MAX_ROWS)
-    sum_cap = MAX_SUM_BYTES // (4 * min(B2, MAX_ROWS) * TILE * halves)
+    of a tile of MAX_ROWS rows can add up quickly (MAX_SUM_BYTES of fp32
+    partials: 8 splits, or 4 for w1).  A split holds ``ceil(K / n)`` rows
+    rounded up to 16 (as the kernel computes it), so the count drops splits
+    that rounding would leave empty.  The row count never enters: the splits
+    fix the order of a row's sums, so a row's output is the same bits alone
+    and in any batch (more rows only add row tiles)."""
+    tiles = -(-N // TILE)
+    sum_cap = MAX_SUM_BYTES // (4 * MAX_ROWS * TILE * halves)
     n = max(1, min(target_ctas // tiles, K // STAGE_ROWS, sum_cap))
     rows = -(-K // n)
     rows = -(-rows // ALIGN) * ALIGN
     return -(-K // rows)
+
+
+def tail_plan(B2: int, dk: int, d: int, I: int, target_ctas: int) -> dict:
+    """K4's launch for ``B2`` rows: the wo, w1 and w2 passes' contraction
+    ``splits`` (from the widths and ``target_ctas`` alone: they fix a row's
+    sums), and what the row count sizes (its ``row_tiles`` of MAX_ROWS and
+    the fp32 ``partial`` floats the passes' splits write)."""
+    # (K, N, halves) of the wo, w1 and w2 passes; w1 sums up and gate columns
+    passes = ((dk, d, 1), (d, I, 2), (I, d, 1))
+    splits = tuple(split_count(K, N, target_ctas, hv) for K, N, hv in passes)
+    return {"splits": splits, "row_tiles": -(-B2 // MAX_ROWS),
+            "partial": max(n * hv * B2 * N for n, (_, N, hv) in zip(splits, passes))}
 
 
 def fused_layer_tail_plain(attn_out, resid, woq, wos, ln_s, ln_b, w1q, w1s, w2q, w2s,
@@ -142,13 +157,9 @@ def fused_layer_tail(attn_out, resid, woq, wos, ln_s, ln_b, w1q, w1s, w2q, w2s,
         return fused_layer_tail_plain(*args, eps=eps)
     B2, dk, d, I = _check(*args)
     dev = attn_out.device
-    # (K, N, halves) of the wo, w1 and w2 passes; w1 sums up and gate columns
-    passes = ((dk, d, 1), (d, I, 2), (I, d, 1))
-    target = target_ctas or sm_count(dev.index)
-    splits = [split_count(K, N, B2, target, hv) for K, N, hv in passes]
-    partial = max(n * hv * B2 * N for n, (_, N, hv) in zip(splits, passes))
-    row_tiles = -(-B2 // MAX_ROWS)
-    col_tiles = -(-max(d, I) // TILE)
+    plan = tail_plan(B2, dk, d, I, target_ctas or sm_count(dev.index))
+    splits, partial = plan["splits"], plan["partial"]
+    row_tiles, col_tiles = plan["row_tiles"], -(-max(d, I) // TILE)
     x2 = torch.empty((B2, d), dtype=torch.float32, device=dev)
     h = torch.empty((B2, d), dtype=torch.bfloat16, device=dev)
     act = torch.empty((B2, I), dtype=torch.bfloat16, device=dev)

@@ -1,0 +1,109 @@
+"""N1 row LayerNorm / RMSNorm (csrc/row_norm.cu) and its plain versions.
+
+Replaces no TPU kernel: the JAX package normalises with XLA's reductions
+(zonos_tpu/ops/norms.py:16-37).  PyTorch's reduction on the card shapes its
+blocks by the number of rows, so a row's statistics were summed in another
+order alone than in a batch.  N1 sums every row the same way (one CTA a
+row, a fixed tree over 256 threads), so a row's output is the same bits
+alone and in any batch.  Bound by reading and writing each row once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels._build import check, library
+
+ALIGN = 16  # d must be a multiple of it, as the products' widths (the kernel needs 8)
+DTYPES = (torch.bfloat16, torch.float32)  # of x
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "zt_row_norm": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+}
+
+
+def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """fp32 mean and (two-pass) variance, cast back to x's dtype
+    (zonos_tpu/ops/norms.py:16-26)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
+    """fp32 mean of squares, ``x * rsqrt(ms + eps) * scale (+ bias)``, cast
+    back to x's dtype (zonos_tpu/ops/norms.py:29-37)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def kernel_takes(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None) -> bool:
+    """Whether N1 takes these operands, by dtype and shape alone: bf16 or
+    fp32 x (the hybrid's residual stream is fp32) of width d, a multiple of
+    16, and bf16 scale (and bias) ``[d]``, as the bf16 models hold them.  An
+    fp32 model's norms run the plain version, on the card as on the CPU."""
+    d = x.shape[-1] if x.dim() else 0
+    return (x.dtype in DTYPES and scale.dtype == torch.bfloat16
+            and (bias is None or bias.dtype == torch.bfloat16)
+            and d >= ALIGN and d % ALIGN == 0 and tuple(scale.shape) == (d,)
+            and (bias is None or tuple(bias.shape) == (d,)))
+
+
+def _check(x, scale, bias) -> None:
+    tensors = (x, scale) + (() if bias is None else (bias,))
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError("x, scale (and bias) must lie on the same CUDA device")
+    if not kernel_takes(x, scale, bias):
+        raise (TypeError if x.dtype not in DTYPES or scale.dtype != torch.bfloat16 else ValueError)(
+            f"the row norm takes bf16 or fp32 x of a width that is a multiple of {ALIGN} and "
+            f"bf16 [d] parameters; got x {x.dtype} {tuple(x.shape)}, scale "
+            f"{scale.dtype} {tuple(scale.shape)}, bias "
+            f"{None if bias is None else (bias.dtype, tuple(bias.shape))}")
+
+
+def _launch(x, scale, bias, eps: float, rms: bool) -> torch.Tensor:
+    _check(x, scale, bias)
+    d = x.shape[-1]
+    xr = x.reshape(-1, d).contiguous()
+    if xr.data_ptr() % 16:
+        xr = xr.clone()
+    scale, bias = scale.contiguous(), None if bias is None else bias.contiguous()
+    y = torch.empty_like(xr)
+    if xr.shape[0]:
+        lib = library("row_norm", _SIGNATURES)
+        rc = lib.zt_row_norm(xr.data_ptr(), scale.data_ptr(),
+                             None if bias is None else bias.data_ptr(), y.data_ptr(),
+                             xr.shape[0], d, int(x.dtype == torch.float32), float(eps), int(rms),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+        check(rc, "row_norm")
+        launch_counts["row_norm"] += 1
+    return y.reshape(x.shape)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """N1's LayerNorm on CUDA tensors; CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return layer_norm_plain(x, scale, bias, eps)
+    return _launch(x, scale, bias, eps, rms=False)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
+    """N1's RMSNorm on CUDA tensors; CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return rms_norm_plain(x, scale, eps, bias)
+    return _launch(x, scale, bias, eps, rms=True)

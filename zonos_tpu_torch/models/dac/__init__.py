@@ -129,3 +129,75 @@ class DACAutoencoder:
             raise ValueError(f"{len(paths)} paths != {len(wavs)} wavs")
         for p, w in zip(paths, wavs):
             save_audio(p, w, self.sampling_rate)
+
+    # -- quality scoring -------------------------------------------------
+    _predictor = None
+
+    def quality_string(self, aesthetics: dict[str, float]) -> str:
+        return " ".join(f"{k}={v:.1f}" for k, v in aesthetics.items())
+
+    def audio_quality(self, wavs, sr, qualities=("CU", "CE", "PQ", "AQ"),
+                      average_overall=True):
+        """Audiobox-aesthetics scores where that package is installed
+        (zonos_tpu/models/dac/__init__.py:150-184); otherwise a
+        self-contained spectral proxy (:func:`_spectral_quality_proxy`), so
+        best-of-N selection still works offline.  ``AQ`` is the mean of the
+        other scores asked for (of CU, CE and PQ if none is)."""
+        if not isinstance(wavs, list):
+            wavs = [wavs]
+        qualities = list(qualities)
+        base = [q for q in qualities if q != "AQ"] or ["CU", "CE", "PQ"]
+
+        if DACAutoencoder._predictor is None:
+            try:
+                from audiobox_aesthetics.infer import initialize_predictor  # type: ignore
+
+                DACAutoencoder._predictor = initialize_predictor()
+            except Exception:  # not installed, or its weights cannot be had offline
+                DACAutoencoder._predictor = False
+        if DACAutoencoder._predictor:
+            raw = DACAutoencoder._predictor.forward(
+                [{"path": w, "sample_rate": sr} for w in wavs])
+            scores = [{q: r[q] for q in base} for r in raw]
+        else:
+            scores = [{q: _spectral_quality_proxy(np.asarray(w), sr) for q in base} for w in wavs]
+
+        for s in scores:
+            if "AQ" in qualities:
+                s["AQ"] = sum(s[q] for q in base) / len(base)
+        if average_overall:
+            keys = scores[0].keys()
+            return {k: sum(s[k] for s in scores) / len(scores) for k in keys}
+        return scores
+
+    def best_per_chunk(self, wavs: list, sr, n: int = -1) -> list:
+        """The best wav (by AQ) of each chunk of ``n`` (all: -1)."""
+        n = len(wavs) if n == -1 or n > len(wavs) else n
+        per = self.audio_quality(wavs, sr, qualities=["AQ"], average_overall=False)
+        best = []
+        for i in range(0, len(wavs), n):
+            group = per[i:i + n]
+            j = max(range(len(group)), key=lambda j: group[j]["AQ"])
+            best.append(wavs[i + j])
+        return best
+
+
+def _spectral_quality_proxy(wav: np.ndarray, sr: int) -> float:
+    """A cheap 1-10 quality proxy: it penalizes clipping, DC offset, very low
+    energy and the spectral flatness of noise.  Not a perceptual model: a
+    deterministic stand-in so that offline best-of-N ranking is stable."""
+    x = wav.reshape(-1).astype(np.float64)
+    if x.size == 0:
+        return 0.0
+    rms = np.sqrt((x**2).mean())
+    clip_frac = (np.abs(x) > 0.985).mean()
+    dc = abs(x.mean())
+    spec = np.abs(np.fft.rfft(x[: min(x.size, sr)]))[1:]
+    spec = spec / max(spec.sum(), 1e-12)
+    ent = -(spec * np.log(spec + 1e-12)).sum() / np.log(spec.size)  # 1 = flat / noise
+    score = 8.0
+    score -= 6.0 * ent
+    score -= 20.0 * clip_frac
+    score -= 10.0 * dc
+    score += 2.0 * min(rms * 10, 1.0)
+    return float(np.clip(score, 0.0, 10.0))

@@ -63,8 +63,12 @@ from zonos_tpu_torch.ops.sampling import (
     SamplingParams,
     element_counters,
     keyed_gumbel,
+    log_prob_stats,
+    prob_stats,
     row_keys,
     sample_from_logits,
+    sampling_probs,
+    sampling_trace_on,
 )
 from zonos_tpu_torch.utils.device import resolve_device
 
@@ -379,7 +383,8 @@ class Zonos:
         """``generate``; ``graphs`` False runs every decode step eagerly (on
         the card too: what the graphs are held against)."""
         run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                            sampling_params, seed, step_limits, audio_prefix_codes)
+                            sampling_params, seed, step_limits, audio_prefix_codes,
+                            trace=sampling_trace_on())
         step_graphs = _StepGraphs(self, run) if graphs else None
         bar = _ProgressLine(run.max_steps) if progress_bar else None
         steps = 0
@@ -387,6 +392,8 @@ class Zonos:
             for step in range(run.max_steps + 1):
                 # the host's only reads: at a chunk boundary and after the last step
                 if step == run.max_steps or (step and step % SYNC_INTERVAL == 0):
+                    if run.trace is not None:
+                        _log_trace(run, steps)
                     remaining = int(run.state.remaining.max())
                     go_on = self._report(run, remaining, bar, callback)
                     if not go_on or remaining <= 0 or step == run.max_steps:
@@ -581,10 +588,14 @@ class Zonos:
                                      capture_s=step_graphs.capture_s)
 
     def _prefill(self, prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                 sampling_params, seed, step_limits, audio_prefix_codes=None) -> "_DecodeRun":
+                 sampling_params, seed, step_limits, audio_prefix_codes=None,
+                 trace: bool = False) -> "_DecodeRun":
         """Everything before the first decode step: the cache, the prefill over
         the conditioning, the delayed audio prefix and the first column, its
-        sampled frame, and the decode loop's state on the device."""
+        sampled frame, and the decode loop's state on the device.  ``trace``:
+        each sampled step writes its distribution's statistics into a ring of
+        SYNC_INTERVAL rows on the device (``generate`` logs them at its
+        polls)."""
         cfg = self.config
         K = cfg.num_codebooks
         eos_id, mask_id = cfg.eos_token_id, cfg.masked_token_id
@@ -671,7 +682,9 @@ class Zonos:
             penalty=scalar(sampling.repetition_penalty), one=scalar(1.0),
             pos0=cond_len + prefill_len, prefill_len=prefill_len,
             prefix_audio_len=prefix_audio_len, window=window,
-            max_steps=max_steps, cfg_scale=cfg_scale, use_cfg=use_cfg, sampling=sampling)
+            max_steps=max_steps, cfg_scale=cfg_scale, use_cfg=use_cfg, sampling=sampling,
+            trace=(torch.zeros((SYNC_INTERVAL, B, K, 3), dtype=torch.float32, device=dev)
+                   if trace and sampled else None))
 
     def _decode_step(self, run: "_DecodeRun", band: Band) -> None:
         """One decode step on ``run``'s device state, in place; ``band`` holds
@@ -698,6 +711,9 @@ class Zonos:
         rp = torch.where(state.eos_mode, run.one, run.penalty)
         logits, masked_state = eos_logit_mask(state, logits, eos_id)
         gen_window = repetition_window(delayed, off, run.window, run.window_cols)
+        if run.trace is not None:  # this step's distribution, into its row of the ring
+            stats = prob_stats(sampling_probs(logits, sampling, gen_window, rp))
+            run.trace.index_copy_(0, (run.step % SYNC_INTERVAL).reshape(1), stats[None])
         noise = (keyed_gumbel(run.keys, run.step, run.draws, run.counters, (K, Vp))
                  if run.sampled else (None, None))
         token = sample_from_logits(logits, sampling, noise[0], gen_window, rp)
@@ -781,10 +797,22 @@ class _DecodeRun:
     cfg_scale: float
     use_cfg: bool
     sampling: SamplingParams
+    # [SYNC_INTERVAL, B, K, 3] fp32: the sampling trace's ring (step % SYNC_INTERVAL), or None
+    trace: torch.Tensor | None = None
+    logged: int = 0  # steps whose trace line is written
 
     @property
     def sampled(self) -> bool:
         return self.sampling.temperature > 0
+
+
+def _log_trace(run: _DecodeRun, steps: int) -> None:
+    """One trace line for each step taken since the last poll, read from the
+    ring (at most SYNC_INTERVAL steps: the loop polls that often)."""
+    ring = run.trace.cpu().numpy()
+    for t in range(run.logged, steps):
+        log_prob_stats(ring[t % SYNC_INTERVAL])
+    run.logged = steps
 
 
 class _StepGraphs:

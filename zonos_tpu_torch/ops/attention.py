@@ -3,7 +3,9 @@
 - :func:`prefill_attention` / :func:`fresh_prefill_attention`: causal
   attention over the prompt as plain torch ops (zonos_tpu/ops/attention.py:
   81-116).  Scores and softmax are fp32; the weights are cast to v's dtype
-  before the value product.
+  before the value product.  On the card the rows go in calls of a fixed
+  batch (``PREFILL_ROWS``), so that a row's result does not depend on its
+  co-batched rows.
 - :func:`decode_attention`: one query step against the cache, dispatched by
   device, dtype and shape: CUDA tensors the kernels take (``kernel_takes``:
   bf16, head_dim 128, 1, 2, 4 or 8 query heads a kv head) go to the
@@ -74,10 +76,32 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhgqd,bhkd->bhgqk", qh.float(), k.float())
 
 
+PREFILL_ROWS = 8  # rows of one prefill-attention call on the card: every call the same batch
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       seq_len: int) -> torch.Tensor:
     """Causal attention of the S prompt queries ``q [B, S, H, D]`` against
-    cache positions [0, seq_len) of ``k, v [B, H_kv, S_max, D]``."""
+    cache positions [0, seq_len) of ``k, v [B, H_kv, S_max, D]``.
+
+    On the card the rows go in calls of exactly PREFILL_ROWS (the last padded
+    with zeros): the library's batched products pick their kernel by the
+    batch, so a fixed batch gives a row the same bits alone and among any
+    number of rows.  The CPU computes all rows in one call."""
+    if not q.is_cuda:
+        return _prefill_attention(q, k, v, seq_len)
+    B = q.shape[0]
+    k, v = k[:, :, :seq_len], v[:, :, :seq_len]
+    pad = -B % PREFILL_ROWS  # (padded even by none: every batch runs the same ops on a chunk)
+    q, k, v = (torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))]) for t in (q, k, v))
+    out = torch.cat([_prefill_attention(q[i:i + PREFILL_ROWS], k[i:i + PREFILL_ROWS],
+                                        v[i:i + PREFILL_ROWS], seq_len)
+                     for i in range(0, B + pad, PREFILL_ROWS)])
+    return out[:B]
+
+
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       seq_len: int) -> torch.Tensor:
     D = q.shape[-1]
     scores = _gqa_scores(q, k[:, :, :seq_len]) * attention_scale(D)
     S = q.shape[1]

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, kernel_takes, unpack_int4
+from zonos_tpu_torch.kernels.gemm import gemm
+from zonos_tpu_torch.kernels.gemm import kernel_takes as gemm_takes
+from zonos_tpu_torch.kernels.int4_matmul import MAX_ROWS, int4_matmul, kernel_takes, unpack_int4
 
 F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
 
@@ -19,23 +21,50 @@ F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
 def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for a plain matrix, an int8 ``{"q": [in, out], "s": bf16 [out]}``
     or a group-wise int4 ``{"q4": [in/2, out] nibble-packed, "s4": bf16 [G, out]}``
-    weight (zonos_tpu/models/backbone.py:46-79).  int4 on a CUDA tensor goes to
-    K8 where its dtypes and shape fit the kernel (bf16 x, at most 64 rows, as
-    JAX dispatches); any other int4 input is unpacked
-    (:func:`int4_matmul_unpacked`)."""
+    weight (zonos_tpu/models/backbone.py:46-79).
+
+    On a CUDA tensor every product whose dtypes and widths a kernel takes
+    goes to a hand-written one whose summation order the weight's shape
+    fixes, so a row's result does not depend on how many rows share the
+    call: a bf16 or int8 weight to G1 (``kernels/gemm.py``), an int4 one to
+    K8 in chunks of at most 64 rows.  What they do not take (an fp32 model,
+    other widths) keeps the library product or JAX's unpack
+    (:func:`int4_matmul_unpacked`).  On the CPU this computes what it always
+    did."""
+    din = x.shape[-1]
+    rows = x.numel() // din
     if isinstance(w, dict) and "q4" in w:
         q, s = w["q4"], w["s4"]
-        dout, G, din = q.shape[-1], s.shape[-2], x.shape[-1]
-        rows = x.numel() // din
-        if x.is_cuda and kernel_takes(rows, din, dout, din // G, x.dtype, q.dtype, s.dtype):
-            xr = x.reshape(rows, din).contiguous()
-            if xr.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte rows
-                xr = xr.clone()
-            return int4_matmul(xr, q, s).reshape(*x.shape[:-1], dout).to(x.dtype)
+        dout, G = q.shape[-1], s.shape[-2]
+        if x.is_cuda and kernel_takes(min(rows, MAX_ROWS), din, dout, din // G, x.dtype, q.dtype,
+                                      s.dtype):
+            return int4_rows(_rows(x, rows), q, s).reshape(*x.shape[:-1], dout).to(x.dtype)
         return int4_matmul_unpacked(x, q, s)
     if isinstance(w, dict) and "q" in w:
-        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+        q, s = w["q"], w["s"]
+        if x.is_cuda and gemm_takes(rows, din, q.shape[-1], x.dtype, q.dtype, s.dtype):
+            return gemm(_rows(x, rows), q, s).reshape(*x.shape[:-1], q.shape[-1])
+        return (x @ q.to(x.dtype)) * s.to(x.dtype)
+    if x.is_cuda and w.dim() == 2 and gemm_takes(rows, din, w.shape[-1], x.dtype, w.dtype):
+        return gemm(_rows(x, rows), w).reshape(*x.shape[:-1], w.shape[-1])
     return x @ w
+
+
+def int4_rows(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """K8 over any number of rows ``x [rows, din]``: chunks of at most
+    MAX_ROWS rows, each one launch (whose plan does not depend on its rows),
+    so every row count takes the same route -> fp32 ``[rows, dout]``."""
+    if x.shape[0] <= MAX_ROWS:
+        return int4_matmul(x, q, s)
+    return torch.cat([int4_matmul(x[i:i + MAX_ROWS], q, s)
+                      for i in range(0, x.shape[0], MAX_ROWS)])
+
+
+def _rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` as contiguous ``[rows, in]`` rows starting on 16 bytes (the
+    kernels read 16-byte rows; a view at an odd offset is copied)."""
+    xr = x.reshape(rows, x.shape[-1]).contiguous()
+    return xr.clone() if xr.data_ptr() % 16 else xr
 
 
 def int4_matmul_unpacked(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -17,11 +17,35 @@ vocabulary of at most 12,288), and its plain version elsewhere.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from zonos_tpu_torch.kernels.sampling import fused_sample, fused_sample_plain, kernel_takes
+
+
+trace_logger = logging.getLogger("zonos_tpu_torch.sampling.trace")
+
+_TRACE_STATS = False
+SUPPORT_FLOOR = 1e-6  # a token counts towards the support above this probability
+
+
+def set_sampling_trace(on: bool) -> None:
+    """Per-step sampling-distribution statistics (JAX's ``--verbose_sampling``,
+    zonos_tpu/ops/sampling.py:40-62).  Read when a ``generate`` starts: its
+    decode steps then write each step's per-codebook top probability,
+    entropy and support into a buffer on the device (a CUDA graph's replay
+    runs no host callback), and the host logs one line a step on
+    ``zonos_tpu_torch.sampling.trace`` at its polls.  Off, the step
+    computes and launches nothing for it."""
+    global _TRACE_STATS
+    _TRACE_STATS = bool(on)
+
+
+def sampling_trace_on() -> bool:
+    return _TRACE_STATS
 
 
 @dataclass(frozen=True)
@@ -156,6 +180,55 @@ def keyed_gumbel(keys: torch.Tensor, step, draws: torch.Tensor, counters: torch.
     return gumbel_of_uniform(u).reshape(draws.shape[0], keys.shape[0], *shape)
 
 
+def _penalized(logits: torch.Tensor, p: "SamplingParams", generated_tokens, repetition_penalty):
+    """``logits`` after the repetition penalty, where the params ask for it."""
+    if generated_tokens is not None and p.repetition_penalty_window > 0:
+        if p.repetition_penalty != 1.0 or repetition_penalty is not None:
+            rp = p.repetition_penalty if repetition_penalty is None else repetition_penalty
+            logits = apply_repetition_penalty(logits, generated_tokens, rp,
+                                              p.repetition_penalty_window)
+    return logits
+
+
+def sampling_probs(logits: torch.Tensor, params: "SamplingParams",
+                   generated_tokens: torch.Tensor | None = None,
+                   repetition_penalty: torch.Tensor | None = None) -> torch.Tensor:
+    """The distribution a sampled draw races over, in the plain math of
+    JAX's unfused path (which its trace logs): the penalty, softmax at the
+    temperature, unified, top-p, top-k, min-p; fp32 ``[B, K, V]``."""
+    p = params
+    logits = _penalized(logits, p, generated_tokens, repetition_penalty)
+    probs = torch.softmax(logits.float() / p.temperature, dim=-1)
+    if p.linear > 0:
+        probs = apply_unified(probs, p.linear, p.conf, p.quad)
+    if p.top_p > 0:
+        probs = apply_top_p(probs, p.top_p)
+    if p.top_k > 0:
+        probs = apply_top_k(probs, p.top_k)
+    if p.min_p > 0:
+        probs = apply_min_p(probs, p.min_p)
+    return probs
+
+
+def prob_stats(probs: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` fp32: each distribution's top probability, entropy (of its
+    nonzero entries) and support (entries above SUPPORT_FLOOR), as JAX's
+    ``_emit_prob_stats`` computes them on the host."""
+    ent = -torch.where(probs > 0, probs * torch.log(probs), torch.zeros_like(probs)).sum(-1)
+    support = (probs > SUPPORT_FLOOR).sum(-1).to(torch.float32)
+    return torch.stack([probs.amax(-1), ent, support], dim=-1)
+
+
+def log_prob_stats(stats: np.ndarray) -> None:
+    """One trace line of a step's ``[B, K, 3]`` statistics, in JAX's format."""
+    trace_logger.debug(
+        "probs: top=%s entropy=%s support=%s",
+        np.round(stats[..., 0], 4).tolist(),
+        np.round(stats[..., 1], 3).tolist(),
+        stats[..., 2].astype(np.int64).tolist(),
+    )
+
+
 def sample_from_logits(
     logits: torch.Tensor,
     params: SamplingParams,
@@ -167,11 +240,7 @@ def sample_from_logits(
     noise of logits' shape (unused at temperature 0).  ``repetition_penalty``
     overrides the static penalty with a per-sample ``[B]`` tensor."""
     p = params
-    if generated_tokens is not None and p.repetition_penalty_window > 0:
-        if p.repetition_penalty != 1.0 or repetition_penalty is not None:
-            rp = p.repetition_penalty if repetition_penalty is None else repetition_penalty
-            logits = apply_repetition_penalty(logits, generated_tokens, rp,
-                                              p.repetition_penalty_window)
+    logits = _penalized(logits, p, generated_tokens, repetition_penalty)
 
     if p.temperature <= 0:
         return torch.argmax(logits, dim=-1)

@@ -22,17 +22,18 @@ Requests with different sampling params, cfg_scale, stream cadence or audio
 prefix length are grouped apart (:class:`BatchKey`), and so are requests of
 different padded conditioning lengths.
 
-**Co-batched rows on the card.**  Each row's noise is keyed by its own
-request seed and each request's conditioning rows are computed on their own
-(:func:`build_batch_prefix`), so on the CPU a request's audio is
-bit-identical solo or co-batched (``tests/test_torch_port_serving.py``).  On
-the card it is not: cuBLAS picks its kernel, and with it the order of its
-sums, by the row count, and the prefill's ``w2`` product (K = 8192) gives a
-request other bf16 bits in a batch than alone; K2's plan at 128 rows does
-too.  One ulp in a hidden state changes sampled codes within a few frames:
-``chip_smoke.py`` ``[cobatch]`` found the request's codes different from its
-solo codes from the first frames on, at batch 4, 8 and 64, and even with the
-request itself in every row (ROADMAP §3).
+**Co-batched rows.**  Each row's noise is keyed by its own request seed,
+each request's conditioning rows are computed on their own
+(:func:`build_batch_prefix`), and every operation of the backbone computes a
+row the same way whatever rows share its call: on the card the products go
+to G1, whose summation order the weight's shape fixes (``kernels/gemm.py``),
+the norms to N1 (one CTA a row), the prefill's attention runs in calls of a
+fixed batch, and K1/K2/K4/K8 plan by the widths alone.  So a request's codes
+are the same bits solo or co-batched, on the CPU
+(``tests/test_torch_port_serving.py``) and on the card, where
+``chip_smoke.py`` ``[cobatch]`` fails if row 0 at batch 4, 8 or 64 (or the
+request in every row) differs from its solo codes in any frame, on bf16 and
+on int8 weights.  The hybrid's Mamba2 layers are not held to it there.
 
 All device work (the conditioning prefix, each generate, each stream chunk,
 each vocode) runs under ``device_lock``, which the server shares for speaker
