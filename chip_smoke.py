@@ -70,7 +70,7 @@ Phases, each of which fails the run (non-zero exit) on error:
      against inside a batch (G1's products, K8, N1, the prefill's
      attention, K1, K2, K4); cobatch int8 at batch 4 and 64 after
      ``quantize_int8()`` (held the same way), cobatch hybrid at batch 4
-     (reported).
+     (held the same way, with the op-by-op trace).
    - checkpoint transformer / checkpoint hybrid: each in-memory flagship
      exported by ``export_zonos_checkpoint`` into a temporary models
      directory and read back by ``Zonos.from_pretrained``: every leaf equal
@@ -204,6 +204,7 @@ INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
 # G1's checks: both row tiles (16 and 64 rows), splits in parallel CTAs and in turn, ragged
 # row tiles; a decode step's rows with CFG (2, 8, 128), a batch-1 prefill (142) and batch 64's
 GEMM_CHECK_ROWS = (1, 2, 8, 16, 17, 128, 142, 64 * 142)
+GEMM_PROBE_ROWS = (2, 142)  # G1's tile choices held against each other bit for bit
 # G1's timed rows: decode steps at batch 1, 4 and 64 with CFG; the batch-1 and batch-64 prefills
 GEMM_TIMED_ROWS = (2, 8, 128, 142, 64 * 142)
 LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
@@ -708,10 +709,10 @@ def state_step_inputs(gen, BH: int, dtype, P: int = SSM_P, N: int = SSM_N) -> tu
 
 def check_fused_state_step(gen) -> float:
     """K7 vs the plain version at BH in (128, 1024), P 64, N 128, and at
-    ``STATE_STEP_EXTRA_SHAPES``, for fp32, bf16 and f8 storage: y within 1e-5
-    x max|ref|, the new state within one storage ulp of the plain version's
-    (where fp32 products round apart), finite, f8 saturated to +-448.
-    Returns the largest absolute error of y."""
+    ``STATE_STEP_EXTRA_SHAPES``, for fp32, bf16 and f8 storage: y and B.C
+    within 1e-5 x max|ref|, the new state within one storage ulp of the
+    plain version's (where fp32 products round apart), finite, f8 saturated
+    to +-448.  Returns the largest absolute error of y."""
     import torch
 
     from zonos_tpu_torch.kernels.ssm_state import (
@@ -726,12 +727,16 @@ def check_fused_state_step(gen) -> float:
         for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
             state, C, B, dA, xdt = state_step_inputs(gen, BH, dtype, P, N)
             ref_state = state.clone()
-            ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt)
-            y, _ = fused_state_step(state, C, B, dA, xdt)
+            ref_bc, bc = (torch.empty(BH, device="cuda") for _ in range(2))
+            ref_y, _ = fused_state_step_plain(ref_state, C, B, dA, xdt, bc=ref_bc)
+            y, _ = fused_state_step(state, C, B, dA, xdt, bc=bc)
             torch.cuda.synchronize()
             err = float((y - ref_y).abs().max())
             if not err <= 1e-5 * float(ref_y.abs().max()):
                 fail(f"fused_state_step BH={BH} {dtype}: y max abs err {err}")
+            bc_err = float((bc - ref_bc).abs().max())
+            if not bc_err <= 1e-5 * float(ref_bc.abs().max()):
+                fail(f"fused_state_step BH={BH} {dtype}: B.C max abs err {bc_err}")
             diff = (state.float() - ref_state.float()).abs()
             if not bool((diff <= storage_ulp(ref_state)).all()) or not bool(
                     torch.isfinite(state.float()).all()):
@@ -742,8 +747,8 @@ def check_fused_state_step(gen) -> float:
                      f"{float(state.float()[0, 0].abs().max())}, not +-448")
             worst = max(worst, err)
             print(f"[kernels] K7 ok at [{BH},{P},{N}], {str(dtype).split('.')[-1]}: y max abs err "
-                  f"{err:.3g}; {int((diff == 0).sum())}/{diff.numel()} stored values equal to "
-                  f"the plain version's, the rest within one ulp", flush=True)
+                  f"{err:.3g}, B.C {bc_err:.3g}; {int((diff == 0).sum())}/{diff.numel()} stored "
+                  f"values equal to the plain version's, the rest within one ulp", flush=True)
     return worst
 
 
@@ -767,7 +772,7 @@ def quant_state_inputs(gen, BH: int, mode: str, P: int = SSM_P, N: int = SSM_N) 
 def check_fused_state_step_quant(gen) -> dict:
     """``[kernels] K7 int8`` / ``K7 int4``: the kernel against its plain
     version at [128,64,128] (batch 1 with CFG) and [1024,64,128] (batch 8
-    with CFG): y within 1e-5 x max|ref|, each scale within one fp32 ulp, each
+    with CFG): y and B.C within 1e-5 x max|ref|, each scale within one fp32 ulp, each
     stored value within one grid step and at most 1e-3 of them apart (a .5
     boundary can round apart where the fp32 update differs by an ulp); and
     the 64 heads of one backbone row launched alone equal to the same heads
@@ -787,12 +792,15 @@ def check_fused_state_step_quant(gen) -> dict:
         for BH in (128, 1024):
             q, C, B, dA, xdt, scale = quant_state_inputs(gen, BH, mode)
             ref_q, ref_scale = q.clone(), scale.clone()
-            ref_y, _ = fused_state_step_plain(ref_q, C, B, dA, xdt, ref_scale)
-            y, _ = fused_state_step(q, C, B, dA, xdt, scale)
+            ref_bc, bc = (torch.empty(BH, device="cuda") for _ in range(2))
+            ref_y, _ = fused_state_step_plain(ref_q, C, B, dA, xdt, ref_scale, bc=ref_bc)
+            y, _ = fused_state_step(q, C, B, dA, xdt, scale, bc=bc)
             torch.cuda.synchronize()
             err = float((y - ref_y).abs().max())
             if not err <= 1e-5 * float(ref_y.abs().max()):
                 fail(f"K7 {mode} BH={BH}: y max abs err {err}")
+            if not float((bc - ref_bc).abs().max()) <= 1e-5 * float(ref_bc.abs().max()):
+                fail(f"K7 {mode} BH={BH}: B.C max abs err {float((bc - ref_bc).abs().max())}")
             ulp = torch.nextafter(ref_scale, torch.full_like(ref_scale, float("inf"))) - ref_scale
             if not bool(((scale - ref_scale).abs() <= ulp).all()):
                 fail(f"K7 {mode} BH={BH}: a scale off by more than one fp32 ulp")
@@ -813,14 +821,15 @@ def check_fused_state_step_quant(gen) -> dict:
         q, C, B, dA, xdt, scale = quant_state_inputs(gen, 1024, mode)
         row = slice(3 * SSM_H, 4 * SSM_H)
         alone = [t[row].clone() for t in (q, C, B, dA, xdt, scale)]
-        y_all, _ = fused_state_step(q, C, B, dA, xdt, scale)
-        y_one, _ = fused_state_step(*alone)
+        bc_all, bc_one = torch.empty(q.shape[0], device="cuda"), torch.empty(SSM_H, device="cuda")
+        y_all, _ = fused_state_step(q, C, B, dA, xdt, scale, bc=bc_all)
+        y_one, _ = fused_state_step(*alone, bc=bc_one)
         torch.cuda.synchronize()
         if not (torch.equal(y_one, y_all[row]) and torch.equal(alone[0], q[row])
-                and torch.equal(alone[5], scale[row])):
+                and torch.equal(alone[5], scale[row]) and torch.equal(bc_one, bc_all[row])):
             fail(f"K7 {mode}: a row alone differs from the same row inside batch 8")
         print(f"[kernels] K7 {mode}: a row's 64 heads alone equal the same heads inside batch 8 "
-              f"(16 rows) bit for bit (y, stored bytes, scales)", flush=True)
+              f"(16 rows) bit for bit (y, B.C, stored bytes, scales)", flush=True)
     return worst
 
 
@@ -1062,21 +1071,27 @@ def _pair_in_batch(fn, one, rows: int, gen) -> bool:
 
 def check_gemm(gen) -> float:
     """G1 vs its plain version (fp32 sums of the bf16 products rounded once;
-    int8: then times the bf16 scales) at M in GEMM_CHECK_ROWS (both row
-    tiles, both ways of running the splits, ragged edges) for every weight
-    ``matmul_w`` gives it on the main paths: the flagship transformer's four
-    layer weights and the heads, the hybrid's in_proj and out_proj, in bf16
-    and int8.  Tolerance: 2 bf16 ulps of max|ref| (only the fp32 summation
-    order differs before the one rounding).  Then a request's rows alone
-    against the same rows first in a batch, bit for bit: 2 rows (a decode
-    step with CFG) in 128, and 142 (a batch-1 prefill) in 64 x 142.  Returns
-    the largest absolute error."""
+    int8: then times the bf16 scales) at M in GEMM_CHECK_ROWS (one and two
+    consumer warpgroups, cluster and in-CTA splits, ragged edges) for every
+    weight ``matmul_w`` gives it on the main paths: the flagship
+    transformer's four layer weights and the heads, the hybrid's in_proj
+    (8512 columns: a ragged last tile) and out_proj, in bf16 and int8.
+    Tolerance: 1 bf16 ulp of max|ref| (only the fp32 summation order differs
+    before the one rounding).  Then the probe of the design's choices by M:
+    at GEMM_PROBE_ROWS, every row tile (64 or 128 rows a CTA) with the splits
+    as a cluster's CTAs or in turn in one CTA gives the same bits as the
+    plan's launch; a request's rows alone the same bits as first in a batch
+    (2 rows in 128, 142 in 64 x 142) and as rows 70-71 of 142 (another place
+    in the tile); and every cluster size 1-8 (K = 256 n) against the plain
+    version and the in-CTA splits.  Returns the largest absolute error."""
     import torch
 
-    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+    from zonos_tpu_torch.kernels.gemm import GemmPlan, gemm, gemm_plain, gemm_plan
+    from zonos_tpu_torch.kernels._build import sm_count
     from zonos_tpu_torch.ops.quant import quantize_weight_int8
 
-    worst, by_weight = 0.0, {}
+    sms = sm_count(torch.cuda.current_device())
+    worst, by_weight, probes = 0.0, {}, 0
     for name, (din, dout) in {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}.items():
         wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
         for kind, args in (("bf16", (wf.bfloat16(),)),
@@ -1084,12 +1099,24 @@ def check_gemm(gen) -> float:
             for M in GEMM_CHECK_ROWS:
                 x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
                 ref = gemm_plain(x, *args).float()
-                got = gemm(x, *args).float()
+                got = gemm(x, *args)
+                if M in GEMM_PROBE_ROWS:
+                    plan = gemm_plan(M, din, dout, sms)
+                    for bm in (64, 128):
+                        for parallel in (False, True):
+                            other = gemm(x, *args, plan=GemmPlan(plan.n_split,
+                                                                 plan.rows_per_split, bm,
+                                                                 parallel))
+                            probes += 1
+                            if not torch.equal(other, got):
+                                fail(f"gemm {name} {kind} M={M}: the plan's launch {plan} and "
+                                     f"bm={bm} parallel={parallel} give other bits")
                 torch.cuda.synchronize()
+                got = got.float()
                 err, top = float((got - ref).abs().max()), float(ref.abs().max())
-                if not err <= 2 * bf16_ulp(top) or not bool(torch.isfinite(got).all()):
-                    fail(f"gemm {name} {kind} [{din},{dout}] M={M}: max abs err {err} > 2 bf16 "
-                         f"ulps of {top}")
+                if not err <= bf16_ulp(top) or not bool(torch.isfinite(got).all()):
+                    fail(f"gemm {name} {kind} [{din},{dout}] M={M}: max abs err {err} > 1 bf16 "
+                         f"ulp of {top}")
                 worst = max(worst, err)
                 by_weight[f"{name} {kind}"] = max(by_weight.get(f"{name} {kind}", 0.0),
                                                   err / bf16_ulp(top))
@@ -1097,9 +1124,28 @@ def check_gemm(gen) -> float:
                 one = torch.randn((rows, din), generator=gen, device="cuda").bfloat16()
                 if not _pair_in_batch(lambda x: gemm(x, *args), one, big, gen):
                     fail(f"gemm {name} {kind}: {rows} rows alone and first in {big} differ")
+            x = torch.randn((142, din), generator=gen, device="cuda").bfloat16()
+            if not torch.equal(gemm(x[70:72].contiguous(), *args), gemm(x, *args)[70:72]):
+                fail(f"gemm {name} {kind}: rows 70-71 alone and in 142 rows differ")
+    for n in range(1, 9):
+        K = 256 * n
+        w = (torch.randn((K, 256), generator=gen, device="cuda") / K ** 0.5).bfloat16()
+        for M in (2, 100):
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            ref = gemm_plain(x, w).float()
+            outs = [gemm(x, w, plan=GemmPlan(n, 256, bm, parallel))
+                    for bm in (64, 128) for parallel in (True, False)]
+            torch.cuda.synchronize()
+            err, top = float((outs[0].float() - ref).abs().max()), float(ref.abs().max())
+            if not err <= bf16_ulp(top) or not all(torch.equal(o, outs[0]) for o in outs):
+                fail(f"gemm with a cluster of {n} at M={M}: max abs err {err} (1 bf16 ulp of "
+                     f"{top}) or the tile choices' bits differ")
     print(f"[kernels] G1 ok at M in {GEMM_CHECK_ROWS}: max abs err {worst:.3g}; worst in bf16 "
           f"ulps of max|ref| by weight " + ", ".join(f"{n} {r:.2g}" for n, r in by_weight.items())
-          + " (tolerance 2); 2 rows alone = first in 128, 142 alone = first in 9088, bit for bit",
+          + f" (tolerance 1); the tile-choice probe at M in {GEMM_PROBE_ROWS}: {probes} launches "
+          "(64- and 128-row tiles, cluster and in-CTA splits) the same bits as the plan's; 2 rows "
+          "alone = first in 128, 142 alone = first in 9088, rows 70-71 alone = in 142, bit for "
+          "bit; clusters of 1-8 CTAs within 1 ulp and equal to the in-CTA splits",
           flush=True)
     return worst
 
@@ -2350,7 +2396,7 @@ COBATCH_TEXT = "Every request should sound the same alone or in a batch."
 COBATCH_FRAMES, COBATCH_SEED, COBATCH_BATCHES = 256, 1234, (4, 8, 64)
 COBATCH_TRACED_STEPS = 12  # decode steps the op-by-op comparison covers after the prefill
 COBATCH_INT8_BATCHES = (4, 64)  # the served int8 path: held as the bf16 one is
-COBATCH_HYBRID_BATCHES = (4,)  # the hybrid: reported, not held
+COBATCH_HYBRID_BATCHES = (4,)  # the hybrid (8 backbone rows: its fp32 SSM state, as alone)
 
 
 def _peer_texts(n: int) -> list[str]:
@@ -2862,7 +2908,7 @@ def _frames_differing(a, b) -> tuple[int, int | None]:
 
 
 def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATCHES,
-                  strict: bool = True, full: bool = True) -> dict:
+                  full: bool = True, trace: bool = False) -> dict:
     """``[cobatch]``: does a request's output on the card depend on its
     co-batched peers?  One request (its text, a speaker from the seed, seed
     1234, default sampling, 256 frames) through the batcher's own
@@ -2872,14 +2918,14 @@ def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATC
     each batch and whether row 0's conditioning prefix is the solo one bit
     for bit; the first operation of the prefill and 12 decode steps whose
     row-0 result differs between batch 1 and the first batch
-    (``first_difference``: always with ``full``, else where a batch
-    differed); with ``full``, the request in all 4 rows against alone and,
-    operation by operation, a row alone against inside a batch
-    (``_cobatch_isolated``).  It fails if row 0's conditioning differs, and
-    with ``strict`` if any frame of row 0 (or, with ``full``, of the
-    request in all 4 rows) differs from the solo codes: the contract the
-    served paths keep on the card (G1, N1 and the batch-free plans of K1,
-    K2, K4 and K8)."""
+    (``first_difference``: always with ``full`` or ``trace``, else where a
+    batch differed); with ``full``, the request in all 4 rows against alone
+    and, operation by operation, a row alone against inside a batch
+    (``_cobatch_isolated``).  It fails if row 0's conditioning differs, or
+    if any frame of row 0 (or, with ``full``, of the request in all 4 rows)
+    differs from the solo codes: the contract the served paths keep on the
+    card (G1, N1, the batch-free plans of K1, K2, K4 and K8, and on the
+    hybrid K7's B.C and the causal conv's taps in tap order)."""
     import numpy as np
     import torch
 
@@ -2923,7 +2969,7 @@ def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATC
               f"(first at frame {first}); its conditioning prefix "
               f"{'equal to' if same_prefix else 'differs from'} the solo one bit for bit; "
               f"generate {dt:.2f} s ({card})", flush=True)
-    if full or faults:
+    if full or trace or faults:
         t = time.perf_counter()
         where = first_difference(
             model, lambda rows: build_batch_prefix(model, [request] + peers[:rows - 1], 32),
@@ -2951,7 +2997,7 @@ def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATC
             print(f"{tag} row 0 alone (2 rows with CFG) against inside 2B rows, = equal, x "
                   f"differs: {line}", flush=True)
     print(json.dumps({"cobatch": result, "tag": tag, "card": card}), flush=True)
-    if strict and faults:
+    if faults:
         fail(f"{tag} a request's codes depend on its co-batched peers: " + "; ".join(faults))
     return result
 
@@ -3014,8 +3060,9 @@ def time_ssd_chunked(gen, rows: int, L: int) -> dict:
 
 
 def time_fused_state_step(gen, BH: int, dtype, rows: int | None = None) -> dict:
-    """K7 at ``BH`` rows x heads, cycling over enough states to exceed the
-    50 MB L2 (a layer's state is read after the other layers' weights);
+    """K7 at ``BH`` rows x heads, with B.C as the main path asks for it,
+    cycling over enough states to exceed the 50 MB L2 (a layer's state is
+    read after the other layers' weights);
     ``rows``: state rows a slab, launched through the C entry point in place
     of the wrapper's ``slab_plan`` (``--sweep``), None for the wrapper."""
     import torch
@@ -3033,17 +3080,22 @@ def time_fused_state_step(gen, BH: int, dtype, rows: int | None = None) -> dict:
         y = torch.empty((BH, P), dtype=torch.float32, device=state.device)
         check(library("ssm_state", _SIGNATURES).zt_ssm_state_step(
             state.data_ptr(), C.data_ptr(), B.data_ptr(), dA.data_ptr(), xdt.data_ptr(),
-            y.data_ptr(), BH, P, N, STATE_DTYPES[state.dtype], rows,
+            y.data_ptr(), None, BH, P, N, STATE_DTYPES[state.dtype], rows,
             torch.cuda.current_stream().cuda_stream), "K7 sweep")
         return y, state
 
-    step = fused_state_step if rows is None else with_rows
+    bc = torch.empty(BH, device="cuda")  # the decode step's B.C beside y, as the main path asks
+
+    def step(*args):
+        return fused_state_step(*args, bc=bc) if rows is None else with_rows(*args)
+
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_sets = 2 + int(64e6 // (BH * SSM_P * SSM_N * itemsize))
     sets = [state_step_inputs(gen, BH, dtype) for _ in range(n_sets)]
     cycle = itertools.cycle(sets)
     return {"shape": f"state [{BH},{SSM_P},{SSM_N}] {str(dtype).split('.')[-1]}, L2 cold",
-            **_times(lambda: step(*next(cycle)), lambda: fused_state_step_plain(*next(cycle))),
+            **_times(lambda: step(*next(cycle)),
+                     lambda: fused_state_step_plain(*next(cycle), bc=bc)),
             **_bound(*fused_state_step_cost(BH, SSM_P, SSM_N, itemsize))}
 
 
@@ -3058,17 +3110,20 @@ def fused_state_step_quant_cost(BH: int, P: int, N: int, mode: str) -> tuple[flo
 
 
 def time_fused_state_step_quant(gen, BH: int, mode: str) -> dict:
-    """K7 on an int8 or int4 state at ``BH`` rows x heads, cycling over enough
-    states to exceed the 50 MB L2, beside the plain version."""
+    """K7 on an int8 or int4 state at ``BH`` rows x heads, with B.C, cycling
+    over enough states to exceed the 50 MB L2, beside the plain version."""
+    import torch
+
     from zonos_tpu_torch.kernels.ssm_state import fused_state_step, fused_state_step_plain
 
     per = {"int8": 1.0, "int4": 0.5}[mode]
     n_sets = 2 + int(64e6 // (BH * SSM_P * SSM_N * per))
     sets = [quant_state_inputs(gen, BH, mode) for _ in range(n_sets)]
     cycle = itertools.cycle(sets)
+    bc = torch.empty(BH, device="cuda")
     return {"shape": f"state [{BH},{SSM_P},{SSM_N}] {mode} + scales [{BH}] fp32, L2 cold",
-            **_times(lambda: fused_state_step(*next(cycle)),
-                     lambda: fused_state_step_plain(*next(cycle))),
+            **_times(lambda: fused_state_step(*next(cycle), bc=bc),
+                     lambda: fused_state_step_plain(*next(cycle), bc=bc)),
             **_bound(*fused_state_step_quant_cost(BH, SSM_P, SSM_N, mode))}
 
 
@@ -4074,8 +4129,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     model = load_model("hybrid")
     prefix = path("hybrid", model, 8, HYBRID_KERNELS, MAX_NEW_TOKENS)
-    phase_cobatch(card, model, "[cobatch hybrid]", COBATCH_HYBRID_BATCHES, strict=False,
-                  full=False)
+    phase_cobatch(card, model, "[cobatch hybrid]", COBATCH_HYBRID_BATCHES, full=False,
+                  trace=True)
     counts["prefix hybrid"] = phase_prefix(card, "hybrid", model, prefix, audio_codes,
                                            PREFIX_KERNELS + ("ssd_chunked", "fused_state_step"))
     with temporary_models_dir() as models_dir:

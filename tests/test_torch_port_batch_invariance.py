@@ -60,8 +60,9 @@ def _ulp(x: float) -> float:
 @pytest.mark.parametrize("name", list(WEIGHTS))
 def test_gemm_order_does_not_depend_on_the_rows(name):
     """G1's splits (what fixes a row's sums) are the same at every row
-    count; only the row tile and how the splits run change, and each split
-    holds whole ring stages, none empty."""
+    count, at most a portable cluster of 8; only the row tile (one or two
+    consumer warpgroups) and how the splits run (a cluster's CTAs or in
+    turn) change, and each split holds whole ring stages, none empty."""
     K, N = WEIGHTS[name]
     plans = [g1.gemm_plan(M, K, N, SMS) for M in ROWS]
     assert len({(p.n_split, p.rows_per_split) for p in plans}) == 1
@@ -70,7 +71,9 @@ def test_gemm_order_does_not_depend_on_the_rows(name):
     assert (p.n_split - 1) * p.rows_per_split < K <= p.n_split * p.rows_per_split
     assert p.n_split <= g1.MAX_SPLITS
     assert "M" not in inspect.signature(g1.split_count).parameters
-    assert [q.bm for q in plans] == [16, 16, 16, 64, 64]
+    assert [q.bm for q in plans] == [64, 64, 64, 128, 128]
+    assert g1.gemm_plan(142, K, N, SMS).bm == 64  # 3 tiles of 64 rows, not 2 of 128
+    assert not plans[-1].parallel  # a prefill's tiles fill the card: the splits in turn
 
 
 @pytest.mark.parametrize("held_out", [False, True])
@@ -130,11 +133,13 @@ def test_int4_order_does_not_depend_on_the_rows(name):
 
 
 def _gemm_model(x: np.ndarray, w: np.ndarray, plan: g1.GemmPlan) -> np.ndarray:
-    """G1's arithmetic in numpy: per split, the k-steps of 16 in increasing
-    k into an fp32 accumulator from 0 (each step's 16 products summed in
-    fp32; the tensor cores' order inside a step is not modelled), the splits
-    added in order into a total from 0, rounded to bf16 once.  Every row is
-    computed on its own (an elementwise reduction over the k axis)."""
+    """G1's arithmetic in numpy: per split, the wgmma k-steps of 16 in
+    increasing k into an fp32 accumulator from 0 (each step's 16 products
+    summed in fp32; the tensor cores' order inside a step is not modelled),
+    the splits added in order into a total from 0 (in turn in one CTA, or by
+    a cluster rank reading each split's partial in split order: the same
+    adds), rounded to bf16 once.  Every row is computed on its own (an
+    elementwise reduction over the k axis)."""
     M, K = x.shape
     total = np.zeros((M, w.shape[1]), np.float32)
     for s in range(plan.n_split):

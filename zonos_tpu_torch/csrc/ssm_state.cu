@@ -2,6 +2,7 @@
 // stored state s [P, N] (fp32, bf16 or float8 e4m3):
 //   y[p]     = sum_n s[p][n] * C[n]                 (from the OLD state)
 //   s'[p][n] = s[p][n] * dA + xdt[p] * B[n]         (fp32, stored back in place)
+//   bc       = sum_n B[n] * C[n]                    (where the caller asks for it)
 // Storing to f8 saturates to +-448 (the JAX package clips to +-448 before its cast, since
 // e4m3 has no infinity).  The fp32 update is rounded as the plain version rounds it: each
 // product, then the sum (no fused multiply-add), so the stored state equals the plain
@@ -34,6 +35,11 @@
 //   a warp-shuffle reduction over the lanes of a row (no cross-CTA sum: a row never spans
 //   two CTAs).  The new values go back into the slab in shared memory, and one thread
 //   stores the slab with one bulk copy (shared -> global) after fence.proxy.async.
+// - B.C (the decode step's y = dA (C.s) + (B.C) xdt + D x takes it beside y): warp 0 of a bh
+//   row's first slab, each lane over its slice in increasing n, then the same butterfly as
+//   y's over the lanes of a row.  The order is fixed by N and the storage type, never by the
+//   number of rows, so a request's B.C is the same bits alone and in any batch (a batched
+//   library reduction picks its order by the batch).
 // - f8 converts two values an instruction each way.  The load widens an e4m3 pair to an
 //   f16 pair (__nv_cvt_fp8x2_to_halfraw2; exact, since every e4m3 value, subnormals
 //   included, is an f16 value, and NaN stays NaN), then to fp32.  (An exact integer decode,
@@ -141,11 +147,25 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// B.C of one bh row by a whole warp whose lane l holds the slice (l % lanes_per_row) of B and
+// C: fmaf over the slice in increasing n, then a butterfly over the lanes of a row; lane 0
+// writes it.
+template <int E>
+__device__ __forceinline__ void bc_of_row(const float (&b)[E], const float (&c)[E],
+                                          int lanes_per_row, float* out) {
+  float part = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) part = fmaf(b[e], c[e], part);
+  for (int off = lanes_per_row / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (threadIdx.x == 0) *out = part;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 state_step_kernel(T* state, const float* __restrict__ C, const float* __restrict__ B,
                   const float* __restrict__ dA, const float* __restrict__ xdt,
-                  float* __restrict__ y, int P, int N, int rows_per_cta) {
+                  float* __restrict__ y, float* __restrict__ bc, int P, int N, int rows_per_cta) {
   constexpr int E = Vec<T>::E;
   extern __shared__ __align__(128) uint4 slab[];  // the slab, then xdt of its rows
   __shared__ __align__(8) uint64_t landed;
@@ -181,6 +201,8 @@ state_step_kernel(T* state, const float* __restrict__ C, const float* __restrict
     b[e] = B[(size_t)bh * N + n0 + e];
   }
   const float da = dA[bh];
+  if (bc != nullptr && blockIdx.y == 0 && threadIdx.x < 32)
+    bc_of_row(b, c, lanes_per_row, bc + bh);
   float* xs = reinterpret_cast<float*>(slab + rows_per_cta * lanes_per_row);
   for (int r = threadIdx.x; r < rows; r += kThreads) xs[r] = xdt[(size_t)bh * P + p0 + r];
   __syncthreads();  // the barrier's initialisation and xs are visible before anyone waits
@@ -232,7 +254,7 @@ state_step_kernel(T* state, const float* __restrict__ C, const float* __restrict
 
 template <typename T>
 int launch(void* state, const void* C, const void* B, const void* dA, const void* xdt, void* y,
-           int BH, int P, int N, int rows_per_cta, cudaStream_t stream) {
+           void* bc, int BH, int P, int N, int rows_per_cta, cudaStream_t stream) {
   constexpr int E = Vec<T>::E;
   const int lanes = N / E;
   const int slab_bytes = rows_per_cta * N * (int)sizeof(T);
@@ -245,8 +267,8 @@ int launch(void* state, const void* C, const void* B, const void* dA, const void
   const int smem = slab_bytes + rows_per_cta * (int)sizeof(float);  // the slab, xdt
   state_step_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(state), static_cast<const float*>(C), static_cast<const float*>(B),
-      static_cast<const float*>(dA), static_cast<const float*>(xdt), static_cast<float*>(y), P,
-      N, rows_per_cta);
+      static_cast<const float*>(dA), static_cast<const float*>(xdt), static_cast<float*>(y),
+      static_cast<float*>(bc), P, N, rows_per_cta);
   return cudaGetLastError();
 }
 
@@ -300,7 +322,8 @@ template <bool kInt4>
 __global__ void __launch_bounds__(kQThreads)
 quant_step_kernel(int8_t* state, float* scale, const float* __restrict__ C,
                   const float* __restrict__ B, const float* __restrict__ dA,
-                  const float* __restrict__ xdt, float* __restrict__ y, int P, int N) {
+                  const float* __restrict__ xdt, float* __restrict__ y, float* __restrict__ bc,
+                  int P, int N) {
   using Piece = QPiece<kInt4>;
   constexpr float kLimit = kInt4 ? 7.f : 127.f;
   constexpr float kInvLimit = kInt4 ? 1.f / 7.f : 1.f / 127.f;  // rounded to fp32, as XLA's
@@ -319,6 +342,7 @@ quant_step_kernel(int8_t* state, float* scale, const float* __restrict__ C,
     b[e] = B[(size_t)bh * N + n0 + e];
   }
   const float da = dA[bh];
+  if (bc != nullptr && threadIdx.x < 32) bc_of_row(b, c, lanes_per_row, bc + bh);
 
   const int threads = blockDim.x;  // a multiple of 32, enough for kQPieces pieces each
   float ns[kQPieces][16];
@@ -374,7 +398,7 @@ quant_step_kernel(int8_t* state, float* scale, const float* __restrict__ C,
 
 template <bool kInt4>
 int launch_quant(void* state, void* scale, const void* C, const void* B, const void* dA,
-                 const void* xdt, void* y, int BH, int P, int N, cudaStream_t stream) {
+                 const void* xdt, void* y, void* bc, int BH, int P, int N, cudaStream_t stream) {
   const int lanes = N / 16;
   if (N % 16 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || P < 1 ||
       P * N > kQThreads * kQPieces * 16)
@@ -387,37 +411,39 @@ int launch_quant(void* state, void* scale, const void* C, const void* B, const v
   quant_step_kernel<kInt4><<<BH, threads, 0, stream>>>(
       static_cast<int8_t*>(state), static_cast<float*>(scale), static_cast<const float*>(C),
       static_cast<const float*>(B), static_cast<const float*>(dA),
-      static_cast<const float*>(xdt), static_cast<float*>(y), P, N);
+      static_cast<const float*>(xdt), static_cast<float*>(y), static_cast<float*>(bc), P, N);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // state [BH, P, N] (dtype 0 fp32, 1 bf16, 2 f8 e4m3), updated in place; C, B [BH, N],
-// dA [BH], xdt [BH, P], y [BH, P]: fp32, contiguous, 16-byte-aligned state.  N * sizeof / 16
+// dA [BH], xdt [BH, P], y [BH, P], bc [BH] (null: not computed): fp32, contiguous,
+// 16-byte-aligned state.  N * sizeof / 16
 // must be a power of two no larger than 32 (N = 128 in every storage type); rows_per_cta
 // rows of N make at most 32 KB, and ceil(P / rows_per_cta) <= 65535 (kernels/ssm_state.py
 // slab_plan).
 extern "C" int zt_ssm_state_step(void* state, const void* C, const void* B, const void* dA,
-                                 const void* xdt, void* y, int BH, int P, int N, int dtype,
-                                 int rows_per_cta, void* stream) {
+                                 const void* xdt, void* y, void* bc, int BH, int P, int N,
+                                 int dtype, int rows_per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
-    case 1: return launch<__nv_bfloat16>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
-    case 2: return launch<__nv_fp8_e4m3>(state, C, B, dA, xdt, y, BH, P, N, rows_per_cta, s);
+    case 0: return launch<float>(state, C, B, dA, xdt, y, bc, BH, P, N, rows_per_cta, s);
+    case 1:
+      return launch<__nv_bfloat16>(state, C, B, dA, xdt, y, bc, BH, P, N, rows_per_cta, s);
+    case 2: return launch<__nv_fp8_e4m3>(state, C, B, dA, xdt, y, bc, BH, P, N, rows_per_cta, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // state int8 [BH, P, N] (int4 != 0: [BH, P, N / 2], two values a byte) and scale [BH] fp32,
-// both updated in place; C, B [BH, N], dA [BH], xdt [BH, P], y [BH, P]: fp32, contiguous,
-// 16-byte-aligned state.  N / 16 must be a power of two no larger than 32, and P * N at most
+// both updated in place; C, B [BH, N], dA [BH], xdt [BH, P], y [BH, P], bc [BH] (null: not
+// computed): fp32, contiguous, 16-byte-aligned state.  N / 16 must be a power of two no larger than 32, and P * N at most
 // 16,384 (kernels/ssm_state.py _quant_refusal).
 extern "C" int zt_ssm_state_step_quant(void* state, void* scale, const void* C, const void* B,
-                                       const void* dA, const void* xdt, void* y, int BH, int P,
-                                       int N, int int4, void* stream) {
+                                       const void* dA, const void* xdt, void* y, void* bc,
+                                       int BH, int P, int N, int int4, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int4 ? launch_quant<true>(state, scale, C, B, dA, xdt, y, BH, P, N, s)
-              : launch_quant<false>(state, scale, C, B, dA, xdt, y, BH, P, N, s);
+  return int4 ? launch_quant<true>(state, scale, C, B, dA, xdt, y, bc, BH, P, N, s)
+              : launch_quant<false>(state, scale, C, B, dA, xdt, y, bc, BH, P, N, s);
 }

@@ -8,12 +8,14 @@ and a served request's codes changed with its co-batched peers.  G1 computes
 ``x [M, K] @ w [K, N]`` (bf16 ``w``, or int8 ``q`` times bf16 column scales
 ``s`` as ``(x @ q) * s``) in an order fixed by ``(K, N)`` and the card's SM
 count alone (:func:`split_count`): splits of the contraction added in split
-order, each a run of 16-k ``mma.sync`` steps in increasing k, rounded to bf16
+order, each a run of 16-k ``wgmma`` steps in increasing k, rounded to bf16
 once.  A row's result is therefore the same bits alone and in any batch.
 
 What bounds it on an H100: at a decode step's few rows, reading the weight
 once (``2 K N`` bytes, ``K N`` for int8); at a large prefill, the tensor
-cores' bf16 rate.  The source note has the design.
+cores' bf16 rate.  The source note has the design: TMA stages feeding
+``wgmma`` from a warp-specialised producer, the splits of a small-M call
+reduced inside a thread-block cluster.
 """
 
 from __future__ import annotations
@@ -26,16 +28,17 @@ import torch
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 
-TILE = 128  # columns a CTA owns; compiled into the kernel
+TILE = 128  # columns a CTA owns (the wgmma's N); compiled into the kernel
 STAGE_ROWS = 64  # k rows of a ring stage: splits hold a multiple of it
 MIN_SPLIT_ROWS = 256  # the fewest contraction rows worth a split of their own
-MAX_SPLITS = 16  # the most splits a tile's last CTA adds
-ALIGN = 16  # K and N must be multiples of it (a k-step; 16-byte copies of int8 rows)
-SMALL_ROWS = 16  # up to this many rows the CTA's row tile is 16 rows, else 64
+MAX_SPLITS = 8  # the most splits: the CTAs of a cluster, at most the portable 8
+ALIGN = 16  # K and N must be multiples of it (a k-step; the tensor maps' 16-byte rows)
+WG_ROWS = 64  # rows of a consumer warpgroup (the wgmma's M); a CTA has one or two
+WIDE_FROM = 257  # from this many rows every CTA has two consumer warpgroups (128-row tiles)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "zt_gemm": [_P] * 6 + [_I] * 8 + [_P],
+    "zt_gemm": [_P] * 4 + [_I] * 8 + [_P],
     "zt_gemm_prepare": [],
 }
 
@@ -44,8 +47,9 @@ _SIGNATURES = {
 class GemmPlan:
     """How one product runs: ``n_split`` splits of ``rows_per_split``
     contraction rows (what fixes a row's result: from ``(K, N, sms)``
-    alone); the row tile ``bm`` and whether the splits run in ``parallel``
-    CTAs (chosen by the row count for speed; they change no bit)."""
+    alone); the rows of a CTA ``bm`` (64 or 128: one or two consumer
+    warpgroups) and whether the splits run as the CTAs of a cluster
+    (``parallel``), chosen by the row count for speed: they change no bit."""
 
     n_split: int
     rows_per_split: int
@@ -64,8 +68,8 @@ def split_count(K: int, N: int, sms: int) -> int:
     """Contraction splits of a ``[K, N]`` weight: about one CTA an SM over
     its ``ceil(N / 128)`` column tiles at a decode step's row count, each
     split at least MIN_SPLIT_ROWS rows (rounded up to a stage), at most
-    MAX_SPLITS; the count drops splits the rounding leaves empty.  No row
-    count enters: it fixes the summation order."""
+    MAX_SPLITS (a cluster's CTAs); the count drops splits the rounding
+    leaves empty.  No row count enters: it fixes the summation order."""
     tiles = -(-N // TILE)
     n = max(1, min((sms + tiles // 2) // tiles, K // MIN_SPLIT_ROWS, MAX_SPLITS))
     return -(-K // _split_rows(K, n))
@@ -73,12 +77,17 @@ def split_count(K: int, N: int, sms: int) -> int:
 
 def gemm_plan(M: int, K: int, N: int, sms: int) -> GemmPlan:
     """The launch of ``M`` rows by a ``[K, N]`` weight on a card of ``sms``
-    SMs.  The splits come from :func:`split_count`; the splits run in
-    parallel CTAs while the row and column tiles alone leave the card short
-    of one CTA an SM, else one after another in each tile's CTA."""
+    SMs.  The splits come from :func:`split_count`; a CTA has two consumer
+    warpgroups (128-row tiles) from WIDE_FROM rows, or where 128-row tiles
+    hold the rows as tightly as 64-row ones (an even count of 64-row
+    tiles: each weight column tile is then read half as often), else one
+    (two such CTAs share an SM); the splits run as a cluster's CTAs while
+    the row and column tiles alone leave the card short of one CTA an SM,
+    else one after another in each tile's CTA."""
     n = split_count(K, N, sms)
     rows = _split_rows(K, n)
-    bm = 16 if M <= SMALL_ROWS else 64
+    tiles64 = -(-M // WG_ROWS)
+    bm = 2 * WG_ROWS if M >= WIDE_FROM or (tiles64 > 1 and tiles64 % 2 == 0) else WG_ROWS
     tiles = -(-N // TILE) * -(-M // bm)
     return GemmPlan(n, rows, bm, n > 1 and tiles < sms)
 
@@ -139,27 +148,23 @@ def _library(device_index: int) -> ctypes.CDLL:
     return lib
 
 
-def gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None) -> torch.Tensor:
+def gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None,
+         plan: GemmPlan | None = None) -> torch.Tensor:
     """G1 on CUDA tensors: ``x [M, K]`` bf16 by ``w [K, N]`` (bf16, or int8
-    with ``s [N]`` bf16) -> ``[M, N]`` bf16, launched by :func:`gemm_plan`;
-    CPU tensors take the plain version."""
+    with ``s [N]`` bf16) -> ``[M, N]`` bf16, launched by :func:`gemm_plan`
+    (or by ``plan``, which the card's checks use to hold other splits, row
+    tiles and cluster sizes against the plain version and each other); CPU
+    tensors take the plain version."""
     if not x.is_cuda:
         return gemm_plain(x, w, s)
     M, K, N = _check(x, w, s)
     dev = x.device
-    plan = gemm_plan(M, K, N, sm_count(dev.index))
+    plan = plan or gemm_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if plan.parallel:
-        part = torch.empty((plan.n_split, M, N), dtype=torch.float32, device=dev)
-        counters = torch.empty(-(-N // TILE) * -(-M // plan.bm), dtype=torch.int32, device=dev)
-        part_ptr, counters_ptr = part.data_ptr(), counters.data_ptr()
-    else:
-        part_ptr = counters_ptr = None
-    lib = _library(dev.index)
-    rc = lib.zt_gemm(x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-                     out.data_ptr(), part_ptr, counters_ptr, M, K, N,
-                     int(w.dtype == torch.int8), plan.n_split, plan.rows_per_split,
-                     int(plan.parallel), plan.bm, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _library(dev.index).zt_gemm(
+        x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(), M, K, N,
+        int(w.dtype == torch.int8), plan.n_split, plan.rows_per_split, int(plan.parallel),
+        plan.bm, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "gemm")
     launch_counts["gemm"] += 1
     return out

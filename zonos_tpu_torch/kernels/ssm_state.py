@@ -41,8 +41,8 @@ QUANT_THREADS = 256  # a CTA of the quantized kernel; compiled into it
 QUANT_VALUES_PER_THREAD = 64  # the new values a thread holds in registers; compiled in too
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"zt_ssm_state_step": [_P] * 6 + [_I] * 5 + [_P],
-               "zt_ssm_state_step_quant": [_P] * 7 + [_I] * 4 + [_P]}
+_SIGNATURES = {"zt_ssm_state_step": [_P] * 7 + [_I] * 5 + [_P],
+               "zt_ssm_state_step_quant": [_P] * 8 + [_I] * 4 + [_P]}
 MAX_SLAB_BYTES = 32 * 1024  # a CTA's slab in shared memory; compiled into the kernel
 MIN_SLAB_BYTES = 2048  # below this a CTA's fixed costs outweigh what it moves
 CTAS_PER_SM = 6  # the grid the plan aims for, several CTAs per SM
@@ -112,14 +112,28 @@ def storage_ulp(state: torch.Tensor, scale: torch.Tensor | None = None) -> torch
     return torch.exp2(torch.floor(torch.log2(mag)) - mant)
 
 
+def bc_plain(B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """``sum_n B C`` of each row of B/C [BH, N] fp32 -> [BH], in an order
+    fixed by N: pairs of halves added elementwise until one column is left
+    (the kernel's own order is fixed by N and the storage type)."""
+    p = B * C
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = torch.cat([p[:, :h] + p[:, h:2 * h], p[:, 2 * h:]], dim=-1)
+    return p[:, 0]
+
+
 def fused_state_step_plain(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
-                           dA: torch.Tensor, xdt: torch.Tensor, scale: torch.Tensor | None = None
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+                           dA: torch.Tensor, xdt: torch.Tensor, scale: torch.Tensor | None = None,
+                           bc: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """state [BH, P, N] (storage dtype, updated in place; an int4 state [BH,
     P, N/2]), C/B [BH, N], dA [BH, 1], xdt [BH, P] fp32, and for an int8 or
     int4 state its ``scale`` [BH] fp32, updated in place too -> (y [BH, P]
-    fp32, state)."""
+    fp32, state); ``bc`` [BH] fp32, when given, receives ``sum_n B C``
+    (:func:`bc_plain`)."""
     mode = quant_mode(state, C)
+    if bc is not None:
+        bc.copy_(bc_plain(B, C))
     s = state.float() if mode is None else dequantize_state(state, scale.view(-1, 1, 1), mode)
     y = torch.einsum("bpn,bn->bp", s, C)
     new = s * dA[:, :, None] + xdt[:, :, None] * B[:, None, :]
@@ -186,13 +200,13 @@ def kernel_takes(state, C, B, dA, xdt, scale=None) -> bool:
 
 
 def fused_state_step(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor, dA: torch.Tensor,
-                     xdt: torch.Tensor, scale: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     xdt: torch.Tensor, scale: torch.Tensor | None = None,
+                     bc: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 for CUDA tensors; CPU tensors take the plain version.  Shapes and
     the in-place contract as :func:`fused_state_step_plain`."""
     if not state.is_cuda:
-        return fused_state_step_plain(state, C, B, dA, xdt, scale)
-    inputs = (C, B, dA, xdt) + ((scale,) if scale is not None else ())
+        return fused_state_step_plain(state, C, B, dA, xdt, scale, bc)
+    inputs = (C, B, dA, xdt) + tuple(t for t in (scale, bc) if t is not None)
     if any(t.device != state.device for t in inputs):
         raise ValueError("fused_state_step operands must lie on one CUDA device")
     refusal = _refusal(state, C, B, dA, xdt, scale)
@@ -202,20 +216,23 @@ def fused_state_step(state: torch.Tensor, C: torch.Tensor, B: torch.Tensor, dA: 
     if not (state.is_contiguous() and state.data_ptr() % 16 == 0
             and all(t.is_contiguous() for t in inputs)):
         raise ValueError("fused_state_step takes contiguous tensors and a 16-byte-aligned state")
+    if bc is not None and (bc.dtype != torch.float32 or bc.numel() != BH):
+        raise ValueError(f"bc must be fp32 [{BH}]")
     y = torch.empty((BH, P), dtype=torch.float32, device=state.device)
     lib = library("ssm_state", _SIGNATURES)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     mode = quant_mode(state, C)
+    bc_ptr = None if bc is None else bc.data_ptr()
     if mode is None:
         rows, _ = slab_plan(BH, P, N, state.element_size(), sm_count(state.device.index))
         rc = lib.zt_ssm_state_step(
             state.data_ptr(), C.data_ptr(), B.data_ptr(), dA.data_ptr(), xdt.data_ptr(),
-            y.data_ptr(), BH, P, N, STATE_DTYPES[state.dtype], rows, stream)
+            y.data_ptr(), bc_ptr, BH, P, N, STATE_DTYPES[state.dtype], rows, stream)
         name = "fused_state_step"
     else:
         rc = lib.zt_ssm_state_step_quant(
             state.data_ptr(), scale.data_ptr(), C.data_ptr(), B.data_ptr(), dA.data_ptr(),
-            xdt.data_ptr(), y.data_ptr(), BH, P, N, int(mode == "int4"), stream)
+            xdt.data_ptr(), y.data_ptr(), bc_ptr, BH, P, N, int(mode == "int4"), stream)
         name = f"fused_state_step_{mode}"
     check(rc, name)
     launch_counts[name] += 1
