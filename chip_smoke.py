@@ -18,8 +18,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    row alone against it inside batch 8; K5 also at the DAC encoder's
    residual units of a 3-s clip; G1 on every weight ``matmul_w`` gives it,
    bf16 and int8, at 1 to 64 x 142 rows, a request's rows alone and first
-   in a batch bit for bit, and N1 likewise; K1 and K2 by every grid their
-   split allows, bit for bit), with the tolerance stated beside each check.
+   in a batch bit for bit, and N1 likewise; G1 and K8 with a layer's norm
+   folded in against N1 and then the product, bit for bit, at every tile
+   choice; K1 and K2 by every grid their split allows, bit for bit), with
+   the tolerance stated beside each check.
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -124,7 +126,9 @@ timed rows of K1, K2, K5, K3 and K6 with a breakdown of a K1 call by launch
 and K3's and K6's own time a launch (CUPTI).  ``python3 chip_smoke.py --profile [--port
 DIR]`` runs phases 1-2 and only the steady-state decode step under the CUDA
 graphs at batch 1 on the transformer (bf16, int8, int4) and the hybrid
-(wall, device busy, idle share), with no checks.  With ``--port DIR`` either
+(wall, device busy, idle share), with no checks; each path folded, unfolded
+(N1 then the product) and folded again where the port folds its norms.
+With ``--port DIR`` either
 imports the port from DIR, a checkout of another commit, so that two
 commits are timed by the same code on one card (a checkout whose K1/K2 take
 the length on the card, as this one's do; an older checkout is timed by its
@@ -170,17 +174,19 @@ TEXTS = [
     "Rain in the morning, sunshine in the afternoon.",
 ]
 # G1 and N1 (every bf16 or int8 product and every norm on the card) run on every path with
-# bf16 or int8 weights
-PRODUCT_KERNELS = ("gemm", "row_norm")
+# bf16 or int8 weights; a decode step's layer norms run folded into G1
+# ("gemm_norm") and N1 keeps the final norm (and the prefill's norms)
+PRODUCT_KERNELS = ("gemm", "gemm_norm", "row_norm")
 TRANSFORMER_KERNELS = ("flash_decode_attention", "decode_attention_single", "fused_sample",
                        "snake_conv1d") + PRODUCT_KERNELS
 HYBRID_KERNELS = TRANSFORMER_KERNELS + ("ssd_chunked", "fused_state_step")
 INT8_KERNELS = TRANSFORMER_KERNELS + ("flash_decode_attention_int8",
                                       "decode_attention_single_int8", "fused_layer_tail")
 # int4 weights everywhere, the heads too: K8, no G1
-INT4_KERNELS = tuple(k for k in TRANSFORMER_KERNELS if k != "gemm") + (
-    "flash_decode_attention_f8", "decode_attention_single_f8", "int4_matmul")
-HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul", "row_norm")
+INT4_KERNELS = tuple(k for k in TRANSFORMER_KERNELS if k not in ("gemm", "gemm_norm")) + (
+    "flash_decode_attention_f8", "decode_attention_single_f8", "int4_matmul", "int4_matmul_norm")
+HYBRID_INT4_KERNELS = ("ssd_chunked", "fused_state_step", "int4_matmul", "int4_matmul_norm",
+                       "row_norm")
 HYBRID_INT4_NEW_TOKENS = 130
 # the [graph] phases: 470 new tokens after the smoke's 54-row prefix take the cache past 512
 # rows, through K2's band and both of K1's
@@ -205,6 +211,13 @@ INT4_CHECK_ROWS = (1, 2, 8, 16, 32, 64)
 # row tiles; a decode step's rows with CFG (2, 8, 128), a batch-1 prefill (142) and batch 64's
 GEMM_CHECK_ROWS = (1, 2, 8, 16, 17, 128, 142, 64 * 142)
 GEMM_PROBE_ROWS = (2, 142)  # G1's tile choices held against each other bit for bit
+# the weights whose input is a layer norm's output: the products the norm is folded into
+NORM_FED_WEIGHTS = ("wqkv", "w1", "in_proj", "out_proj")
+# K8's rows with a folded norm: a decode step's, up to its FOLD_MAX_ROWS
+INT4_FOLD_ROWS = (1, 2, 8, 16)
+# the folded norm against N1 and then the product, timed by row count (what G1's ``folds`` was
+# set from): decode steps at batch 1, 4, 8 and 64 with CFG, a batch-1 prefill
+FOLD_TIMED_ROWS = (2, 8, 16, 128, 142)
 # G1's timed rows: decode steps at batch 1, 4 and 64 with CFG; the batch-1 and batch-64 prefills
 GEMM_TIMED_ROWS = (2, 8, 128, 142, 64 * 142)
 LAYER_TAIL_CHECK_ROWS = (1, 2, 8, 64, 128)
@@ -1196,6 +1209,167 @@ def check_row_norm(gen) -> float:
     return worst
 
 
+def _norms(gen, d: int) -> tuple:
+    """(name, Norm) of a LayerNorm with bias and an RMSNorm without, random
+    bf16 parameters of width d (the transformer's norms and the hybrid's)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.row_norm import Norm
+
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    return (("LayerNorm", Norm(scale, bias, 1e-5, False)),
+            ("RMSNorm", Norm(scale, None, 1e-5, True)))
+
+
+def _n1(x, norm):
+    """N1 alone: the unfused route's norm, in x's dtype."""
+    from zonos_tpu_torch.kernels import row_norm as n1
+
+    if norm.rms:
+        return n1.rms_norm(x, norm.scale, norm.eps, norm.bias)
+    return n1.layer_norm(x, norm.scale, norm.bias, norm.eps)
+
+
+def _residual(gen, M: int, d: int, dtype):
+    """Rows like a residual stream: an offset mean and a spread, in dtype."""
+    import torch
+
+    return (3 + 2 * torch.randn((M, d), generator=gen, device="cuda")).to(dtype)
+
+
+def check_gemm_fold(gen) -> float:
+    """G1 with a folded norm (``gemm(x, w, norm=)``) against N1 and then G1
+    (x normalised, rounded to bf16, then the product: the unfused route)
+    bit for bit; against the plain product of N1's x within G1's tolerance,
+    1 bf16 ulp of max|ref| (int8: 2, since its output is rounded twice, the
+    sum and then the sum times the column's scale, so one ulp of the sum
+    can become two of the output); and against the plain composition (the
+    plain norm, the cast, the plain product) within one ulp more (the plain
+    norm may round an element of x an ulp away from N1, N1's own tolerance
+    being 2 ulps of its output), at M in GEMM_CHECK_ROWS on every weight a
+    norm feeds (NORM_FED_WEIGHTS), bf16 and int8, LayerNorm and RMSNorm,
+    bf16 and fp32 x (the hybrid's residual; up to 16 rows, what G1 folds).
+    At GEMM_PROBE_ROWS every tile choice (64- or 128-row tiles, cluster or
+    in-CTA splits) gives the plan's bits; 2 rows alone give the same bits as
+    first in 128 (fp32 x: 16).  Returns the largest absolute error against
+    the plain composition."""
+    import torch
+
+    from zonos_tpu_torch.kernels._build import sm_count
+    from zonos_tpu_torch.kernels.gemm import F32_MAX_ROWS, GemmPlan, gemm, gemm_plain, gemm_plan
+    from zonos_tpu_torch.kernels.row_norm import norm_plain
+    from zonos_tpu_torch.ops.quant import quantize_weight_int8
+
+    sms = sm_count(torch.cuda.current_device())
+    weights = {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}
+    worst, probes, cases = 0.0, 0, 0
+    for name in NORM_FED_WEIGHTS:
+        din, dout = weights[name]
+        wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+        for kind, args in (("bf16", (wf.bfloat16(),)),
+                           ("int8", tuple(quantize_weight_int8(wf).values()))):
+            for norm_name, norm in _norms(gen, din):
+                for dtype in (torch.bfloat16, torch.float32):
+                    tag = f"gemm_norm {name} {kind} {norm_name} x {dtype}"
+                    for M in GEMM_CHECK_ROWS:
+                        if dtype == torch.float32 and M > F32_MAX_ROWS:
+                            continue  # fp32 x is folded up to 16 rows
+                        x = _residual(gen, M, din, dtype)
+                        got = gemm(x, *args, norm=norm)
+                        h = _n1(x, norm).bfloat16()
+                        if not torch.equal(got, gemm(h, *args)):
+                            fail(f"{tag} M={M}: the folded norm and N1 then G1 differ")
+                        if M in GEMM_PROBE_ROWS:
+                            plan = gemm_plan(M, din, dout, sms)
+                            for bm in (64, 128):
+                                for parallel in (False, True):
+                                    other = gemm(x, *args, norm=norm, plan=GemmPlan(
+                                        plan.n_split, plan.rows_per_split, bm, parallel))
+                                    probes += 1
+                                    if not torch.equal(other, got):
+                                        fail(f"{tag} M={M}: bm={bm} parallel={parallel} give "
+                                             f"other bits than the plan's {plan}")
+                        ref = gemm_plain(norm_plain(x, norm).bfloat16(), *args).float()
+                        ref1 = gemm_plain(h, *args).float()
+                        torch.cuda.synchronize()
+                        err, top = float((got.float() - ref).abs().max()), float(ref.abs().max())
+                        err1 = float((got.float() - ref1).abs().max())
+                        ulps = 1 if kind == "bf16" else 2
+                        if (not err1 <= ulps * bf16_ulp(float(ref1.abs().max()))
+                                or not err <= (ulps + 1) * bf16_ulp(top)
+                                or not bool(torch.isfinite(got).all())):
+                            fail(f"{tag} M={M}: max abs err {err1} against the plain product of "
+                                 f"N1's x ({ulps} bf16 ulps), {err} against the plain "
+                                 f"composition ({ulps + 1} ulps of {top})")
+                        worst = max(worst, err)
+                        cases += 1
+                    one = _residual(gen, 2, din, dtype)
+                    big = 128 if dtype == torch.bfloat16 else F32_MAX_ROWS
+                    if not _pair_in_batch(lambda t: gemm(t, *args, norm=norm), one, big, gen):
+                        fail(f"{tag}: 2 rows alone and first in {big} differ")
+    print(f"[kernels] G1 with a folded norm ok: {cases} cases ({', '.join(NORM_FED_WEIGHTS)}; "
+          f"bf16 and int8; LayerNorm and RMSNorm; bf16 and fp32 x; M in {GEMM_CHECK_ROWS}, fp32 "
+          f"up to {F32_MAX_ROWS}) the "
+          f"same bits as N1 then G1, within 1 bf16 ulp of max|ref| (int8: 2) of the plain "
+          f"product of N1's x, max abs err {worst:.3g} against the plain composition "
+          f"(tolerance one ulp more); {probes} tile-choice launches at M in "
+          f"{GEMM_PROBE_ROWS} the plan's bits; 2 rows alone = first in 128 (fp32 x: 16)",
+          flush=True)
+    return worst
+
+
+def check_int4_fold(gen) -> float:
+    """K8 with a folded norm against N1 and then K8 bit for bit; against
+    K8's plain version on N1's x within K8's 1e-5 x max|ref|; and against
+    the plain composition (the plain norm, the cast, the plain K8) within 2
+    bf16 ulps of max|ref| (the output is cast to bf16 after K8; N1 and the
+    plain norm may round an x element one bf16 ulp apart), at INT4_FOLD_ROWS on NORM_FED_WEIGHTS,
+    LayerNorm and RMSNorm, bf16 and fp32 x; 2 rows alone the same bits as
+    first in 16.  Returns the largest absolute error."""
+    import torch
+
+    from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+    from zonos_tpu_torch.kernels.row_norm import norm_plain
+
+    weights = {**FLAGSHIP_WEIGHTS, **HYBRID_WEIGHTS}
+    worst, cases = 0.0, 0
+    for name in NORM_FED_WEIGHTS:
+        din, dout = weights[name]
+        w = int4_weight(gen, din, dout)
+        q, s4 = w["q4"], w["s4"]
+        for norm_name, norm in _norms(gen, din):
+            for dtype in (torch.bfloat16, torch.float32):
+                tag = f"int4_matmul_norm {name} {norm_name} x {dtype}"
+                for M in INT4_FOLD_ROWS:
+                    x = _residual(gen, M, din, dtype)
+                    got = int4_matmul(x, q, s4, norm=norm)
+                    h = _n1(x, norm).bfloat16()
+                    if not torch.equal(got, int4_matmul(h, q, s4)):
+                        fail(f"{tag} M={M}: the folded norm and N1 then K8 differ")
+                    ref = int4_matmul_plain(norm_plain(x, norm).bfloat16(), q, s4)
+                    ref1 = int4_matmul_plain(h, q, s4)
+                    torch.cuda.synchronize()
+                    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+                    err1 = float((got - ref1).abs().max())
+                    if not err1 <= 1e-5 * float(ref1.abs().max()) or not err <= 2 * bf16_ulp(
+                            top) or not bool(torch.isfinite(got).all()):
+                        fail(f"{tag} M={M}: max abs err {err1} against the plain K8 of N1's x "
+                             f"(1e-5 x max|ref|), {err} against the plain composition (2 bf16 "
+                             f"ulps of {top})")
+                    worst = max(worst, err)
+                    cases += 1
+                one = _residual(gen, 2, din, dtype)
+                if not _pair_in_batch(lambda t: int4_matmul(t, q, s4, norm=norm), one, 16, gen):
+                    fail(f"{tag}: 2 rows alone and first in 16 differ")
+    print(f"[kernels] K8 with a folded norm ok: {cases} cases ({', '.join(NORM_FED_WEIGHTS)}; "
+          f"LayerNorm and RMSNorm; bf16 and fp32 x; M in {INT4_FOLD_ROWS}) the same bits as N1 "
+          f"then K8, within 1e-5 x max|ref| of the plain K8 of N1's x, max abs err {worst:.3g} "
+          f"against the plain composition (tolerance 2 bf16 ulps of max|ref|); 2 rows alone = "
+          f"first in 16", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: main path
 # ---------------------------------------------------------------------------
@@ -1815,12 +1989,34 @@ def _profile_run(kind: str, model, prefix, card: str, new_tokens: int, more_toke
     print(f"{tag} port kernels, device ms/step (launches/step): " + ", ".join(
         f"{k} {v[0] / n:.4f} (x{v[1] / n:.1f})" for k, v in sorted(per_kernel.items())),
         flush=True)
+    if "N1" in per_kernel:  # the final norm's and the prefill's: the rest run folded
+        print(f"{tag} N1 {per_kernel['N1'][0] / n:.4f} ms/step, "
+              f"{per_kernel['N1'][1] / n:.1f} launches a step", flush=True)
     if "K3" in per_kernel:
         print(f"{tag} K3 {per_kernel['K3'][0] * 1e3 / per_kernel['K3'][1]:.2f} us a launch "
               f"inside the step (CUPTI)", flush=True)
     if "K4" in per_kernel:
         print(f"{tag} K4 {per_kernel['K4'][0] / n:.4f} ms/step = "
               f"{100 * per_kernel['K4'][0] / busy2:.1f}% of device busy", flush=True)
+
+
+@contextlib.contextmanager
+def norms_unfolded():
+    """Every norm run as N1 before the product that reads it (the fold's row
+    limits set to 0 for the block), the route the folds replaced, for an
+    A/B of one tree; yields False on a port without the fold (no-op)."""
+    from zonos_tpu_torch.kernels import gemm as g1
+    from zonos_tpu_torch.kernels import int4_matmul as k8
+
+    limits = [(m, n, getattr(m, n)) for m, n in ((g1, "FOLD_ROWS"), (g1, "FOLD_RMS_ROWS"),
+                                                 (k8, "FOLD_MAX_ROWS")) if hasattr(m, n)]
+    for m, n, _ in limits:
+        setattr(m, n, 0)
+    try:
+        yield bool(limits)
+    finally:
+        for m, n, v in limits:
+            setattr(m, n, v)
 
 
 def phase_steady_steps(card: str) -> None:
@@ -1830,7 +2026,9 @@ def phase_steady_steps(card: str) -> None:
     (the transformer in bf16, then quantized to int8 in place; a fresh one
     quantized to int4; the hybrid), with no checks: run beside another
     checkout's (``--port``) in turns to compare two commits' walls and idle
-    shares on one card."""
+    shares on one card.  Each path also runs with its norms unfolded
+    (``norms_unfolded``: N1, then the product) where the port folds them,
+    then folded again: an A/B of the fold in one process."""
     import torch
 
     from zonos_tpu_torch import make_cond_dict
@@ -1842,8 +2040,14 @@ def phase_steady_steps(card: str) -> None:
         for mode in modes:
             if mode:
                 quantize_model(kind, model, mode)
-            _profile_run(kind + (f" {mode}" if mode else ""), model, prefix, card, 32, 128, 1,
-                         None, graphs=True)
+            name = kind + (f" {mode}" if mode else "")
+            _profile_run(name, model, prefix, card, 32, 128, 1, None, graphs=True)
+            with norms_unfolded() as folds:
+                if folds:
+                    _profile_run(name + " unfolded", model, prefix, card, 32, 128, 1, None,
+                                 graphs=True)
+            if folds:
+                _profile_run(name, model, prefix, card, 32, 128, 1, None, graphs=True)
         del model
         torch.cuda.empty_cache()
 
@@ -2210,7 +2414,8 @@ APPS_TRACE_STEPS = 64  # [apps]: cli --verbose_sampling's decode steps (EOS bann
 APPS_SRT = ("1\n00:00:00,000 --> 00:00:01,200\nThe quick brown fox jumps over the lazy dog.\n\n"
             "2\n00:00:01,500 --> 00:00:02,500\nSpeech synthesis is wonderful.\n\n"
             "3\n00:00:03,000 --> 00:00:03,800\nHow are you today?\n")
-APPS_KERNELS = ("gemm", "row_norm", "decode_attention_single", "fused_sample", "snake_conv1d")
+APPS_KERNELS = ("gemm", "gemm_norm", "row_norm", "decode_attention_single", "fused_sample",
+                "snake_conv1d")
 
 
 def phase_apps(card: str, models_dir: str) -> dict:
@@ -3273,6 +3478,115 @@ def time_row_norm(gen, rows: int, d: int = 2048) -> dict:
             "library": "torch.nn.functional.layer_norm"}
 
 
+def time_norm_fold(gen, label: str, din: int, dout: int, M: int, weight: str = "bf16",
+                   dtype=None, rms: bool = False) -> dict:
+    """A norm folded into the product that reads it (G1 for a bf16 or int8
+    ``weight``, K8 for int4) at M rows of x in ``dtype`` (bf16, or the
+    hybrid's fp32 residual), LayerNorm (or RMSNorm), cycling over enough
+    weights to exceed the 50 MB L2, beside the unfused route (N1, the cast
+    for fp32 x, then the product: ``unfused_ms``) and the plain composition.
+    The library yardstick: F.layer_norm (F.rms_norm), the cast and one
+    torch.matmul by the bf16 weight (int8: the integers pre-cast to bf16;
+    int4: the pre-dequantized weight).  The bound: the weight, x, the norm's
+    parameters and the output once (bytes), or 2 M K N at the bf16 rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+    from zonos_tpu_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain, unpack_int4
+    from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain
+    from zonos_tpu_torch.ops.quant import quantize_weight_int8
+
+    dtype = dtype or torch.bfloat16
+    wbytes = din * dout * {"bf16": 2, "int8": 1, "int4": 0.5}[weight]
+    n_sets = 1 if wbytes + 2 * M * din > 64e6 else 2 + int(64e6 // (wbytes + 2 * M * din))
+    scale = (1 + 0.1 * torch.randn(din, generator=gen, device="cuda")).bfloat16()
+    bias = None if rms else (0.1 * torch.randn(din, generator=gen, device="cuda")).bfloat16()
+    norm = Norm(scale, bias, 1e-5, rms)
+    sets = []
+    for _ in range(n_sets):
+        wf = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+        x = _residual(gen, M, din, dtype)
+        if weight == "int4":
+            w = int4_weight(gen, din, dout)
+            wb = (unpack_int4(w["q4"]).bfloat16().reshape(din // 128, 128, dout)
+                  * w["s4"][:, None, :]).reshape(din, dout)
+            sets.append((x, (w["q4"], w["s4"]), wb))
+        elif weight == "int8":
+            w = quantize_weight_int8(wf)
+            sets.append((x, (w["q"], w["s"]), w["q"].bfloat16()))
+        else:
+            sets.append((x, (wf.bfloat16(),), wf.bfloat16()))
+        del wf
+    cycle = itertools.cycle(sets)
+    product, plain = (int4_matmul, int4_matmul_plain) if weight == "int4" else (gemm, gemm_plain)
+
+    def fused():
+        x, args, _ = next(cycle)
+        return product(x, *args, norm=norm)
+
+    def unfused():
+        x, args, _ = next(cycle)
+        return product(_n1(x, norm).bfloat16(), *args)
+
+    def plain_call():
+        x, args, _ = next(cycle)
+        return plain(norm_plain(x, norm).bfloat16(), *args)
+
+    lib_norm = getattr(F, "rms_norm", None) if rms else F.layer_norm
+
+    def library_call():
+        x, _, wb = next(cycle)
+        h = lib_norm(x, (din,), scale.to(x.dtype), eps=1e-5) if rms else \
+            lib_norm(x, (din,), scale.to(x.dtype), bias.to(x.dtype), 1e-5)
+        return torch.matmul(h.bfloat16(), wb)
+
+    nbytes = wbytes + M * din * x.element_size() + 2 * din * (1 if rms else 2) + 2 * M * dout
+    return {"shape": f"{label}: {'RMSNorm' if rms else 'LayerNorm'} of x [{M},{din}] "
+                     f"{str(dtype).replace('torch.', '')} folded into the product by {weight} "
+                     f"[{din},{dout}], L2 cold",
+            "ms": device_ms(fused)[0], "unfused_ms": device_ms(unfused)[0],
+            "plain_ms": device_ms(plain_call)[0],
+            **_bound(2.0 * M * din * dout, nbytes, BF16_FLOPS_PER_S),
+            "library_ms": device_ms(library_call)[0] if lib_norm is not None else None,
+            "library": f"F.{'rms_norm' if rms else 'layer_norm'}, the cast, torch.matmul by the "
+                       + {"bf16": "bf16 weight", "int8": "integers pre-cast to bf16 (no scales)",
+                          "int4": "pre-dequantized bf16 weight"}[weight]}
+
+
+def fold_table(gen, card: str) -> list[dict]:
+    """The folded norm against N1 and then the product by row count
+    (FOLD_TIMED_ROWS) on the transformer's wqkv and w1 in bf16, the hybrid's
+    in_proj (fp32 x) and out_proj (RMSNorm) at a decode step's rows, and
+    K8's at its fold rows: what G1's ``folds`` and K8's FOLD_MAX_ROWS were
+    set from.  Each line says which route the op layer takes."""
+    import torch
+
+    from zonos_tpu_torch.kernels.gemm import folds
+    from zonos_tpu_torch.kernels.row_norm import Norm
+
+    cases = [(name, FLAGSHIP_WEIGHTS[name], M, {}) for M in FOLD_TIMED_ROWS
+             for name in ("wqkv", "w1")]
+    cases += [("in_proj", HYBRID_WEIGHTS["in_proj"], M, {"dtype": torch.float32, "rms": True})
+              for M in (2, 16)]
+    cases += [("out_proj", HYBRID_WEIGHTS["out_proj"], M, {"rms": True}) for M in (2, 16)]
+    rows = []
+    for name, (din, dout), M, kw in cases:
+        t = time_norm_fold(gen, name, din, dout, M, **kw)
+        rows.append(t)
+        fold = folds(M, Norm(None, None, 0.0, kw.get("rms", False)))
+        route = "folds" if fold else "runs N1 first"
+        print(f"[fold] G1 {name} M={M}{' fp32 x' if kw.get('dtype') else ''}"
+              f"{' RMSNorm' if kw.get('rms') else ' LayerNorm'}: folded {t['ms'] * 1e3:.3f} us, "
+              f"N1 then G1 {t['unfused_ms'] * 1e3:.3f} us; the op {route} ({card})", flush=True)
+    for M in INT4_FOLD_ROWS[1:]:
+        t = time_norm_fold(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], M, weight="int4")
+        rows.append(t)
+        print(f"[fold] K8 w1 M={M}: folded {t['ms'] * 1e3:.3f} us, N1 then K8 "
+              f"{t['unfused_ms'] * 1e3:.3f} us ({card})", flush=True)
+    return rows
+
+
 def time_layer_tail(gen, B2: int, target_ctas: int | None = None) -> dict:
     """K4 at ``B2`` rows and the flagship widths (``target_ctas``: the CTAs
     its passes aim for, None for its default), alternating two weight sets
@@ -3452,7 +3766,7 @@ def time_fused_sample(gen, B: int, V: int, warps: int | None = None) -> dict:
             **_bound(21.0 * n, 8.0 * n + 8.0 * B * 9)}
 
 
-def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]:
+def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str) -> list[dict]:
     """``counts`` maps each main path to its launch counts; ``prefill_len`` is
     the hybrid batch-1 prefill's length (K6's main-path shape)."""
     import torch
@@ -3543,6 +3857,30 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int) -> list[dict]
                  if (name, M) != ("w2", 2)]
                 + [time_gemm(gen, name, *FLAGSHIP_WEIGHTS[name], M, int8=True)
                    for M in (2, 142) for name in ("wqkv", "heads")],
+    })
+    out.append({
+        "name": "gemm_norm", "id": "G1+N1", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/gemm.cu (zonos_tpu_torch/csrc/row_stats.cuh)",
+        "replaces": "zonos_tpu/ops/norms.py:16 and zonos_tpu/models/backbone.py:46 (no TPU "
+                    "kernel: XLA's reductions and dot)",
+        **_launches("gemm_norm", counts),
+        "max_abs_err": errs["gemm_norm"],
+        **time_norm_fold(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 2),
+        "more": [time_norm_fold(gen, "wqkv", *FLAGSHIP_WEIGHTS["wqkv"], 2),
+                 time_norm_fold(gen, "wqkv", *FLAGSHIP_WEIGHTS["wqkv"], 2, weight="int8"),
+                 time_norm_fold(gen, "in_proj", *HYBRID_WEIGHTS["in_proj"], 2,
+                                dtype=torch.float32, rms=True),
+                 time_norm_fold(gen, "out_proj", *HYBRID_WEIGHTS["out_proj"], 2, rms=True)]
+                + fold_table(gen, card),
+    })
+    out.append({
+        "name": "int4_matmul_norm", "id": "K8+N1", "route": "cuda",
+        "source": "zonos_tpu_torch/csrc/int4_matmul.cu (zonos_tpu_torch/csrc/row_stats.cuh)",
+        "replaces": "zonos_tpu/ops/pallas_kernels.py:294 and zonos_tpu/ops/norms.py:16",
+        **_launches("int4_matmul_norm", counts),
+        "max_abs_err": errs["int4_matmul_norm"],
+        **time_norm_fold(gen, "w1", *FLAGSHIP_WEIGHTS["w1"], 2, weight="int4"),
+        "more": [time_norm_fold(gen, "wqkv", *FLAGSHIP_WEIGHTS["wqkv"], 2, weight="int4")],
     })
     out.append({
         "name": "row_norm", "id": "N1", "route": "cuda",
@@ -4070,6 +4408,8 @@ def main(argv: list[str]) -> int:
     errs["int4_matmul"] = check_int4_matmul(gen)
     errs["gemm"] = check_gemm(gen)
     errs["row_norm"] = check_row_norm(gen)
+    errs["gemm_norm"] = check_gemm_fold(gen)
+    errs["int4_matmul_norm"] = check_int4_fold(gen)
 
     from zonos_tpu_torch import DACAutoencoder
 
@@ -4150,7 +4490,7 @@ def main(argv: list[str]) -> int:
     del model
     torch.cuda.empty_cache()
     print(json.dumps({"graph": graph, "card": card}), flush=True)
-    kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1)
+    kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1, card=card)
     for entry in kernels:  # one JSON line per kernel, each with the card it ran on
         print(json.dumps({**entry, "card": card}), flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check", flush=True)

@@ -1237,3 +1237,95 @@ def test_streamed_row_on_the_card_equals_its_full_decode(gen):
     streamed = np.concatenate(chunks)
     assert streamed.shape == full.shape
     assert np.abs(streamed - full).max() <= 1e-4 * np.abs(full).max()
+
+
+# ---------------------------------------------------------------------------
+# a layer's norm folded into the product that reads it (G1, K8)
+# ---------------------------------------------------------------------------
+
+
+def _fold_norms(gen, d):
+    from zonos_tpu_torch.kernels.row_norm import Norm
+
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    return [Norm(scale, bias, 1e-5, False), Norm(scale, None, 1e-5, True)]
+
+
+def _n1_then(x, norm):
+    """N1 alone, then the cast to bf16: the unfused route's x."""
+    from zonos_tpu_torch.kernels import row_norm as n1
+
+    if norm.rms:
+        return n1.rms_norm(x, norm.scale, norm.eps, norm.bias).bfloat16()
+    return n1.layer_norm(x, norm.scale, norm.bias, norm.eps).bfloat16()
+
+
+def _fold_product(gen, weight, din=2048, dout=3072):
+    """(product(x, norm=None)) for a bf16, int8 or int4 weight and the name
+    of its folded launch count."""
+    from zonos_tpu_torch.kernels.gemm import gemm
+
+    w = torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5
+    if weight == "int4":
+        w4 = quantize_weight_int4(w, 128)
+        return (lambda x, norm=None: int4_matmul(x, w4["q4"], w4["s4"], norm=norm),
+                "int4_matmul_norm")
+    if weight == "int8":
+        w8 = quantize_weight_int8(w)
+        return lambda x, norm=None: gemm(x, w8["q"], w8["s"], norm=norm), "gemm_norm"
+    wb = w.bfloat16()
+    return lambda x, norm=None: gemm(x, wb, norm=norm), "gemm_norm"
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("weight", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("M", [1, 2, 8, 16])
+def test_folded_norm_equals_n1_then_the_product(gen, M, weight, x_dtype):
+    """G1 and K8 with a LayerNorm or an RMSNorm folded in give the bits of
+    N1, the cast to bf16 and the unfused product, in one launch."""
+    product, key = _fold_product(gen, weight)
+    for norm in _fold_norms(gen, 2048):
+        x = (3 + 2 * torch.randn((M, 2048), generator=gen, device="cuda")).to(x_dtype)
+        before = dict(launch_counts)
+        got = product(x, norm=norm)
+        assert launch_counts[key] == before[key] + 1
+        assert launch_counts["row_norm"] == before["row_norm"]
+        assert torch.equal(got, product(_n1_then(x, norm)))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("weight", ["bf16", "int8", "int4"])
+def test_folded_norm_row_alone_equals_row_in_batch(gen, weight, x_dtype):
+    """A request's pair of rows through a folded norm: the same bits alone
+    and at rows 0 and 64 of 128 (G1, bf16 x), or 0 and 8 of 16 (fp32 x,
+    and K8: the most rows they fold)."""
+    product, _ = _fold_product(gen, weight)
+    big = 128 if weight != "int4" and x_dtype == torch.bfloat16 else 16
+    for norm in _fold_norms(gen, 2048):
+        one = (3 + 2 * torch.randn((2, 2048), generator=gen, device="cuda")).to(x_dtype)
+        x = (3 + 2 * torch.randn((big, 2048), generator=gen, device="cuda")).to(x_dtype)
+        x[[0, big // 2]] = one
+        assert torch.equal(product(x, norm=norm)[[0, big // 2]], product(one, norm=norm))
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_decode_step_launches_n1_once(gen, case):
+    """One eager decode step launches N1 once (the final norm): every other
+    norm runs folded into the product that reads it."""
+    from zonos_tpu_torch import make_cond_dict
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    model = _graph_model(case)
+    prefix = model.prepare_conditioning(make_cond_dict(text=GRAPH_TEXTS[0], speaker=None))
+    params = SamplingParams(ban_eos=True)
+    counts, steps = [], []
+    for tokens in (16, 32):
+        before = dict(launch_counts)
+        model._generate(prefix, tokens, 2.0, 1, params, 5, None, graphs=False)
+        counts.append({k: launch_counts[k] - before[k] for k in launch_counts})
+        steps.append(model.decode_stats["steps"])
+    per_step = {k: (counts[1][k] - counts[0][k]) / (steps[1] - steps[0]) for k in counts[0]}
+    assert per_step["row_norm"] == 1
+    folded = "int4_matmul_norm" if GRAPH_CASES[case][1] == "int4" else "gemm_norm"
+    assert per_step[folded] >= 1

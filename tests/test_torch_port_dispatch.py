@@ -47,6 +47,21 @@ def _held_out(cache=F8, dtype=BF, scales=None, D=128):
                             _t(2, 1, 4, D, dtype=dtype), *s)
 
 
+def _fold_norm(K, rms=False, bias=(), scale=BF, scale_width=None):
+    """A Norm of meta parameters: bf16 scale [K] (or ``scale_width``), bias
+    [K] (``bias=None``: none; a shape: that shape)."""
+    b = None if bias is None else _t(*(bias or (K,)), dtype=BF)
+    return n1.Norm(_t(scale_width or K, dtype=scale), b, 1e-5, rms)
+
+
+def _g1_fold(M=2, K=2048, N=3072, x=BF, w=BF, s=None, **norm):
+    return g1.fold_takes(M, K, N, x, w, s, _fold_norm(K, **norm))
+
+
+def _k8_fold(M=2, din=2048, dout=16384, x=BF, **norm):
+    return k8.fold_takes(M, din, dout, 128, x, I8, BF, _fold_norm(din, **norm))
+
+
 def _sample(V=1152, dtype=F32):
     return k3.kernel_takes(_t(1, 9, V, dtype=dtype), _t(1, 9, V))
 
@@ -177,6 +192,28 @@ CASES = {
                      {}, False),
     "N1 scale of another width": (lambda: n1.kernel_takes(_t(2, 64, dtype=BF), _t(48, dtype=BF)),
                                   {}, False),
+    # a norm folded into G1: bf16 x, or fp32 x (the hybrid's residual) up to 16 rows; the
+    # norm's bf16 [K] scale and bias (a LayerNorm needs its bias); the rest as G1 takes
+    "G1 fold flagship wqkv LayerNorm": (_g1_fold, {}, True),
+    "G1 fold int8 wqkv": (_g1_fold, dict(w=I8, s=BF), True),
+    "G1 fold hybrid in_proj fp32 residual, 16 rows": (_g1_fold, dict(M=16, N=8512, x=F32,
+                                                                     rms=True, bias=None), True),
+    "G1 fold hybrid out_proj RMSNorm": (_g1_fold, dict(K=4096, N=2048, rms=True, bias=None),
+                                        True),
+    "G1 fold batch-64 prefill (bf16)": (_g1_fold, dict(M=9088), True),
+    "G1 fold fp32 x, 17 rows": (_g1_fold, dict(M=17, x=F32), False),
+    "G1 fold fp16 x": (_g1_fold, dict(x=torch.float16), False),
+    "G1 fold fp32 scale": (_g1_fold, dict(scale=F32), False),
+    "G1 fold scale of another width": (_g1_fold, dict(scale_width=1024), False),
+    "G1 fold LayerNorm without bias": (_g1_fold, dict(bias=None), False),
+    "G1 fold K 72": (_g1_fold, dict(K=72), False),
+    # a norm folded into K8: up to 16 rows of bf16 or fp32 x, as G1's parameters
+    "K8 fold flagship w1": (_k8_fold, {}, True),
+    "K8 fold hybrid fp32 residual RMSNorm, 16 rows": (_k8_fold, dict(M=16, x=F32, rms=True,
+                                                                     bias=None), True),
+    "K8 fold 17 rows": (_k8_fold, dict(M=17), False),
+    "K8 fold fp16 x": (_k8_fold, dict(x=torch.float16), False),
+    "K8 fold bias of another width": (_k8_fold, dict(bias=(1024,)), False),
 }
 
 

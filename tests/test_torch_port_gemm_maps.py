@@ -289,3 +289,76 @@ def test_splits_run_the_same_steps_either_way(K):
         steps = [k for s in clustered for k, _ in s]
         assert steps == list(range(0, K, 16))
         assert all(first == (i == 0) for s in clustered for i, (_, first) in enumerate(s))
+
+
+X_TILE_ROW = 128  # bytes of a row of the stage's x tile (64 k of bf16)
+F32_RAW_OFF = 16 * X_TILE_ROW  # fp32 x's raw box: the x tile's rows 16-47 (Layout::kRawOff)
+F32_MAX_ROWS = 16
+
+
+def _prologue_items(nc, valid, k, K):
+    """The consumers' items of one stage under a folded norm: thread t, item
+    e -> (row m, chunk c) of x's tile, for the rows below M (``valid``) and
+    the chunks below K."""
+    each = nc * 64 * 8 // (nc * 128)
+    for t in range(nc * 128):
+        for e in range(each):
+            i = t + e * nc * 128
+            m, c = i // 8, i % 8
+            assert c == t % 8  # a thread's chunk, so its scale and bias, is the same for every e
+            if m < valid and k + 8 * c < K:
+                yield m, c
+
+
+@pytest.mark.parametrize("nc,x_rows,f32", [(1, 8, False), (1, 16, False), (1, 64, False),
+                                           (2, 8, False), (2, 64, False), (2, 128, False),
+                                           (1, 8, True), (1, 16, True), (2, 16, True)])
+def test_folded_norm_writes_x_where_tma_would(nc, x_rows, f32):
+    """The folded norm's staging (``csrc/gemm.cu``, XN 1 and 2): bf16 x
+    arrives swizzled by TMA and each chunk is normalised in place; fp32 x
+    arrives unswizzled in the x tile's rows 16-47 and each chunk is written
+    as bf16 at chunk c ^ (m % 8) of its row.  Either way every chunk of a
+    row below M is read with the 8 elements it needs (x[m][k + 8 c ..], the
+    norm's parameters at the same k), written once, and the tile ends up
+    equal to TMA's swizzled box of the normalised rows, which the wgmma
+    descriptors were shown to read right.  fp32 x: at most 16 rows, whose
+    chunks lie below the raw box."""
+    assert x_rows <= 64 * nc and (not f32 or x_rows <= F32_MAX_ROWS)
+    K, M, k = 272, x_rows - 3, 256  # the contraction's ragged last stage: 16 k of 64
+    valid = min(x_rows, M)
+    rng = np.random.default_rng(x_rows + nc)
+    x = rng.integers(-50, 50, size=(M, K)).astype(float)
+    scale = rng.integers(1, 5, size=K).astype(float)
+
+    def norm(v, m, cols):  # a stand-in for the normalisation: row- and column-dependent
+        return v * scale[cols] + m
+
+    tile = np.full(nc * 64 * 64, np.nan)  # the stage's x tile, 2-byte slots
+    raw = None
+    if f32:  # TMA: box {64, x_rows} fp32, unswizzled, into the tile's rows 16-47
+        raw = np.full((x_rows, 64), np.nan)
+        r, c = np.meshgrid(np.arange(x_rows), np.arange(64), indexing="ij")
+        inside = (r < M) & (k + c < K)
+        raw[inside] = x[np.minimum(r, M - 1), np.minimum(k + c, K - 1)][inside]
+        assert F32_RAW_OFF + x_rows * 256 <= 64 * X_TILE_ROW  # inside warpgroup 0's tile
+    else:
+        tile[:x_rows * 64] = tma_bf16_box(x, 0, k, x_rows, 64)
+    writes = np.zeros((nc * 64, 8), int)
+    for m, c in _prologue_items(nc, valid, k, K):
+        at = m * X_TILE_ROW + ((c ^ (m & 7)) << 4)  # the chunk's bytes in the swizzled tile
+        assert at + 16 <= (F32_RAW_OFF if f32 else nc * 64 * X_TILE_ROW)
+        v = raw[m, 8 * c:8 * c + 8] if f32 else tile[at // 2:at // 2 + 8]
+        cols = k + 8 * c + np.arange(8)
+        np.testing.assert_array_equal(v, x[m, cols])
+        tile[at // 2:at // 2 + 8] = norm(v, m, cols)
+        writes[m, c] += 1
+    want = np.array([[1 if m < valid and k + 8 * c < K else 0 for c in range(8)]
+                     for m in range(nc * 64)])
+    np.testing.assert_array_equal(writes, want)
+    normed = np.zeros((M, K))
+    for m in range(M):
+        normed[m] = norm(x[m], m, np.arange(K))
+    box = tma_bf16_box(normed, 0, k, x_rows, 64)
+    r, c = np.meshgrid(np.arange(x_rows), np.arange(64), indexing="ij")
+    slots = swizzle(r * X_TILE_ROW + c * 2)[(r < valid) & (k + c < K)] // 2
+    np.testing.assert_array_equal(tile[slots], box[slots])

@@ -60,12 +60,34 @@
 //   splits in turn, adding each into a register total.  Both add the same numbers in the
 //   same order.  No scratch, no counter, no launch beside the kernel's one.
 //
+// - A norm folded in (XN 1: bf16 x, 2: fp32 x up to 16 rows; zt_gemm_norm): the product of a
+//   LayerNorm's or RMSNorm's output, rounded to bf16, with no launch and no buffer for the
+//   norm.  Before a tile's k-loop the consumer warps compute its rows' statistics from global
+//   memory, one warp a row over all of K (row_stats.cuh, N1's code: the same bits as N1), into
+//   shared memory, while the producer already fills the ring; every CTA of a split cluster
+//   computes them for its rows (2 rows of 2048: 8 KB from L2).  The accumulators are zeroed
+//   only after that, so that their registers are the statistics' own.  The producer adds to
+//   each stage the norm's scale and bias for its 64 k (two bulk copies of 128 bytes) and x's
+//   box as before: bf16 in the stage's swizzled x tile, fp32 unswizzled (a tensor map of its
+//   own) into rows 16-47 of the x tile, whose outputs are never stored (M <= 16: x_rows <= 16
+//   rows of 256 bytes).  The consumers normalise x's rows below M chunk by chunk (16 bytes of
+//   8 k), round to bf16 and write each chunk c of row m at chunk c ^ (m % 8) of the x tile,
+//   where TMA's 128-byte swizzle would have put the normalised rows (bf16 x: in place); then
+//   fence the async proxy and meet at the named barrier (with the int8 widening) before the
+//   wgmmas.  Everything a stage needs comes with the stage, so the ring hides it as it hides
+//   the weight.  The product's order is untouched, so the output is the bits of N1 followed by
+//   the plain-x G1.
+//
 // C interface (ctypes): returns the first error of the tensor maps' encoding or the launch.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "row_stats.cuh"
 
 namespace {
 
@@ -79,17 +101,24 @@ constexpr int kPartPitch = kTileN + 8;      // floats of a row of a split's part
 constexpr int kMaxSplits = 8;               // a cluster's CTAs: the portable limit
 constexpr int kSmemBudget = 200 * 1024;     // two consumer warpgroups' share of 227 KB
 constexpr int kGroupRows = 16;  // row tiles a group of the persistent walk (8 and 32 time alike)
+constexpr int kChunks = kBK / row_stats::kVec;  // 16-byte chunks of 8 k in a row of x's stage
+constexpr int kF32Rows = 16;  // the most rows of fp32 x under a folded norm
 
 // Shared memory: a ring of stages, each x [64 NC][64] bf16 and the weight's 64 k rows (bf16 in
-// two swizzled boxes, or int8 [64][128]); for int8, the bf16 tiles the consumers widen into,
-// in turn; with two consumer warpgroups, a staging tile for the TMA stores.  One consumer
+// two swizzled boxes, or int8 [64][128]), and under a folded norm (XN) the norm's scale and
+// bias for the stage's k (128 bytes each), each stage rounded up to 1024 bytes (fp32 x's raw
+// box lies in the x tile's rows 16-47); for int8, the bf16 tiles the consumers widen into, in
+// turn; with two consumer warpgroups, a staging tile for the TMA stores.  One consumer
 // warpgroup (M <= 64) keeps to 4 stages and one producer warp, so that two CTAs share an SM
 // and a cluster of 8 fits on 4 SMs of a GPC.
-template <int NC, bool I8>
+template <int NC, bool I8, int XN = 0>
 struct Layout {
   static constexpr int kThreads = NC * 128 + (NC == 1 ? 32 : 128);  // + the producer
   static constexpr int kWOff = NC * kBoxBytes;                       // the weight in a stage
-  static constexpr int kStage = kWOff + (I8 ? kBK * kTileN : 2 * kBoxBytes);
+  static constexpr int kWBytes = I8 ? kBK * kTileN : 2 * kBoxBytes;
+  static constexpr int kRawOff = kF32Rows * 2 * kBK;  // fp32 x's box (XN 2): x tile rows 16-47
+  static constexpr int kParOff = kWOff + kWBytes;
+  static constexpr int kStage = (kParOff + (XN ? 2 * 2 * kBK : 0) + 1023) / 1024 * 1024;
   static constexpr int kBf = I8 ? (NC == 1 ? 2 : 3) : 0;  // widened tiles (see the consumers)
   static constexpr int kStaging = NC == 2 ? NC * kWgRows * kTileN * 2 : 0;
   static constexpr int kStages =
@@ -125,6 +154,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// `bytes` (a multiple of 16) from src (16-byte aligned) into shared memory at dst, completing on
+// bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // The box at coordinates (c0 innermost, c1) of `map` into shared memory at dst, completing on bar.
@@ -239,7 +279,33 @@ struct Args {
   int M, K, N, rows_per_split;
   int clustered;           // 1: grid (n_split, column tiles, row tiles), a split a CTA
   int x_rows;              // rows of x's box: M rounded up to 8, at most 64 NC
+  // a folded norm (XN != 0): x [M, K] (bf16 or fp32), its bf16 scale [K], bias [K] or null
+  const void* x;
+  const __nv_bfloat16* scale;
+  const __nv_bfloat16* bias;
+  float eps;
+  int rms;
 };
+
+// The folded norm's statistics of rows m, m + step, ... (R of them; rows at or past `end`
+// repeat row m and are not kept) into xs[row - m0].
+template <int R, typename T>
+__device__ __forceinline__ void rows_stats(const Args& a, int m0, int m, int step, int end,
+                                           float2* xs) {
+  const T* rows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    rows[r] = static_cast<const T*>(a.x) +
+              (size_t)(m0 + (m + r * step < end ? m + r * step : m)) * a.K;
+  float2 st[R];
+  // 4 steps of one row's loads in flight, or 2 of two or four rows' (more held the
+  // registers a decode step's fold could not spare: 8 of one row took 0.15 ms a step more)
+  row_stats::stats_rows<R, R == 1 ? 4 : 2>(rows, a.K, a.eps, a.rms != 0, st);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (m + r * step < end) xs[m + r * step] = st[r];
+}
 
 // The bf16 pair of output (m, n..n+1) from its fp32 total: rounded once; int8: times the
 // column's scale, rounded again.
@@ -267,17 +333,19 @@ __device__ __forceinline__ void tile_origin(int t, int row_tiles, int col_tiles,
 // Clustered (small M): grid (n_split, ceil(N / 128), ceil(M / (64 NC))), clusters of n_split
 // CTAs along x, one split a CTA.  Otherwise a persistent grid of at most one CTA an SM
 // walking the tiles (tile_origin), each running its tile's splits in turn.  (NC + 1)
-// warpgroups, the last the producer; dynamic shared memory Layout<NC, I8>::kSmem.  tx: x
+// warpgroups, the last the producer; dynamic shared memory Layout<NC, I8, XN>::kSmem.  tx: x
 // [M][K] bf16, box {64, 64 NC}, 128-byte swizzle; tw: the weight [K][N], box {64, 64} bf16
 // with 128-byte swizzle or {128, 64} int8 unswizzled; to: out [M][N] bf16, box {64, 64 NC},
-// 128-byte swizzle (the persistent walk's stores).
-template <int NC, bool I8>
-__global__ void __launch_bounds__(Layout<NC, I8>::kThreads, NC == 1 ? 2 : 1)
+// 128-byte swizzle (the persistent walk's stores).  XN: 0 plain x; 1 or 2 a folded norm over
+// bf16 x (tx as above) or fp32 x (tx: box {64, x_rows} fp32, unswizzled).
+template <int NC, bool I8, int XN>
+__global__ void __launch_bounds__(Layout<NC, I8, XN>::kThreads, NC == 1 ? 2 : 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                 const __grid_constant__ CUtensorMap to, const Args a) {
-  using L = Layout<NC, I8>;
+  using L = Layout<NC, I8, XN>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[L::kStages], empty_bar[L::kStages];
+  __shared__ float2 xstats[XN ? NC * kWgRows : 1];  // the folded norm's (mean, r) of a row
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles sit on 1024-byte boundaries
   unsigned char* const base_ptr = smem_raw + (base - raw);
@@ -320,8 +388,15 @@ __global__ void __launch_bounds__(Layout<NC, I8>::kThreads, NC == 1 ? 2 : 1)
           const int st = g % L::kStages;
           mbar_wait(smem_addr(&empty_bar[st]), ((g / L::kStages) & 1) ^ 1);
           const uint32_t full = smem_addr(&full_bar[st]), stage = base + st * L::kStage;
-          mbar_expect_tx(full, L::kStage - (NC * kWgRows - a.x_rows) * 2 * kBK);
-          tma_load(stage, &tx, full, k, m0);
+          // the weight's bytes, x's box (x_rows rows) and the norm's parameters for k (XN)
+          const uint32_t par = XN ? min(kBK, a.K - k) * 2 : 0;
+          mbar_expect_tx(full, L::kWBytes + a.x_rows * kBK * (XN == 2 ? 4 : 2) +
+                                   (a.bias != nullptr ? 2 : 1) * par);
+          tma_load(stage + (XN == 2 ? L::kRawOff : 0), &tx, full, k, m0);
+          if constexpr (XN != 0) {
+            bulk_load(stage + L::kParOff, a.scale + k, par, full);
+            if (a.bias != nullptr) bulk_load(stage + L::kParOff + 2 * kBK, a.bias + k, par, full);
+          }
           if constexpr (I8) {
             tma_load(stage + L::kWOff, &tw, full, n0, k);
           } else {
@@ -345,29 +420,81 @@ __global__ void __launch_bounds__(Layout<NC, I8>::kThreads, NC == 1 ? 2 : 1)
   // accumulator 4 j + 2 h + e: row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
   const int r = wg * kWgRows + warp * 16 + lane / 4, c = 2 * (lane % 4);
   float acc[64], total[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // the folded norm: this thread's chunks of x's tile, items threadIdx.x + e NC 128 (row
+  // item / 8, chunk item % 8: the same chunk, so the same scale and bias, for every e)
+  constexpr int kXEach = XN ? kRows * kChunks / (NC * 128) : 1;
+  const int xc = threadIdx.x % kChunks;
+  int valid = 0;  // the tile's rows below M that x's box holds
   int g = 0;  // stages consumed, over every tile of the walk
   for (int t = t_first; t < t_end; t += t_step) {
     int m0, n0;
     origin(t, m0, n0);
+    if constexpr (XN != 0) {
+      // the tile's rows' statistics, a warp's rows (up to four) at a time, their loads in
+      // flight together; every consumer has passed the previous tile's last stage barrier,
+      // after which no one reads xstats
+      using T = typename std::conditional<XN == 1, __nv_bfloat16, float>::type;
+      valid = min(a.x_rows, a.M - m0);
+      const int step = NC * 4, each = (valid + step - 1) / step;  // rows a warp computes
+      for (int m = threadIdx.x / 32; m < valid; m += 4 * step) {
+        if (each == 1)
+          rows_stats<1, T>(a, m0, m, step, valid, xstats);
+        else if (each == 2)
+          rows_stats<2, T>(a, m0, m, step, valid, xstats);
+        else
+          rows_stats<4, T>(a, m0, m, step, valid, xstats);
+      }
+      consumers_sync<NC>();
+    }
+    // zeroed after the statistics, so that no accumulator is live while they run (their
+    // registers are the statistics' own); a split's first wgmma ignores them (scale-d 0)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) total[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = total[i] = 0.f;
     int pending = -1;  // the stage whose wgmma group may still be running
     for (int k = k0; k < k1; k += kBK, ++g) {
       const int st = g % L::kStages;
       const uint32_t stage = base + st * L::kStage;
       mbar_wait(smem_addr(&full_bar[st]), (g / L::kStages) & 1);
       uint32_t w_tile = stage + L::kWOff;
+      if constexpr (XN != 0) {
+        // the stage's x tile: written by its TMA load (bf16) or by no one since the wgmmas of
+        // stage g - kStages read it (the producer waited for their empty arrivals)
+        unsigned char* const xt = base_ptr + st * L::kStage;
+        if (k + xc * 8 < a.K) {
+          float sc[8], b[8];
+          row_stats::load8(reinterpret_cast<const __nv_bfloat16*>(xt + L::kParOff) + xc * 8, sc);
+          if (a.bias != nullptr)
+            row_stats::load8(
+                reinterpret_cast<const __nv_bfloat16*>(xt + L::kParOff + 2 * kBK) + xc * 8, b);
+#pragma unroll
+          for (int e = 0; e < kXEach; ++e) {
+            const int m = (threadIdx.x + e * NC * 128) / kChunks;
+            if (m < valid) {
+              uint4* const chunk =
+                  reinterpret_cast<uint4*>(xt + m * 2 * kBK + ((xc ^ (m & 7)) << 4));
+              float v[8];
+              if constexpr (XN == 1)
+                row_stats::load8(reinterpret_cast<const __nv_bfloat16*>(chunk), v);
+              else
+                row_stats::load8(reinterpret_cast<const float*>(xt + L::kRawOff + m * 4 * kBK) +
+                                     xc * 8, v);
+              row_stats::normalise8(v, xstats[m], sc, b, a.bias != nullptr);
+              *chunk = row_stats::pack8(v);
+            }
+          }
+        }
+      }
       if constexpr (I8) {
         // widened tile g % kBf: its last readers, the wgmmas of stage g - kBf, are done (one
         // warpgroup: its own wait below at g - 1; two: both passed the barrier at g - 1, so
         // each has waited at g - 2 for the groups up to g - 3)
         const int bf = L::kBfOff + g % L::kBf * 2 * kBoxBytes;
         widen<NC>(base_ptr + st * L::kStage + L::kWOff, base_ptr + bf);
+        w_tile = base + bf;
+      }
+      if constexpr (I8 || XN != 0) {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // seen by the wgmmas
         consumers_sync<NC>();
-        w_tile = base + bf;
       }
       const uint32_t x_tile = stage + wg * kBoxBytes;
       const int first = k % a.rows_per_split == 0 ? 0 : 1;  // 0: a split starts here
@@ -545,21 +672,24 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* p, uint64_t 
 // Lets the kernel take its ring above the 48 KB default; set once per instantiation (a
 // function-local static is initialised once), by zt_gemm_prepare when the library is loaded,
 // so never during a CUDA graph's capture.
-template <int NC, bool I8>
+template <int NC, bool I8, int XN>
 cudaError_t allow() {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<NC, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<NC, I8>::kSmem);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemm_kernel<NC, I8, XN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Layout<NC, I8, XN>::kSmem);
   return attr;
 }
 
-template <int NC, bool I8>
+template <int NC, bool I8, int XN>
 int launch(const void* x, const void* w, const Args& a, int n_split, cudaStream_t stream) {
-  const cudaError_t attr = allow<NC, I8>();
+  const cudaError_t attr = allow<NC, I8, XN>();
   if (attr != cudaSuccess) return attr;
   CUtensorMap tx, tw, to;
   const bool maps =
-      encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, a.K, a.M, (uint64_t)a.K * 2, kBK,
-             a.x_rows, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (XN == 2 ? encode(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, a.K, a.M, (uint64_t)a.K * 4, kBK,
+                        a.x_rows, CU_TENSOR_MAP_SWIZZLE_NONE)
+               : encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, a.K, a.M, (uint64_t)a.K * 2,
+                        kBK, a.x_rows, CU_TENSOR_MAP_SWIZZLE_128B)) &&
       encode(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.out, a.N, a.M, (uint64_t)a.N * 2, kBoxN,
              NC * kWgRows, CU_TENSOR_MAP_SWIZZLE_128B) &&
       (I8 ? encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, a.N, a.K, (uint64_t)a.N, kTileN, kBK,
@@ -584,16 +714,33 @@ int launch(const void* x, const void* w, const Args& a, int n_split, cudaStream_
   // the persistent walk: as many CTAs as the SMs hold at once, at most one a tile
   cfg.gridDim = a.clustered ? dim3(n_split, col_tiles, row_tiles)
                             : dim3(min(sms * (NC == 1 ? 2 : 1), col_tiles * row_tiles), 1, 1);
-  cfg.blockDim = dim3(Layout<NC, I8>::kThreads);
-  cfg.dynamicSmemBytes = Layout<NC, I8>::kSmem;
+  cfg.blockDim = dim3(Layout<NC, I8, XN>::kThreads);
+  cfg.dynamicSmemBytes = Layout<NC, I8, XN>::kSmem;
   cfg.stream = stream;
   cfg.attrs = &cluster_dim;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gemm_kernel<NC, I8>, tx, tw, to, a);
+  err = cudaLaunchKernelEx(&cfg, gemm_kernel<NC, I8, XN>, tx, tw, to, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int XN>
+int dispatch(const void* x, const void* w, const Args& a, int int8, int n_split, int bm,
+             cudaStream_t st) {
+  if (bm == 64)
+    return int8 ? launch<1, true, XN>(x, w, a, n_split, st)
+                : launch<1, false, XN>(x, w, a, n_split, st);
+  return int8 ? launch<2, true, XN>(x, w, a, n_split, st)
+              : launch<2, false, XN>(x, w, a, n_split, st);
+}
+
+bool plan_ok(int M, int K, int N, int n_split, int rows_per_split, int bm) {
+  return M >= 1 && K >= kKStep && K % kKStep == 0 && N >= 16 && N % 16 == 0 && n_split >= 1 &&
+         n_split <= kMaxSplits && rows_per_split >= kBK && rows_per_split % kBK == 0 &&
+         (n_split - 1) * rows_per_split < K && n_split * rows_per_split >= K &&
+         (bm == 64 || bm == 128);
+}
 
 }  // namespace
 
@@ -605,25 +752,42 @@ bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 extern "C" int zt_gemm(const void* x, const void* w, const void* s, void* out, int M, int K,
                        int N, int int8, int n_split, int rows_per_split, int parallel, int bm,
                        void* stream) {
-  if (M < 1 || K < kKStep || K % kKStep || N < 16 || N % 16 || n_split < 1 ||
-      n_split > kMaxSplits || rows_per_split < kBK || rows_per_split % kBK ||
-      (n_split - 1) * rows_per_split >= K ||
-      n_split * rows_per_split < K || (bm != 64 && bm != 128) || !aligned(x) || !aligned(w) ||
+  if (!plan_ok(M, K, N, n_split, rows_per_split, bm) || !aligned(x) || !aligned(w) ||
       !aligned(out) || (int8 && (s == nullptr || !aligned(s))))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), M, K, N,
                rows_per_split, parallel && n_split > 1, min(bm, (M + 7) / 8 * 8)};
+  return dispatch<0>(x, w, a, int8, n_split, bm, static_cast<cudaStream_t>(stream));
+}
+
+// The same product of norm(x) rounded to bf16: x [M, K] bf16 (x_f32 = 0) or fp32 (1; M <= 16),
+// scale [K] bf16, bias [K] bf16 or null (allowed with rms only), eps; rms: 1 RMSNorm, 0
+// LayerNorm.  scale and bias 16-byte aligned; the rest as zt_gemm.
+extern "C" int zt_gemm_norm(const void* x, const void* scale, const void* bias, const void* w,
+                            const void* s, void* out, int M, int K, int N, int x_f32, float eps,
+                            int rms, int int8, int n_split, int rows_per_split, int parallel,
+                            int bm, void* stream) {
+  if (!plan_ok(M, K, N, n_split, rows_per_split, bm) || (x_f32 && M > kF32Rows) || !aligned(x) ||
+      !aligned(w) || !aligned(out) || !aligned(scale) || scale == nullptr || !aligned(bias) ||
+      (!rms && bias == nullptr) || (int8 && (s == nullptr || !aligned(s))))
+    return cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(s),
+               static_cast<__nv_bfloat16*>(out),
+               M, K, N, rows_per_split, parallel && n_split > 1, min(bm, (M + 7) / 8 * 8), x,
+               static_cast<const __nv_bfloat16*>(scale),
+               static_cast<const __nv_bfloat16*>(bias), eps, rms};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bm == 64)
-    return int8 ? launch<1, true>(x, w, a, n_split, st) : launch<1, false>(x, w, a, n_split, st);
-  return int8 ? launch<2, true>(x, w, a, n_split, st) : launch<2, false>(x, w, a, n_split, st);
+  return x_f32 ? dispatch<2>(x, w, a, int8, n_split, bm, st)
+               : dispatch<1>(x, w, a, int8, n_split, bm, st);
 }
 
 // Every instantiation's attributes and the tensor-map encoder, before any capture; the first
 // error, if any.
 extern "C" int zt_gemm_prepare() {
-  const cudaError_t errs[] = {allow<1, false>(), allow<1, true>(), allow<2, false>(),
-                              allow<2, true>()};
+  const cudaError_t errs[] = {
+      allow<1, false, 0>(), allow<1, true, 0>(), allow<2, false, 0>(), allow<2, true, 0>(),
+      allow<1, false, 1>(), allow<1, true, 1>(), allow<2, false, 1>(), allow<2, true, 1>(),
+      allow<1, false, 2>(), allow<1, true, 2>(), allow<2, false, 2>(), allow<2, true, 2>()};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   return encoder() != nullptr ? cudaSuccess : cudaErrorNotSupported;

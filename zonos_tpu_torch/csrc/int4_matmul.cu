@@ -81,11 +81,23 @@
 //   thread-block-cluster reduction through distributed shared memory in place of the
 //   partials, the counters and the memset, and a persistent kernel.
 //
+// - A norm folded in (XN 1: bf16 x, 2: fp32 x; zt_int4_matmul_norm): the product of a
+//   LayerNorm's or RMSNorm's output rounded to bf16, with no launch for the norm.  After
+//   issuing its first batch of weight loads, warp w computes the statistics of rows w, w + 8,
+//   ... over all of din (row_stats.cuh, N1's code), into shared memory; the staging then
+//   normalises each x element of a pair with its own column's scale and bias (x[n][c0 + j]
+//   at column c0 + j, x[n][half + c0 + j] at half + c0 + j) and rounds it to bf16 before it
+//   pairs them: the bits N1 would have written.
+//
 // C interface (ctypes): returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "row_stats.cuh"
 
 namespace {
 
@@ -236,15 +248,41 @@ __device__ __forceinline__ void consume(const unsigned (&raw)[KB][2][MTI / 2], i
   }
 }
 
+// A folded norm (XN != 0): x [M, din] bf16 (XN 1) or fp32 (2), its bf16 scale and bias
+// [din] (bias null: none), eps, rms; the rows' (mean, r) in shared memory.
+struct FoldedNorm {
+  const void* x;
+  const __nv_bfloat16* scale;
+  const __nv_bfloat16* bias;
+  float eps;
+  int rms;
+  const float2* stats;
+};
+
+// The normalised x[n][c..c + 7] rounded to bf16, as one 16-byte word.
+template <int XN>
+__device__ __forceinline__ uint4 normalised8(const FoldedNorm& f, int n, int din, int c) {
+  float v[8], sc[8], b[8];
+  if constexpr (XN == 1)
+    row_stats::load8(static_cast<const __nv_bfloat16*>(f.x) + (size_t)n * din + c, v);
+  else
+    row_stats::load8(static_cast<const float*>(f.x) + (size_t)n * din + c, v);
+  row_stats::load_params(f.scale, f.bias, c, sc, b);
+  row_stats::normalise8(v, f.stats[n], sc, b, f.bias != nullptr);
+  return row_stats::pack8(v);
+}
+
 // Stages packed rows [c0, c0 + cn) of a CTA: xs[n][j] = (x[n][c0 + j], x[n][half + c0 + j])
 // for n < M (row stride ld), and ss[g - g0][c] = (s[g][c], s[g + G/2][c]) for the groups g0..
 // of those rows and the tile's columns below dout.  Each item is two 16-byte loads (8
 // values each) and two 16-byte stores of 8 pairs; a thread issues the loads of
-// kStageUnroll items before it stores any.
-template <int kTile>
+// kStageUnroll items before it stores any.  A folded norm (XN) normalises x's two 8-value
+// halves of an item as it loads them.
+template <int kTile, int XN>
 __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat16* s,
                                       unsigned* xs, unsigned* ss, int M, int din, int dout,
-                                      int gs, int tile, int c0, int cn, int ld) {
+                                      int gs, int tile, int c0, int cn, int ld,
+                                      const FoldedNorm& f) {
   const int half = din / 2;
   const int blocks = cn / 8;  // items of a row of x
   const int g0 = c0 / gs, ng = (c0 + cn - 1) / gs - g0 + 1;
@@ -259,9 +297,14 @@ __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat1
       dst[u] = nullptr;
       if (i < nx) {
         const int n = i / blocks, j = (i % blocks) * 8;
-        src_lo = x + (size_t)n * din + c0 + j;
-        src_hi = src_lo + half;
         dst[u] = xs + n * ld + j;
+        if constexpr (XN != 0) {
+          lo[u] = normalised8<XN>(f, n, din, c0 + j);
+          hi[u] = normalised8<XN>(f, n, din, half + c0 + j);
+        } else {
+          src_lo = x + (size_t)n * din + c0 + j;
+          src_hi = src_lo + half;
+        }
       } else if (i < n_items) {
         const int g = (i - nx) / (kTile / 8), c = ((i - nx) % (kTile / 8)) * 8;
         if (tile * kTile + c < dout) {
@@ -270,7 +313,7 @@ __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat1
           dst[u] = ss + g * kTile + c;
         }
       }
-      if (dst[u] != nullptr) {
+      if (src_lo != nullptr) {
         lo[u] = __ldg(reinterpret_cast<const uint4*>(src_lo));
         hi[u] = __ldg(reinterpret_cast<const uint4*>(src_hi));
       }
@@ -290,13 +333,13 @@ __device__ __forceinline__ void stage(const __nv_bfloat16* x, const __nv_bfloat1
 // grid (ceil(dout / (16 * MTI)), n_split); dynamic shared memory smem_words(NT, MTI, rows,
 // gs) words, rows = min(rows_per_split, kChunkRows).  out is [M, dout]; part
 // [n_split, M, dout] and counters (one per column tile, zero on entry) serve a split
-// contraction.
-template <int NT, int MTI>
+// contraction.  XN: 0 bf16 x; 1 or 2 a folded norm over bf16 or fp32 x (norm.x; x unused).
+template <int NT, int MTI, int XN>
 __global__ void __launch_bounds__(kThreads)
 int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                    const __nv_bfloat16* __restrict__ s, float* __restrict__ out,
                    float* __restrict__ part, unsigned* __restrict__ counters, int M, int din,
-                   int dout, int gs, int rows_per_split) {
+                   int dout, int gs, int rows_per_split, FoldedNorm norm) {
   constexpr int V = 2 * MTI;                // packed bytes (columns) a lane loads per row
   constexpr int W = V / 4;                  // their 32-bit words
   constexpr int kTile = 16 * MTI;           // the CTA's columns: one warp's
@@ -306,6 +349,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   constexpr int KB = kLaneBytes / (2 * V);  // k-steps of one batch
   constexpr int NR = 8 * NT;                // rows of x the n-tiles hold
   __shared__ bool is_last;
+  __shared__ float2 xstats[XN ? 8 * NT : 1];  // a folded norm's (mean, r) of each row
   extern __shared__ __align__(16) unsigned smem[];
 
   const int half = din / 2;
@@ -344,8 +388,33 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     unsigned raw_a[KB][2][W], raw_b[KB][2][W];  // two batches: [k-step][rows tig, tig + 4][word]
     int sa = 0, sb = 0;
     if (active && r < w1) sa = issue_loads(qp, r, w1, gs, dout, ok, raw_a);
-    if (c0 > r0) __syncthreads();  // every warp is done with the previous chunk's stage
-    stage<kTile>(x, s, xs, ss, M, din, dout, gs, tile, c0, cn, ld);
+    if (c0 > r0) {
+      __syncthreads();  // every warp is done with the previous chunk's stage
+    } else if constexpr (XN != 0) {  // the rows' statistics, the first batch's loads in flight
+      using T = typename std::conditional<XN == 1, __nv_bfloat16, float>::type;
+      for (int n = warp; n < M; n += 2 * kWarps) {
+        const T* x0 = static_cast<const T*>(norm.x) + (size_t)n * din;
+        // (4 steps of loads in flight: the first batch's weight words hold registers too)
+        if (M <= kWarps) {  // a row a warp
+          const T* rows[1] = {x0};
+          float2 st[1];
+          row_stats::stats_rows<1, 4>(rows, din, norm.eps, norm.rms != 0, st);
+          if (lane == 0) xstats[n] = st[0];
+          continue;
+        }
+        // rows n and n + 8, their loads in flight together
+        const T* rows[2] = {x0, n + kWarps < M ? x0 + (size_t)kWarps * din : x0};
+        float2 st[2];
+        row_stats::stats_rows<2, 2>(rows, din, norm.eps, norm.rms != 0, st);
+        if (lane == 0) {
+          xstats[n] = st[0];
+          if (n + kWarps < M) xstats[n + kWarps] = st[1];
+        }
+      }
+      norm.stats = xstats;
+      __syncthreads();
+    }
+    stage<kTile, XN>(x, s, xs, ss, M, din, dout, gs, tile, c0, cn, ld, norm);
     __syncthreads();
     if (!active) continue;
     while (r < w1) {
@@ -411,35 +480,28 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   }
 }
 
-template <int NT, int MTI>
+template <int NT, int MTI, int XN>
 int launch(const void* x, const void* q, const void* s, void* out, void* part, void* counters,
-           int M, int din, int dout, int gs, int n_split, int rows_per_split,
+           int M, int din, int dout, int gs, int n_split, int rows_per_split, const FoldedNorm& f,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      int4_matmul_kernel<NT, MTI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int4_matmul_kernel<NT, MTI, XN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_words(NT, MTI, kChunkRows, kStep) * (int)sizeof(unsigned));
   if (attr != cudaSuccess) return attr;
   const int rows = rows_per_split < kChunkRows ? rows_per_split : kChunkRows;
   const int tile = 16 * MTI;
   const dim3 grid((dout + tile - 1) / tile, n_split);
   const size_t smem = (size_t)smem_words(NT, MTI, rows, gs) * sizeof(unsigned);
-  int4_matmul_kernel<NT, MTI><<<grid, kThreads, smem, stream>>>(
+  int4_matmul_kernel<NT, MTI, XN><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const __nv_bfloat16*>(s), static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<unsigned*>(counters), M, din, dout, gs, rows_per_split);
+      static_cast<unsigned*>(counters), M, din, dout, gs, rows_per_split, f);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x [M, din] bf16, q [din/2, dout] int8, s [G, dout] bf16, out [M, dout] fp32; part
-// [n_split, M, dout] fp32 scratch and counters (ceil(dout / 128) unsigned, zeroed here on the
-// stream) when n_split > 1.  All contiguous and 16-byte aligned; 1 <= M <= 64, gs % 8 == 0,
-// din % (2 * gs) == 0, dout % 16 == 0; each split holds ceil(din / 2 / n_split) packed rows
-// rounded up to 8, at most 1024, and none is empty.
-extern "C" int zt_int4_matmul(const void* x, const void* q, const void* s, void* out, void* part,
-                              void* counters, int M, int din, int dout, int gs, int n_split,
-                              void* stream) {
+template <int XN>
+int run(const void* x, const void* q, const void* s, void* out, void* part, void* counters,
+        int M, int din, int dout, int gs, int n_split, const FoldedNorm& f, void* stream) {
   const int half = din / 2;
   if (M < 1 || M > 64 || n_split < 1 || gs < 1 || gs % kStep || din % (2 * gs) ||
       dout % kColAlign)
@@ -456,9 +518,46 @@ extern "C" int zt_int4_matmul(const void* x, const void* q, const void* s, void*
   }
   const int rps = rows_per_split;
   switch (n_tiles(M)) {
-    case 1: return launch<1, 8>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, st);
-    case 2: return launch<2, 8>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, st);
-    case 4: return launch<4, 4>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, st);
-    default: return launch<8, 2>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, st);
+    case 1:
+      return launch<1, 8, XN>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, f,
+                              st);
+    case 2:
+      return launch<2, 8, XN>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, f,
+                              st);
+    case 4:
+      return launch<4, 4, XN>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, f,
+                              st);
+    default:
+      return launch<8, 2, XN>(x, q, s, out, part, counters, M, din, dout, gs, n_split, rps, f,
+                              st);
   }
+}
+
+}  // namespace
+
+// x [M, din] bf16, q [din/2, dout] int8, s [G, dout] bf16, out [M, dout] fp32; part
+// [n_split, M, dout] fp32 scratch and counters (ceil(dout / 128) unsigned, zeroed here on the
+// stream) when n_split > 1.  All contiguous and 16-byte aligned; 1 <= M <= 64, gs % 8 == 0,
+// din % (2 * gs) == 0, dout % 16 == 0; each split holds ceil(din / 2 / n_split) packed rows
+// rounded up to 8, at most 1024, and none is empty.
+extern "C" int zt_int4_matmul(const void* x, const void* q, const void* s, void* out, void* part,
+                              void* counters, int M, int din, int dout, int gs, int n_split,
+                              void* stream) {
+  return run<0>(x, q, s, out, part, counters, M, din, dout, gs, n_split, FoldedNorm{}, stream);
+}
+
+// The same product of norm(x) rounded to bf16: x [M, din] bf16 (x_f32 = 0) or fp32 (1), 16-byte
+// aligned; scale [din] bf16 and bias [din] bf16 or null (allowed with rms only), both 16-byte
+// aligned; rms: 1 RMSNorm, 0 LayerNorm.  The rest as zt_int4_matmul.
+extern "C" int zt_int4_matmul_norm(const void* x, const void* scale, const void* bias,
+                                   const void* q, const void* s, void* out, void* part,
+                                   void* counters, int M, int din, int dout, int gs, int n_split,
+                                   int x_f32, float eps, int rms, void* stream) {
+  if (scale == nullptr || (!rms && bias == nullptr) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(scale) & 15) || (reinterpret_cast<uintptr_t>(bias) & 15))
+    return cudaErrorInvalidValue;
+  const FoldedNorm f{x, static_cast<const __nv_bfloat16*>(scale),
+                     static_cast<const __nv_bfloat16*>(bias), eps, rms, nullptr};
+  return x_f32 ? run<2>(nullptr, q, s, out, part, counters, M, din, dout, gs, n_split, f, stream)
+               : run<1>(nullptr, q, s, out, part, counters, M, din, dout, gs, n_split, f, stream);
 }

@@ -26,6 +26,8 @@ launch_counts: dict[str, int] = {
     "fused_layer_tail": 0,
     "int4_matmul": 0,
     "gemm": 0,
+    "gemm_norm": 0,
+    "int4_matmul_norm": 0,
     "row_norm": 0,
 }
 

@@ -4,8 +4,8 @@ Each ``zonos_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/zonos_tpu_torch/`` under the repository root, named by a hash of the
-source and flags, so an edited source is rebuilt and a stale one is never
-loaded.  Builds happen at first use; :func:`build_all` starts one ``nvcc``
+source, the shared headers and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Builds happen at first use; :func:`build_all` starts one ``nvcc``
 per source, all at once.
 """
 
@@ -44,8 +44,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -16,6 +16,12 @@ once (``2 K N`` bytes, ``K N`` for int8); at a large prefill, the tensor
 cores' bf16 rate.  The source note has the design: TMA stages feeding
 ``wgmma`` from a warp-specialised producer, the splits of a small-M call
 reduced inside a thread-block cluster.
+
+A layer's norm can be folded into the product that reads it (``gemm(...,
+norm=)``): the consumers compute each row's statistics and normalise x as
+they stage it, by N1's own code (``csrc/row_stats.cuh``), so the result is
+the bits of N1 followed by G1 with no launch for the norm.
+:func:`folds` says per row count and norm which of the two routes runs.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
+from zonos_tpu_torch.kernels.row_norm import DTYPES as NORM_X_DTYPES  # bf16, fp32
+from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain, params_aligned
 
 TILE = 128  # columns a CTA owns (the wgmma's N); compiled into the kernel
 STAGE_ROWS = 64  # k rows of a ring stage: splits hold a multiple of it
@@ -35,10 +43,18 @@ MAX_SPLITS = 8  # the most splits: the CTAs of a cluster, at most the portable 8
 ALIGN = 16  # K and N must be multiples of it (a k-step; the tensor maps' 16-byte rows)
 WG_ROWS = 64  # rows of a consumer warpgroup (the wgmma's M); a CTA has one or two
 WIDE_FROM = 257  # from this many rows every CTA has two consumer warpgroups (128-row tiles)
+# Where a norm runs folded into the product (chip_smoke.py fold_table, H100): a LayerNorm (two
+# passes over x) up to FOLD_ROWS rows, an RMSNorm (one pass) up to FOLD_RMS_ROWS (a decode step
+# at batch 8 with CFG); past that N1 runs first: every CTA of a row tile recomputes its rows'
+# statistics over all of K, and at 128 and 142 rows the fold took 1.8-2.5x N1 and G1.
+FOLD_ROWS = 8
+FOLD_RMS_ROWS = 16
+F32_MAX_ROWS = 16  # fp32 x's box shares the x tile (csrc/gemm.cu kF32Rows): at most 16 rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "zt_gemm": [_P] * 4 + [_I] * 8 + [_P],
+    "zt_gemm_norm": [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 6 + [_P],
     "zt_gemm_prepare": [],
 }
 
@@ -92,6 +108,12 @@ def gemm_plan(M: int, K: int, N: int, sms: int) -> GemmPlan:
     return GemmPlan(n, rows, bm, n > 1 and tiles < sms)
 
 
+def folds(rows: int, norm: Norm) -> bool:
+    """Whether ``norm`` in front of a product of ``rows`` rows runs folded
+    into G1 (faster there) or as N1 before it; the same bits either way."""
+    return rows <= (FOLD_RMS_ROWS if norm.rms else FOLD_ROWS)
+
+
 def gemm_plain(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w`` with fp32 sums rounded once to x's dtype; for an int8 ``w``,
     that product by the integers, then times the bf16 scales ``s`` in x's
@@ -112,16 +134,40 @@ def kernel_takes(rows: int, K: int, N: int, x_dtype=torch.bfloat16, w_dtype=torc
             and K % ALIGN == 0 and N % ALIGN == 0)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None) -> tuple[int, int, int]:
-    if not (x.is_cuda and w.device == x.device and (s is None or s.device == x.device)):
-        raise ValueError("x, w (and s) must lie on the same CUDA device")
+def fold_takes(rows: int, K: int, N: int, x_dtype, w_dtype, s_dtype, norm: Norm) -> bool:
+    """Whether G1 takes ``norm`` folded in front of the product: x bf16 or
+    fp32 (up to F32_MAX_ROWS rows; normalised, then rounded to bf16), the
+    norm's bf16 scale ``[K]`` and bias ``[K]`` (a LayerNorm's, or an
+    RMSNorm's if any), the rest as :func:`kernel_takes`."""
+    scale, bias = norm.scale, norm.bias
+    return (x_dtype in NORM_X_DTYPES and (x_dtype == torch.bfloat16 or rows <= F32_MAX_ROWS)
+            and kernel_takes(rows, K, N, torch.bfloat16, w_dtype, s_dtype)
+            and scale.dtype == torch.bfloat16 and tuple(scale.shape) == (K,)
+            and (bias is not None or norm.rms)
+            and (bias is None or (bias.dtype == torch.bfloat16 and tuple(bias.shape) == (K,))))
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None,
+           norm: Norm | None = None) -> tuple[int, int, int]:
+    params = () if norm is None else tuple(t for t in (norm.scale, norm.bias) if t is not None)
+    if not (x.is_cuda and w.device == x.device and (s is None or s.device == x.device)
+            and all(t.device == x.device for t in params)):
+        raise ValueError("x, w (and s and the norm's parameters) must lie on the same CUDA device")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or (
             s is not None and tuple(s.shape) != (w.shape[1],)):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}"
                          f"{'' if s is None else f' s {tuple(s.shape)}'}")
     M, K = x.shape
     N = w.shape[1]
-    if not kernel_takes(M, K, N, x.dtype, w.dtype, None if s is None else s.dtype):
+    s_dtype = None if s is None else s.dtype
+    if norm is not None and not fold_takes(M, K, N, x.dtype, w.dtype, s_dtype, norm):
+        raise (TypeError if x.dtype not in NORM_X_DTYPES else ValueError)(
+            f"G1 with a folded norm takes bf16 x or up to {F32_MAX_ROWS} rows of fp32 x, bf16 "
+            f"[K] norm parameters (a bias "
+            f"for a LayerNorm) and what G1 takes; got x {x.dtype} {tuple(x.shape)}, w "
+            f"{w.dtype} {tuple(w.shape)}, scale {norm.scale.dtype} {tuple(norm.scale.shape)}, "
+            f"bias {None if norm.bias is None else (norm.bias.dtype, tuple(norm.bias.shape))}")
+    if norm is None and not kernel_takes(M, K, N, x.dtype, w.dtype, s_dtype):
         raise (TypeError if x.dtype != torch.bfloat16 or w.dtype not in (torch.bfloat16, torch.int8)
                else ValueError)(
             f"G1 takes bf16 x by a bf16 weight or an int8 one with bf16 scales, K and N "
@@ -149,22 +195,34 @@ def _library(device_index: int) -> ctypes.CDLL:
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None,
-         plan: GemmPlan | None = None) -> torch.Tensor:
+         plan: GemmPlan | None = None, norm: Norm | None = None) -> torch.Tensor:
     """G1 on CUDA tensors: ``x [M, K]`` bf16 by ``w [K, N]`` (bf16, or int8
     with ``s [N]`` bf16) -> ``[M, N]`` bf16, launched by :func:`gemm_plan`
     (or by ``plan``, which the card's checks use to hold other splits, row
     tiles and cluster sizes against the plain version and each other); CPU
-    tensors take the plain version."""
+    tensors take the plain version.  With ``norm``, the product of
+    ``norm(x)`` rounded to bf16 (x bf16 or fp32), the norm folded into the
+    launch (whatever :func:`folds` says: that is the op layer's choice)."""
     if not x.is_cuda:
-        return gemm_plain(x, w, s)
-    M, K, N = _check(x, w, s)
+        return gemm_plain(x if norm is None else norm_plain(x, norm).to(torch.bfloat16), w, s)
+    M, K, N = _check(x, w, s, norm)
     dev = x.device
     plan = plan or gemm_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    rc = _library(dev.index).zt_gemm(
-        x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(), M, K, N,
-        int(w.dtype == torch.int8), plan.n_split, plan.rows_per_split, int(plan.parallel),
-        plan.bm, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "gemm")
-    launch_counts["gemm"] += 1
+    common = (int(w.dtype == torch.int8), plan.n_split, plan.rows_per_split, int(plan.parallel),
+              plan.bm, torch.cuda.current_stream(dev).cuda_stream)
+    s_ptr = None if s is None else s.data_ptr()
+    if norm is None:
+        rc = _library(dev.index).zt_gemm(x.data_ptr(), w.data_ptr(), s_ptr, out.data_ptr(),
+                                         M, K, N, *common)
+        check(rc, "gemm")
+        launch_counts["gemm"] += 1
+        return out
+    scale, bias = params_aligned(norm.scale), params_aligned(norm.bias)
+    rc = _library(dev.index).zt_gemm_norm(
+        x.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(), w.data_ptr(),
+        s_ptr, out.data_ptr(), M, K, N, int(x.dtype == torch.float32), float(norm.eps),
+        int(norm.rms), *common)
+    check(rc, "gemm_norm")
+    launch_counts["gemm_norm"] += 1
     return out

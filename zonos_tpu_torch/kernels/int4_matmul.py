@@ -28,6 +28,11 @@ split order.  So a row's result is the same bits alone and among up to 63
 others, and ``matmul_w`` runs more rows in chunks of 64 through the same
 plan.  Left for later: ``wgmma``, TMA, a thread-block-cluster reduction in
 place of the partials and the counters' memset, a persistent kernel.
+
+A layer's norm can be folded in (``int4_matmul(..., norm=)``): the CTA
+computes its rows' statistics by N1's code (``csrc/row_stats.cuh``) and
+normalises x as it stages the pairs, so the result is the bits of N1
+followed by K8, with no launch for the norm.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import torch
 
 from zonos_tpu_torch.kernels import launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
+from zonos_tpu_torch.kernels.row_norm import DTYPES as NORM_X_DTYPES  # bf16, fp32
+from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain, params_aligned
 
 MAX_ROWS = 64  # the most rows the kernel takes (a decode step's batch with CFG)
 COL_ALIGN = 16  # a lane's columns are all in or all out of dout; rows start on 16 bytes
@@ -48,10 +55,14 @@ CHUNK_ROWS = 512  # packed rows a CTA stages at once, for every M; compiled into
 SLICES = 8  # warps a CTA splits each chunk's rows over, for every M; compiled into the kernel
 MAX_ROWS_PER_SPLIT = 1024  # packed rows of one split; compiled into the kernel
 MIN_ROWS_PER_SPLIT = 64  # one k-step for each of up to eight warps over a split's rows
+# the most rows a launch takes with a folded norm (past them N1 runs first: every CTA
+# recomputes its rows' statistics over all of din)
+FOLD_MAX_ROWS = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "zt_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    "zt_int4_matmul_norm": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -85,9 +96,26 @@ def kernel_takes(rows: int, din: int, dout: int, gs: int, x_dtype=torch.bfloat16
             and dout % COL_ALIGN == 0)
 
 
-def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int, int, int]:
-    if not (x.is_cuda and q.device == x.device and s.device == x.device):
-        raise ValueError("x, q and s must lie on the same CUDA device")
+def fold_takes(rows: int, din: int, dout: int, gs: int, x_dtype, q_dtype, s_dtype,
+               norm: Norm) -> bool:
+    """Whether K8 takes ``norm`` folded in front of the product: up to
+    FOLD_MAX_ROWS rows of bf16 or fp32 x (normalised, then rounded to bf16),
+    the norm's bf16 scale ``[din]`` and bias ``[din]`` (a LayerNorm's, or an
+    RMSNorm's if any), the rest as :func:`kernel_takes`."""
+    scale, bias = norm.scale, norm.bias
+    return (x_dtype in NORM_X_DTYPES and rows <= FOLD_MAX_ROWS
+            and kernel_takes(rows, din, dout, gs, torch.bfloat16, q_dtype, s_dtype)
+            and scale.dtype == torch.bfloat16 and tuple(scale.shape) == (din,)
+            and (bias is not None or norm.rms)
+            and (bias is None or (bias.dtype == torch.bfloat16 and tuple(bias.shape) == (din,))))
+
+
+def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+           norm: Norm | None = None) -> tuple[int, int, int, int]:
+    params = () if norm is None else tuple(t for t in (norm.scale, norm.bias) if t is not None)
+    if not (x.is_cuda and q.device == x.device and s.device == x.device
+            and all(t.device == x.device for t in params)):
+        raise ValueError("x, q and s (and the norm's parameters) must lie on the same CUDA device")
     if x.dim() != 2 or q.dim() != 2 or s.dim() != 2:
         raise ValueError(f"bad ranks x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)}")
     M, din = x.shape
@@ -95,7 +123,15 @@ def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tuple[int, int,
     if din % G or din % (2 * (din // G)) or q.shape[0] * 2 != din or s.shape[1] != dout:
         raise ValueError(f"shapes x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)} "
                          "are not a halves-packed [din/2, dout] weight with an even group count")
-    if not kernel_takes(M, din, dout, din // G, x.dtype, q.dtype, s.dtype):
+    if norm is not None and not fold_takes(M, din, dout, din // G, x.dtype, q.dtype, s.dtype,
+                                           norm):
+        raise (TypeError if x.dtype not in NORM_X_DTYPES else ValueError)(
+            f"int4 matmul with a folded norm takes 1..{FOLD_MAX_ROWS} rows of bf16 or fp32 x, "
+            f"bf16 [din] norm parameters (a bias for a LayerNorm) and what it takes unfolded; "
+            f"got x {x.dtype} {tuple(x.shape)}, scale {norm.scale.dtype} "
+            f"{tuple(norm.scale.shape)}, bias "
+            f"{None if norm.bias is None else (norm.bias.dtype, tuple(norm.bias.shape))}")
+    if norm is None and not kernel_takes(M, din, dout, din // G, x.dtype, q.dtype, s.dtype):
         if (x.dtype, q.dtype, s.dtype) != (torch.bfloat16, torch.int8, torch.bfloat16):
             raise TypeError(f"int4 matmul takes bf16 x, int8 q, bf16 s; "
                             f"got {x.dtype}/{q.dtype}/{s.dtype}")
@@ -141,21 +177,36 @@ def int4_plan(M: int, din: int, dout: int, sms: int, n: int | None = None) -> di
 
 
 def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                n_split: int | None = None) -> torch.Tensor:
+                n_split: int | None = None, norm: Norm | None = None) -> torch.Tensor:
     """K8 on CUDA tensors; CPU tensors take the plain version.  ``n_split``
-    overrides the default split of the packed rows (for a sweep)."""
+    overrides the default split of the packed rows (for a sweep).  With
+    ``norm``, the product of ``norm(x)`` rounded to bf16 (x bf16 or fp32),
+    the norm folded into the launch."""
     if not x.is_cuda:
-        return int4_matmul_plain(x, q, s)
-    M, din, dout, gs = _check(x, q, s)
+        return int4_matmul_plain(x if norm is None else norm_plain(x, norm).to(torch.bfloat16),
+                                 q, s)
+    M, din, dout, gs = _check(x, q, s, norm)
     n_split = int4_plan(M, din, dout, sm_count(x.device.index), n_split)["n_split"]
     out = torch.empty((M, dout), dtype=torch.float32, device=x.device)
     part = (torch.empty((n_split, M, dout), dtype=torch.float32, device=x.device)
             if n_split > 1 else out)
     counters = torch.empty(-(-dout // MIN_TILE), dtype=torch.int32, device=x.device)
     lib = library("int4_matmul", _SIGNATURES)
-    rc = lib.zt_int4_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                            part.data_ptr(), counters.data_ptr(), M, din, dout, gs, n_split,
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    check(rc, "int4_matmul")
-    launch_counts["int4_matmul"] += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if norm is None:
+        rc = lib.zt_int4_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                part.data_ptr(), counters.data_ptr(), M, din, dout, gs, n_split,
+                                stream)
+        check(rc, "int4_matmul")
+        launch_counts["int4_matmul"] += 1
+        return out
+    scale, bias = params_aligned(norm.scale), params_aligned(norm.bias)
+    rc = lib.zt_int4_matmul_norm(x.data_ptr(), scale.data_ptr(),
+                                 None if bias is None else bias.data_ptr(), q.data_ptr(),
+                                 s.data_ptr(), out.data_ptr(), part.data_ptr(),
+                                 counters.data_ptr(), M, din, dout, gs, n_split,
+                                 int(x.dtype == torch.float32), float(norm.eps), int(norm.rms),
+                                 stream)
+    check(rc, "int4_matmul_norm")
+    launch_counts["int4_matmul_norm"] += 1
     return out

@@ -3,14 +3,17 @@
 Replaces no TPU kernel: the JAX package normalises with XLA's reductions
 (zonos_tpu/ops/norms.py:16-37).  PyTorch's reduction on the card shapes its
 blocks by the number of rows, so a row's statistics were summed in another
-order alone than in a batch.  N1 sums every row the same way (one CTA a
-row, a fixed tree over 256 threads), so a row's output is the same bits
-alone and in any batch.  Bound by reading and writing each row once.
+order alone than in a batch.  N1 sums every row the same way (one warp a
+row, the order of ``csrc/row_stats.cuh``), so a row's output is the same
+bits alone and in any batch.  Bound by reading and writing each row once.
+G1 and K8 run the same header when a norm is folded into them
+(:class:`Norm`), so a folded norm gives N1's bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +53,34 @@ def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     return y.to(x.dtype)
 
 
+class Norm(NamedTuple):
+    """A row norm over the last axis as an operand of the product that reads
+    its output: LayerNorm (``rms`` False; ``bias`` required) or RMSNorm
+    (``bias`` added after scaling, or None), bf16 ``scale`` / ``bias``
+    ``[d]`` on the bf16 models, fp32 statistics."""
+
+    scale: torch.Tensor
+    bias: torch.Tensor | None
+    eps: float
+    rms: bool
+
+
+def norm_plain(x: torch.Tensor, norm: Norm) -> torch.Tensor:
+    """``norm`` of ``x`` by the plain versions, in x's dtype."""
+    if norm.rms:
+        return rms_norm_plain(x, norm.scale, norm.eps, norm.bias)
+    return layer_norm_plain(x, norm.scale, norm.bias, norm.eps)
+
+
+def params_aligned(t: torch.Tensor | None) -> torch.Tensor | None:
+    """A bf16 norm parameter contiguous from a 16-byte boundary, as the
+    kernels read it (8 values a load); a copy where it is not."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def kernel_takes(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None) -> bool:
     """Whether N1 takes these operands, by dtype and shape alone: bf16 or
     fp32 x (the hybrid's residual stream is fp32) of width d, a multiple of
@@ -80,7 +111,7 @@ def _launch(x, scale, bias, eps: float, rms: bool) -> torch.Tensor:
     xr = x.reshape(-1, d).contiguous()
     if xr.data_ptr() % 16:
         xr = xr.clone()
-    scale, bias = scale.contiguous(), None if bias is None else bias.contiguous()
+    scale, bias = params_aligned(scale), params_aligned(bias)
     y = torch.empty_like(xr)
     if xr.shape[0]:
         lib = library("row_norm", _SIGNATURES)

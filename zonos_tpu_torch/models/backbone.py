@@ -36,8 +36,9 @@ from zonos_tpu_torch.ops.attention import (
     decode_attention_held_out,
     fresh_prefill_attention,
 )
+from zonos_tpu_torch.kernels.row_norm import Norm
 from zonos_tpu_torch.ops.norms import layer_norm
-from zonos_tpu_torch.ops.quant import matmul_w, store_cast
+from zonos_tpu_torch.ops.quant import matmul_w, norm_matmul, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope, cached_rope_table
 
 KV_STORAGE = {"f8": torch.float8_e4m3fn, "int8": torch.int8}
@@ -174,8 +175,9 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
     lp = _layer_params(params, li)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
-    h = layer_norm(x, lp["norm1_scale"], lp["norm1_bias"], cfg.norm_epsilon)
-    q, k, v = torch.split(matmul_w(h, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    # each pre-norm feeds one product: norm_matmul folds it into that product's kernel
+    norm1 = Norm(lp["norm1_scale"], lp["norm1_bias"], cfg.norm_epsilon, rms=False)
+    q, k, v = torch.split(norm_matmul(x, norm1, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, Hkv, hd), cos, sin)
     v = v.reshape(B, S, Hkv, hd)
@@ -194,8 +196,8 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
     if tail is not None:
         return fused_layer_tail(*tail, eps=cfg.norm_epsilon)[:, None]
     x = x + matmul_w(y.reshape(B, S, H * hd), lp["wo"])
-    h = layer_norm(x, lp["norm2_scale"], lp["norm2_bias"], cfg.norm_epsilon)
-    u, gate = torch.chunk(matmul_w(h, lp["w1"]), 2, dim=-1)
+    norm2 = Norm(lp["norm2_scale"], lp["norm2_bias"], cfg.norm_epsilon, rms=False)
+    u, gate = torch.chunk(norm_matmul(x, norm2, lp["w1"]), 2, dim=-1)
     return x + matmul_w(u * F.silu(gate), lp["w2"])
 
 

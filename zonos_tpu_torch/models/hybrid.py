@@ -36,8 +36,9 @@ import torch.nn.functional as F
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.models.backbone import rope_at, write_rows
 from zonos_tpu_torch.ops.attention import StepPosition, decode_attention, fresh_prefill_attention
-from zonos_tpu_torch.ops.norms import layer_norm, rms_norm
-from zonos_tpu_torch.ops.quant import matmul_w, store_cast
+from zonos_tpu_torch.kernels.row_norm import Norm
+from zonos_tpu_torch.ops.norms import apply_norm
+from zonos_tpu_torch.ops.quant import matmul_w, norm_matmul, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
 from zonos_tpu_torch.kernels.ssm_state import dequantize_state, quantize_state
 from zonos_tpu_torch.ops.ssm import (
@@ -208,19 +209,20 @@ def store_ssm(st: dict, s: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _norm(cfg: BackboneConfig, x, scale, bias):
-    if cfg.rms_norm:
-        return rms_norm(x, scale, cfg.norm_epsilon, bias=bias)
-    return layer_norm(x, scale, bias, cfg.norm_epsilon)
+def _norm_of(cfg: BackboneConfig, scale, bias) -> Norm:
+    """The block's norm (RMSNorm or LayerNorm by the config) as an operand."""
+    return Norm(scale, bias, cfg.norm_epsilon, rms=cfg.rms_norm)
 
 
-def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
-                 prefill: bool) -> torch.Tensor:
-    """x [B, S, d] in the compute dtype -> [B, S, d]; rewrites ``st``."""
+def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
+                 dtype: torch.dtype, st: dict, prefill: bool) -> torch.Tensor:
+    """The residual x [B, S, d] -> [B, S, d] in the compute dtype ``dtype``,
+    through ``norm`` (folded into in_proj); rewrites ``st``."""
     _, d_inner, H, G, N, _, conv_dim = _dims(cfg)
     P = cfg.ssm_headdim
     B, S, _ = x.shape
-    z, xBC, dt_raw = torch.split(matmul_w(x, lp["in_proj"]), [d_inner, conv_dim, H], dim=-1)
+    z, xBC, dt_raw = torch.split(norm_matmul(x, norm, lp["in_proj"], dtype),
+                                 [d_inner, conv_dim, H], dim=-1)
     w, b = lp["conv_w"].to(xBC.dtype), lp["conv_b"].to(xBC.dtype)
     if prefill:
         xBC, conv_state = causal_conv1d_prefill(xBC, w, b)
@@ -251,15 +253,20 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
         y = y[:, None]
 
     # y is cast to the compute dtype before the gate; the mixer norm follows it
-    gated = y.reshape(B, S, d_inner).to(x.dtype) * F.silu(z)
-    return matmul_w(rms_norm(gated, lp["mixer_norm"], cfg.norm_epsilon), lp["out_proj"])
+    gated = y.reshape(B, S, d_inner).to(dtype) * F.silu(z)
+    mixer_norm = Norm(lp["mixer_norm"], None, cfg.norm_epsilon, rms=True)
+    return norm_matmul(gated, mixer_norm, lp["out_proj"])
 
 
-def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
-                pos: int | StepPosition, prefill: bool) -> torch.Tensor:
+def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
+                dtype: torch.dtype, st: dict, pos: int | StepPosition,
+                prefill: bool) -> torch.Tensor:
+    """The residual x through ``norm`` (folded into wqkv) -> [B, S, d] in
+    the compute dtype ``dtype``."""
     H, Hkv, hd, rot = _attn_dims(cfg)
     B, S, _ = x.shape
-    q, k, v = torch.split(matmul_w(x, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q, k, v = torch.split(norm_matmul(x, norm, lp["wqkv"], dtype), [H * hd, Hkv * hd, Hkv * hd],
+                          dim=-1)
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
     if rot > 0:  # rotate-halves over the first `rot` dims; the rest pass through
         cos_t, sin_t = cached_rope_table(rot, cfg.rope_base, x.device)
@@ -277,15 +284,16 @@ def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, st: dict,
 
 def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict,
            pos: int | StepPosition, prefill: bool, compute_dtype: torch.dtype) -> torch.Tensor:
-    h = _norm(cfg, x, lp["norm_scale"], lp.get("norm_bias")).to(compute_dtype)
+    # the block's norms each feed one product: the mixer's first, then w1
+    norm = _norm_of(cfg, lp["norm_scale"], lp.get("norm_bias"))
     if is_attn_layer(cfg, i):
-        y = _attn_mixer(cfg, lp, h, st, pos, prefill)
+        y = _attn_mixer(cfg, lp, x, norm, compute_dtype, st, pos, prefill)
     else:
-        y = _mamba_mixer(cfg, lp, h, st, prefill)
+        y = _mamba_mixer(cfg, lp, x, norm, compute_dtype, st, prefill)
     x = x + y.to(x.dtype)
     if "w1" in lp:
-        h = _norm(cfg, x, lp["norm2_scale"], lp.get("norm2_bias")).to(compute_dtype)
-        u, gate = torch.chunk(matmul_w(h, lp["w1"]), 2, dim=-1)
+        norm2 = _norm_of(cfg, lp["norm2_scale"], lp.get("norm2_bias"))
+        u, gate = torch.chunk(norm_matmul(x, norm2, lp["w1"], compute_dtype), 2, dim=-1)
         x = x + matmul_w(u * F.silu(gate), lp["w2"]).to(x.dtype)
     return x
 
@@ -297,8 +305,8 @@ def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict],
         x = x.float()
     for i, (lp, st) in enumerate(zip(params["layers_list"], cache)):
         x = _block(cfg, i, lp, x, st, pos, prefill, compute_dtype)
-    x = _norm(cfg, x, params["normf_scale"], params.get("normf_bias"))
-    return x.to(compute_dtype)
+    normf = _norm_of(cfg, params["normf_scale"], params.get("normf_bias"))
+    return apply_norm(x, normf).to(compute_dtype)
 
 
 def hybrid_prefill(cfg: BackboneConfig, params: dict, x: torch.Tensor,

@@ -11,9 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from zonos_tpu_torch.kernels.gemm import fold_takes as gemm_fold_takes
+from zonos_tpu_torch.kernels.gemm import folds as gemm_folds
 from zonos_tpu_torch.kernels.gemm import gemm
 from zonos_tpu_torch.kernels.gemm import kernel_takes as gemm_takes
 from zonos_tpu_torch.kernels.int4_matmul import MAX_ROWS, int4_matmul, kernel_takes, unpack_int4
+from zonos_tpu_torch.kernels.int4_matmul import fold_takes as int4_fold_takes
+from zonos_tpu_torch.kernels.row_norm import Norm
+from zonos_tpu_torch.ops.norms import apply_norm
 
 F8_MAX = 448.0  # float8 e4m3 has no infinity: out-of-range values become NaN
 
@@ -48,6 +53,38 @@ def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
     if x.is_cuda and w.dim() == 2 and gemm_takes(rows, din, w.shape[-1], x.dtype, w.dtype):
         return gemm(_rows(x, rows), w).reshape(*x.shape[:-1], w.shape[-1])
     return x @ w
+
+
+def norm_matmul(x: torch.Tensor, norm: Norm, w, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``matmul_w(apply_norm(x, norm).to(dtype), w)``: a layer's norm and the
+    one product that reads it (``dtype``: the compute dtype, x's by default;
+    the hybrid's residual x is fp32).
+
+    On a CUDA tensor whose dtypes and widths the product's kernel takes with
+    a norm folded in (G1 ``fold_takes`` for a bf16 or int8 weight where
+    ``folds`` says so for this row count and norm, K8 ``fold_takes`` for an
+    int4 one), one launch normalises x as it stages it, by N1's code: the
+    same bits as the composition, with no launch for the norm.  Otherwise,
+    and on the CPU, the composition itself: N1 (or the plain norm), the
+    cast, then :func:`matmul_w`."""
+    dtype = dtype or x.dtype
+    din = x.shape[-1]
+    rows = x.numel() // din
+    if x.is_cuda and dtype == torch.bfloat16 and rows:
+        if isinstance(w, dict) and "q4" in w:
+            q, s = w["q4"], w["s4"]
+            if int4_fold_takes(rows, din, q.shape[-1], din // s.shape[-2], x.dtype, q.dtype,
+                               s.dtype, norm):
+                y = int4_matmul(_rows(x, rows), q, s, norm=norm)
+                return y.reshape(*x.shape[:-1], q.shape[-1]).to(dtype)
+        else:
+            q, s = (w["q"], w["s"]) if isinstance(w, dict) else (w, None)
+            N = q.shape[-1]
+            if (q.dim() == 2 and gemm_fold_takes(rows, din, N, x.dtype, q.dtype,
+                                                 None if s is None else s.dtype, norm)
+                    and gemm_folds(rows, norm)):
+                return gemm(_rows(x, rows), q, s, norm=norm).reshape(*x.shape[:-1], N)
+    return matmul_w(apply_norm(x, norm).to(dtype), w)
 
 
 def int4_rows(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
