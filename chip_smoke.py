@@ -21,7 +21,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    in a batch bit for bit, and N1 likewise; G1 and K8 with a layer's norm
    folded in against N1 and then the product, bit for bit, at every tile
    choice; K1 and K2 by every grid their split allows, bit for bit), with
-   the tolerance stated beside each check.
+   the tolerance stated beside each check; then the autograd routes of G1,
+   N1 and K6 at training shapes against ``torch.autograd`` through the plain
+   versions (every input gradient the plain route's bits).
 4. main paths, each with the launch counts zeroed just before and read just
    after (a CUDA graph's launches counted at every replay), each failing if
    a kernel of that path did not launch or if a generate's decode did not
@@ -97,6 +99,19 @@ Phases, each of which fails the run (non-zero exit) on error:
      files of that directory; G1, N1, K2, K3, K5; walls and WAV lengths;
    - ecapa: ECAPA-TDNN at C 1024 on a 3-s mel, the card within 1e-3 x
      max|ref| of the CPU.
+   - train transformer: the full-width, full-depth flagship in bf16 on
+     bench.py's training batch (2 x 896 frames, seeded conditioning for every
+     conditioner): every trainable leaf's gradient present and finite, then
+     2 Adafactor and 3 AdamW steps with remat on one batch, the loss falling;
+     G1 and N1 launched in every step, the fold never; ms/step, frames/s,
+     peak device memory, launches a step. train lora: rank-8 adapters over
+     that frozen model, 5 AdamW steps: the loss falls, every base leaf keeps
+     its bits. train hybrid: the full hybrid, 2 x 512 frames, 5 AdamW steps:
+     K6 (with its gradient) in every step. train cli: ``train_cli.main`` on
+     seeded tone clips in an LJSpeech layout (the tiny transformer in bf16):
+     4 steps with validation, checkpoints and an export, K5 encoding the
+     data; a resumed run encodes nothing and starts at step 4; the export
+     loads through ``Zonos.from_local`` and generates 86 frames.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
    loop and the CUDA graphs on one batch-1 generate (470 new tokens, through
    all three bands of cache lengths; 130 on the hybrid int4), same seed, EOS
@@ -111,7 +126,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 5. timings: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, median of CUDA-event
    timings; prints the ``{"kernels": [...]}`` line, one entry per kernel,
-   with further shapes under ``"more"``.
+   with further shapes under ``"more"`` (G1, N1 and K6 also at the training
+   phases' shapes, each with its autograd backward's time and its launches
+   a training step).
 
 ``python3 chip_smoke.py --sweep`` runs phases 1-2, breaks one K8 call's
 device time down (kernel, memset, timing floor) and one K4 call's by launch,
@@ -3208,6 +3225,508 @@ def phase_cobatch(card: str, model, tag: str = "[cobatch]", batches=COBATCH_BATC
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: training on the card
+# ---------------------------------------------------------------------------
+
+# bench.py's flagship training row: batch 2 of 896 frames, 48 left-padded phoneme ids (8 pads)
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_PHONEMES = 2, 896, 48
+HYBRID_TRAIN_FRAMES = 512
+# 2 Adafactor steps, then 3 AdamW steps, remat on (activations of one layer at a time), on one
+# fixed batch with one set of CFG dropout masks
+TRAIN_ADAFACTOR_STEPS, TRAIN_ADAMW_STEPS = 2, 3
+TRAIN_LR, TRAIN_UNCOND_P, TRAIN_SEED = 1e-3, 0.1, 2024
+LORA_RANK, LORA_ALPHA, LORA_STEPS = 8, 16.0, 5
+HYBRID_TRAIN_STEPS = 5
+# the autograd routes' checks: G1 and N1 at 2 x 1024 rows, K6 at B 2, L 1024
+AUTOGRAD_ROWS, AUTOGRAD_SSD_L = 2 * 1024, 1024
+# [train cli]: tone clips in an LJSpeech layout, the tiny transformer in bf16 (G1, N1)
+CLI_TEXTS = TEXTS[:6]
+CLI_STEPS, CLI_RESUMED_STEPS, CLI_NEW_TOKENS = 4, 6, 86
+# every training forward's kernels; the fold (G1+N1) never runs under autograd
+TRAIN_KERNELS = ("gemm", "row_norm")
+HYBRID_TRAIN_KERNELS = TRAIN_KERNELS + ("ssd_chunked",)
+
+
+def _grads_of(fn, inputs, upstream):
+    """(outputs, gradients of ``inputs``) of ``fn`` for the ``upstream``
+    gradients, through autograd on fresh leaves."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, leaves, upstream)
+
+
+def check_autograd(gen) -> dict:
+    """The kernels' autograd routes at training shapes against
+    ``torch.autograd`` through their plain versions on the card, the same
+    inputs and the same upstream gradient into both: G1 (``gemm``) on w1 and
+    w2 at 2 x 1024 rows; N1 as the transformer's bf16 LayerNorm [2048, 2048],
+    the hybrid's fp32-residual RMSNorm [2048, 2048] and its mixer's bf16
+    RMSNorm [2048, 4096]; K6 at B 2, L 1024 at the hybrid's widths, with and
+    without an initial state.  Each route must launch its kernel once and
+    give outputs within the kernel's tolerance (G1 1 bf16 ulp of max|ref|,
+    N1 2 ulps, K6 1e-4 x max|ref|), and every input gradient the plain
+    route's bits: the backward of G1 is the plain version's products, those
+    of N1 and K6 recompute the plain version.  Returns the largest output
+    error of each kernel."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts
+    from zonos_tpu_torch.kernels import row_norm as n1
+    from zonos_tpu_torch.kernels.gemm import gemm, gemm_plain
+    from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain
+    from zonos_tpu_torch.kernels.ssd import ssd_chunked, ssd_chunked_plain
+
+    def routed(name, fn, inputs, upstream):
+        before = launch_counts[name]
+        outs, grads = _grads_of(fn, inputs, upstream)
+        torch.cuda.synchronize()
+        if launch_counts[name] != before + 1 or outs[0].grad_fn is None:
+            fail(f"[kernels] autograd: {name} ran {launch_counts[name] - before} launches, "
+                 f"grad_fn {outs[0].grad_fn}: not its route")
+        return outs, grads
+
+    def err_of(got, ref) -> tuple[float, float]:
+        with torch.no_grad():
+            return float((got.float() - ref.float()).abs().max()), float(ref.abs().max())
+
+    def same_bits(tag, grads, refs):
+        for i, (g, r) in enumerate(zip(grads, refs)):
+            if not torch.equal(g, r):
+                err = float((g.float() - r.float()).abs().max())
+                fail(f"[kernels] autograd {tag}: input {i}'s gradient differs from the plain "
+                     f"route's (max abs {err})")
+
+    errs = {"gemm": 0.0, "row_norm": 0.0, "ssd_chunked": 0.0}
+    M = AUTOGRAD_ROWS
+    for name in ("w1", "w2"):
+        din, dout = FLAGSHIP_WEIGHTS[name]
+        x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5).bfloat16()
+        dy = torch.randn((M, dout), generator=gen, device="cuda").bfloat16()
+        (y,), grads = routed("gemm", gemm, (x, w), (dy,))
+        (ref,), refs = _grads_of(gemm_plain, (x, w), (dy,))
+        err, top = err_of(y, ref)
+        if not err <= bf16_ulp(top):
+            fail(f"[kernels] autograd gemm {name} M={M}: max abs err {err} > 1 bf16 ulp of {top}")
+        same_bits(f"gemm {name}", grads, refs)
+        errs["gemm"] = max(errs["gemm"], err)
+    norms = (("LayerNorm bf16", 2048, torch.bfloat16, False, True),
+             ("RMSNorm fp32 x", 2048, torch.float32, True, False),
+             ("RMSNorm bf16 d 4096", 4096, torch.bfloat16, True, False))
+    for label, d, dtype, rms, with_bias in norms:
+        x = (3 + 2 * torch.randn((M, d), generator=gen, device="cuda")).to(dtype)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        inputs = (x, scale, bias) if with_bias else (x, scale)
+        dy = torch.randn((M, d), generator=gen, device="cuda").to(dtype)
+
+        def route(x, s, b=None):
+            return n1.rms_norm(x, s, 1e-5, b) if rms else n1.layer_norm(x, s, b, 1e-5)
+
+        def plain(x, s, b=None):
+            return norm_plain(x, Norm(s, b, 1e-5, rms))
+
+        (y,), grads = routed("row_norm", route, inputs, (dy,))
+        (ref,), refs = _grads_of(plain, inputs, (dy,))
+        err, top = err_of(y, ref)
+        ulp = bf16_ulp(top) if dtype == torch.bfloat16 else top * 2.0 ** -22
+        if not err <= 2 * ulp:
+            fail(f"[kernels] autograd row_norm {label}: max abs err {err} > 2 ulps of {top}")
+        same_bits(f"row_norm {label}", grads, refs)
+        errs["row_norm"] = max(errs["row_norm"], err)
+    for with_init in (False, True):
+        args = ssd_inputs(gen, 2, AUTOGRAD_SSD_L)
+        args = args if with_init else args[:6]
+        upstream = (torch.randn(args[0].shape, generator=gen, device="cuda"),
+                    torch.randn((2, SSM_H, SSM_P, SSM_N), generator=gen, device="cuda"))
+        outs, grads = routed("ssd_chunked", ssd_chunked, args, upstream)
+        refs_out, refs = _grads_of(ssd_chunked_plain, args, upstream)
+        for what, got, ref in zip(("y", "final state"), outs, refs_out):
+            err, top = err_of(got, ref)
+            if not err <= 1e-4 * top:
+                fail(f"[kernels] autograd ssd_chunked {what} (init {with_init}): max abs err "
+                     f"{err} > 1e-4 x {top}")
+            errs["ssd_chunked"] = max(errs["ssd_chunked"], err)
+        same_bits(f"ssd_chunked (init {with_init})", grads, refs)
+    print(f"[kernels] autograd routes ok: G1 on w1 and w2 at {M} rows, N1 (bf16 LayerNorm, fp32-x "
+          f"RMSNorm, bf16 RMSNorm of 4096) at {M} rows, K6 at B 2, L {AUTOGRAD_SSD_L} with and "
+          f"without an initial state: each launched once a call, outputs within the kernels' "
+          f"tolerances (max abs err G1 {errs['gemm']:.3g}, N1 {errs['row_norm']:.3g}, K6 "
+          f"{errs['ssd_chunked']:.3g}), every input gradient the plain route's bits", flush=True)
+    return errs
+
+
+def train_batch(model, frames: int, seed: int = TRAIN_SEED) -> tuple:
+    """A loader-shaped batch: TRAIN_BATCH rows of ``frames`` seeded random
+    codes (on the model's device), TRAIN_PHONEMES phoneme ids left-padded by 8, and a
+    seeded value for every other conditioner, so that every leaf of the
+    conditioner is reached."""
+    import numpy as np
+    import torch
+
+    from zonos_tpu_torch.text.symbols import PAD_ID
+
+    rng = np.random.default_rng(seed)
+    B = TRAIN_BATCH
+    codes = torch.as_tensor(rng.integers(0, 1024, (B, 9, frames)), device=model.device)
+    inputs = {}
+    for s in model.specs:
+        if s.type == "Espeak":
+            ph = np.full((B, TRAIN_PHONEMES), PAD_ID, np.int32)
+            ph[:, 8:] = rng.integers(4, 100, (B, TRAIN_PHONEMES - 8))
+            inputs[s.name] = ph
+        elif s.type == "Integer":
+            inputs[s.name] = rng.integers(0, 100, (B, 1, 1)).astype(np.int32)
+        elif s.type == "Passthrough":
+            inputs[s.name] = rng.normal(size=(B, 1, s.cond_dim)).astype(np.float32)
+        else:
+            inputs[s.name] = rng.uniform(s.min_val, s.max_val,
+                                         (B, 1, s.input_dim)).astype(np.float32)
+    return inputs, codes
+
+
+def _check_leaf_grads(tag: str, loss_fn, trainable) -> None:
+    """Every floating leaf of ``trainable`` gets a gradient from one forward
+    and backward of ``loss_fn``, and every gradient is finite."""
+    import torch
+
+    from zonos_tpu_torch.parallel.train import tree_flatten, value_and_grad
+
+    loss, grads = value_and_grad(loss_fn, trainable)
+    leaves, g = tree_flatten(trainable)[0], tree_flatten(grads)[0]
+    missing = sum(1 for p, x in zip(leaves, g) if p is not None and x is None)
+    present = [x for x in g if x is not None]
+    finite = bool(torch.stack([torch.isfinite(x).all() for x in present]).all())
+    if missing or not finite or not bool(torch.isfinite(loss)):
+        fail(f"{tag} first step: {missing} of {len(present) + missing} leaves without a "
+             f"gradient, gradients finite {finite}, loss {float(loss)}")
+    print(f"{tag} first step: every one of the {len(present)} trainable leaves has a finite "
+          f"gradient (loss {float(loss):.4f})", flush=True)
+
+
+def _train_steps(tag: str, card: str, runs, frames_a_step: int) -> dict:
+    """Run ``runs`` (a list of (label, step callable)) in order, each step
+    synced and timed, the last under ``torch.profiler`` (its device time by
+    category and its top kernels; its wall is left out of ms/step); the loss
+    must be finite and fall from the first step to the last, and every step
+    must launch G1 and N1 (and never the fold).  Prints ms/step (the median
+    of the steps between the first and the profiled one), frames/s, peak
+    device memory and the launches a step."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_tpu_torch.kernels import launch_counts, launches_since
+
+    losses, walls, per_step = [], [], []
+    for i, (label, step) in enumerate(runs):
+        before = dict(launch_counts)
+        traced = i == len(runs) - 1
+        with profile(activities=[ProfilerActivity.CUDA]) if traced else \
+                contextlib.nullcontext() as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append(launches_since(before))
+        print(f"{tag} step {len(losses)} ({label}{', profiled' if traced else ''}): loss "
+              f"{loss:.4f}, {walls[-1] * 1e3:.1f} ms, launches {per_step[-1]}", flush=True)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_cat: dict[str, float] = {}
+    for e in kernels:
+        cat = next((c for c, keys in _CATEGORIES if any(k in e.key for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
+    if busy > 0:
+        print(f"{tag} profiled step: device busy {busy:.1f} ms of a {walls[-1] * 1e3:.1f} ms wall "
+              f"under the profiler; by category: " + ", ".join(
+                  f"{c} {v:.1f} ms" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1])),
+              flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"{tag}   {e.self_device_time_total / 1e3:.2f} ms  x{e.count}  {e.key[:100]}",
+                  flush=True)
+    else:
+        print(f"{tag} profiled step: device time not measured (the profiler saw no kernels)",
+              flush=True)
+    for i, launched in enumerate(per_step):
+        if any(launched.get(k, 0) <= 0 for k in TRAIN_KERNELS) or launched.get("gemm_norm", 0):
+            fail(f"{tag} step {i + 1} launched {launched}: G1 and N1 must run, the fold never "
+                 f"under autograd")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{tag} the loss did not fall over {len(losses)} steps on one batch: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = 1e3 * statistics.median(walls[1:-1])
+    stats = {"losses": losses, "ms_per_step": ms, "frames_per_s": frames_a_step / (ms / 1e3),
+             "peak_gib": peak, "launches_per_step": per_step[-1], "first_step_ms": walls[0] * 1e3,
+             "profiled_busy_ms": busy, "profiled_by_category_ms": by_cat}
+    print(f"{tag} {len(losses)} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{ms:.1f} ms/step (median of steps 2-{len(walls) - 1}, {walls[0] * 1e3:.1f} ms "
+          f"first), "
+          f"{stats['frames_per_s']:.0f} frames/s ({frames_a_step} frames a step), peak device "
+          f"memory {peak:.2f} GiB; launches a step G1 {per_step[-1].get('gemm', 0)}, N1 "
+          f"{per_step[-1].get('row_norm', 0)}, K6 {per_step[-1].get('ssd_chunked', 0)} "
+          f"({card})", flush=True)
+    return stats
+
+
+def phase_train_transformer(card: str, model) -> tuple[dict, dict]:
+    """``[train transformer]``: the full-width, full-depth flagship in bf16
+    (G1 on every product), bench.py's batch (2 x 896 frames) with seeded
+    conditioning; every trainable leaf's gradient checked once, then
+    TRAIN_ADAFACTOR_STEPS Adafactor steps and TRAIN_ADAMW_STEPS AdamW steps
+    with remat, CFG dropout at TRAIN_UNCOND_P with one set of masks.
+    Returns (the phase's launch counts, its statistics)."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.parallel.train import (
+        conditioned_loss,
+        make_conditioned_train_step,
+        make_optimizer,
+    )
+
+    tag = "[train transformer]"
+    cfg, specs = model.config, model.specs
+    inputs, codes = train_batch(model, TRAIN_FRAMES)
+
+    def gen():
+        return torch.Generator().manual_seed(TRAIN_SEED)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _check_leaf_grads(tag, lambda p: conditioned_loss(cfg, specs, p, inputs, codes, gen(),
+                                                      TRAIN_UNCOND_P, remat=True), model.params)
+    state = {"params": model.params}
+    runs = []
+    for kind, n in (("adafactor", TRAIN_ADAFACTOR_STEPS), ("adamw", TRAIN_ADAMW_STEPS)):
+        opt = make_optimizer(lr=TRAIN_LR, kind=kind)
+        step_fn = make_conditioned_train_step(cfg, specs, opt, uncond_p=TRAIN_UNCOND_P, remat=True)
+
+        def run(step_fn=step_fn, opt=opt):
+            if state.get("opt") is not opt:
+                state["opt"], state["opt_state"] = opt, opt.init(state["params"])
+            state["params"], state["opt_state"], loss = step_fn(
+                state["params"], state["opt_state"], inputs, codes, gen())
+            return loss
+
+        runs += [(f"{kind}, remat", run)] * n
+    rows = TRAIN_BATCH * (TRAIN_PHONEMES + len(specs) - 1 + TRAIN_FRAMES + 9 - 1)
+    stats = _train_steps(tag, card, runs, TRAIN_BATCH * TRAIN_FRAMES)
+    counts = dict(launch_counts)
+    stats["rows"] = rows
+    del state
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase_train_lora(card: str, model) -> tuple[dict, dict]:
+    """``[train lora]``: rank-8 adapters (alpha 16) over the frozen bf16
+    flagship, the same batch, LORA_STEPS AdamW steps with remat: the loss
+    falls, every adapter leaf moves and every base leaf keeps its bits."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.parallel.lora import (
+        count_lora_params,
+        init_lora,
+        make_lora_train_step,
+        merge_lora,
+    )
+    from zonos_tpu_torch.parallel.train import conditioned_loss, make_optimizer, tree_leaves
+
+    tag = "[train lora]"
+    cfg, specs = model.config, model.specs
+    base = model.params
+    kept = [t.clone() for t in tree_leaves(base)]
+    inputs, codes = train_batch(model, TRAIN_FRAMES)
+    adapters = init_lora(torch.Generator().manual_seed(TRAIN_SEED), base, rank=LORA_RANK)
+    first = [t.clone() for t in tree_leaves(adapters)]
+    print(f"{tag} rank {LORA_RANK}, alpha {LORA_ALPHA}: {count_lora_params(adapters) / 1e6:.2f} M "
+          f"adapter parameters over {sum(t.numel() for t in kept) / 1e9:.3f} B frozen", flush=True)
+
+    def gen():
+        return torch.Generator().manual_seed(TRAIN_SEED)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _check_leaf_grads(tag, lambda ad: conditioned_loss(
+        cfg, specs, merge_lora(base, ad, LORA_ALPHA), inputs, codes, gen(), TRAIN_UNCOND_P,
+        remat=True), adapters)
+    opt = make_optimizer(lr=TRAIN_LR)
+    step_fn = make_lora_train_step(cfg, specs, opt, alpha=LORA_ALPHA, uncond_p=TRAIN_UNCOND_P,
+                                   remat=True)
+    state = {"adapters": adapters, "opt_state": opt.init(adapters)}
+
+    def run():
+        state["adapters"], state["opt_state"], loss = step_fn(
+            state["adapters"], state["opt_state"], base, inputs, codes, gen())
+        return loss
+
+    stats = _train_steps(tag, card, [("adamw, remat", run)] * LORA_STEPS, TRAIN_BATCH * TRAIN_FRAMES)
+    counts = dict(launch_counts)
+    changed = [not torch.equal(a, b) for a, b in zip(kept, tree_leaves(base))]
+    moved = [not torch.equal(a, b) for a, b in zip(first, tree_leaves(state["adapters"]))]
+    if any(changed) or not all(moved):
+        fail(f"{tag} {sum(changed)} base leaves changed, {moved.count(False)} of {len(moved)} "
+             f"adapter leaves did not move")
+    print(f"{tag} every one of the {len(kept)} base leaves kept its bits; all {len(moved)} adapter "
+          f"leaves moved", flush=True)
+    del state, kept, first
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase_train_hybrid(card: str) -> tuple[dict, dict]:
+    """``[train hybrid]``: the full-width, full-depth flagship hybrid in bf16
+    (fp32 A_log, D, dt_bias), batch 2 x HYBRID_TRAIN_FRAMES frames, AdamW (no
+    remat: the JAX package ignores it for the hybrid, as the port does):
+    every leaf's gradient checked once, then the loss falls; K6 launches in
+    every step's forward."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.parallel.train import (
+        conditioned_loss,
+        make_conditioned_train_step,
+        make_optimizer,
+    )
+
+    tag = "[train hybrid]"
+    model = load_model("hybrid")
+    cfg, specs = model.config, model.specs
+    inputs, codes = train_batch(model, HYBRID_TRAIN_FRAMES)
+
+    def gen():
+        return torch.Generator().manual_seed(TRAIN_SEED)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _check_leaf_grads(tag, lambda p: conditioned_loss(cfg, specs, p, inputs, codes, gen(),
+                                                      TRAIN_UNCOND_P), model.params)
+    opt = make_optimizer(lr=TRAIN_LR)
+    step_fn = make_conditioned_train_step(cfg, specs, opt, uncond_p=TRAIN_UNCOND_P)
+    state = {"params": model.params, "opt_state": opt.init(model.params)}
+
+    def run():
+        state["params"], state["opt_state"], loss = step_fn(
+            state["params"], state["opt_state"], inputs, codes, gen())
+        return loss
+
+    stats = _train_steps(tag, card, [("adamw", run)] * HYBRID_TRAIN_STEPS,
+                         TRAIN_BATCH * HYBRID_TRAIN_FRAMES)
+    counts = dict(launch_counts)
+    if stats["launches_per_step"].get("ssd_chunked", 0) <= 0:
+        fail(f"{tag} K6 did not launch in a training step: {stats['launches_per_step']}")
+    stats["L"] = TRAIN_PHONEMES + len(specs) - 1 + HYBRID_TRAIN_FRAMES + 9 - 1
+    del state, model
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase_train_cli(card: str) -> dict:
+    """``[train cli]``: ``train_cli.main`` on CLI_TEXTS as seeded tone clips
+    in an LJSpeech layout in a temporary directory, the tiny transformer in
+    bf16 on the card: CLI_STEPS steps with a validation split, checkpoints
+    and an export (the codes encoded by the DAC on the card: K5), then a
+    resumed run to CLI_RESUMED_STEPS that encodes nothing and starts at step
+    CLI_STEPS; the export loads through ``Zonos.from_local`` and generates
+    CLI_NEW_TOKENS frames on the card."""
+    import logging
+
+    import torch
+
+    from zonos_tpu_torch import Zonos, make_cond_dict
+    from zonos_tpu_torch.apps import train_cli
+    from zonos_tpu_torch.audio import save_audio
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    tag = "[train cli]"
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    logger = logging.getLogger("zonos_tpu_torch.train")
+    handler = Keep(level=logging.INFO)
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.makedirs(os.path.join(root, "ljs", "wavs"))
+            rows = []
+            for i, text in enumerate(CLI_TEXTS):
+                save_audio(os.path.join(root, "ljs", "wavs", f"clip{i}.wav"),
+                           tone_clip(1.0 + 0.2 * i, 24000, TRAIN_SEED + i)[0], 24000)
+                rows.append(f"clip{i}|{text}|{text}")
+            with open(os.path.join(root, "ljs", "metadata.csv"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+            common = ["--ljspeech", os.path.join(root, "ljs"), "--tiny", "--device", "cuda",
+                      "--param_dtype", "bfloat16", "--batch", "2", "--lr", "1e-3", "--warmup",
+                      "0", "--log_every", "1", "--cache_dir", os.path.join(root, "cache"),
+                      "--ckpt_dir", os.path.join(root, "ck"), "--ckpt_every", "2",
+                      "--val_frac", "0.2", "--eval_every", "2"]
+            export = os.path.join(root, "export")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            train_cli.main(common + ["--steps", str(CLI_STEPS), "--export", export])
+            torch.cuda.synchronize()
+            first_wall, counts = time.perf_counter() - t0, dict(launch_counts)
+            first = list(messages)
+            messages.clear()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            train_cli.main(common + ["--steps", str(CLI_RESUMED_STEPS), "--resume"])
+            torch.cuda.synchronize()
+            second_wall, resumed = time.perf_counter() - t0, dict(launch_counts)
+            second = list(messages)
+            model = Zonos.from_local(os.path.join(export, "config.json"),
+                                     os.path.join(export, "model.safetensors"))
+            prefix = model.prepare_conditioning(make_cond_dict(text=TEXTS[0]))
+            codes = model.generate(prefix, max_new_tokens=CLI_NEW_TOKENS,
+                                   sampling_params=SamplingParams(ban_eos=True),
+                                   progress_bar=False)
+            check_replayed(tag, model.decode_stats)
+            steps_ok = sorted(os.listdir(os.path.join(root, "ck")))
+    finally:
+        logger.removeHandler(handler)
+    fresh = [m for m in first if "fresh encodes" in m]
+    if counts["snake_conv1d"] <= 0 or any(counts[k] <= 0 for k in TRAIN_KERNELS):
+        fail(f"{tag} the first run launched {({k: v for k, v in counts.items() if v})}: K5 "
+             f"(the data's encode), G1 and N1 must run")
+    if not any(f"prepared {len(CLI_TEXTS)} examples" in m for m in first) or \
+            not any(f"step {CLI_STEPS}  val_loss" in m for m in first):
+        fail(f"{tag} the first run's log lacks the encode or the validation loss: {first}")
+    if resumed["snake_conv1d"] or not any(f"resumed from step {CLI_STEPS}" in m for m in second) \
+            or not any("0 fresh encodes" in m for m in second):
+        fail(f"{tag} the resumed run launched K5 {resumed['snake_conv1d']} times or did not "
+             f"resume at step {CLI_STEPS}: {second}")
+    c = codes[0]
+    if c.shape != (9, CLI_NEW_TOKENS) or c.min() < 0 or c.max() >= 1024:
+        fail(f"{tag} the exported model generated codes of shape {c.shape}")
+    losses = [m for m in first + second if "  loss " in m]
+    print(f"{tag} run 1: {fresh[0] if fresh else ''}; {CLI_STEPS} steps in {first_wall:.1f} s "
+          f"(K5 {counts['snake_conv1d']} launches); run 2 resumed at step {CLI_STEPS}, 0 encodes, "
+          f"to step {CLI_RESUMED_STEPS} in {second_wall:.1f} s; checkpoints {steps_ok}; the "
+          f"export generated {c.shape[1]} frames on the card; losses: "
+          + "; ".join(m.split("  frames")[0] for m in losses) + f" ({card})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
 
@@ -3608,8 +4127,8 @@ def time_layer_tail(gen, B2: int, target_ctas: int | None = None) -> dict:
 def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
     """K1 (``key`` "K1", length 2000) or K2 ("K2", length 256) at batch 1 with
     CFG over a bf16 cache beside the plain version and SDPA, with the f8 and
-    int8 caches and the batch-64 f8 cache (pos 1999 or 255) under
-    ``"more"``."""
+    int8 caches, the f8 cache of a served batch with CFG (K1 batch 4, K2
+    batch 8) and the batch-64 f8 cache (pos 1999 or 255) under ``"more"``."""
     import torch
     import torch.nn.functional as F
 
@@ -3661,7 +4180,8 @@ def time_decode_attention(gen, key: str, counts: dict, errs: dict) -> dict:
         "more": [time_decode_attention_quantized(gen, name, storage, length, counts)
                  for storage in ("f8", "int8")]
                 + [time_decode_attention_quantized(gen, name, "f8", length, counts,
-                                                   B=2 * B64_BATCH, S=S if key == "K1" else 256)],
+                                                   B=2 * batch, S=S if key == "K1" else 256)
+                   for batch in ((4 if key == "K1" else 8), B64_BATCH)],
     }
 
 
@@ -3766,10 +4286,71 @@ def time_fused_sample(gen, B: int, V: int, warps: int | None = None) -> dict:
             **_bound(21.0 * n, 8.0 * n + 8.0 * B * 9)}
 
 
-def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str) -> list[dict]:
-    """``counts`` maps each main path to its launch counts; ``prefill_len`` is
-    the hybrid batch-1 prefill's length (K6's main-path shape)."""
+def time_gemm_train(gen, name: str, M: int, per_step: int) -> dict:
+    """G1 on the flagship weight ``name`` at a training step's ``M`` rows
+    (:func:`time_gemm`), with the autograd route's backward beside it
+    (``gemm_backward``: dX and dW by the plain version's fp32 products)."""
     import torch
+
+    from zonos_tpu_torch.kernels.gemm import gemm_backward
+
+    din, dout = FLAGSHIP_WEIGHTS[name]
+    row = time_gemm(gen, f"{name}, a training step's rows", din, dout, M)
+    x = torch.randn((M, din), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((din, dout), generator=gen, device="cuda") / din ** 0.5).bfloat16()
+    dy = torch.randn((M, dout), generator=gen, device="cuda").bfloat16()
+    return {**row, "backward_ms": device_ms(lambda: gemm_backward(x, w, dy), 3, 7)[0],
+            "backward": "dX and dW: torch.matmul of the bf16 values in fp32, rounded to bf16",
+            "launches_per_train_step": per_step}
+
+
+def time_row_norm_train(gen, rows: int, per_step: int) -> dict:
+    """N1's LayerNorm at a training step's rows (:func:`time_row_norm`), with
+    the autograd route's backward (``norm_backward``: the plain version
+    recomputed and differentiated for x, the scale and the bias)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.row_norm import norm_backward
+
+    d = 2048
+    x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    dy = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+    return {**time_row_norm(gen, rows, d),
+            "backward_ms": device_ms(lambda: norm_backward(x, scale, bias, 1e-5, False, dy))[0],
+            "backward": "the plain LayerNorm recomputed and differentiated (x, scale, bias)",
+            "launches_per_train_step": per_step}
+
+
+def time_ssd_train(gen, L: int, per_step: int) -> dict:
+    """K6 at the hybrid training step's shape (2 rows of L, the flagship
+    widths, no initial state) with the autograd route's backward
+    (``ssd_backward``: the plain chunked formulation recomputed and
+    differentiated for x, dt, A, B, C, D)."""
+    import torch
+
+    from zonos_tpu_torch.kernels.ssd import ssd_backward
+
+    args = ssd_inputs(gen, TRAIN_BATCH, L)[:6]
+    upstream = (torch.randn(args[0].shape, generator=gen, device="cuda"),
+                torch.randn((TRAIN_BATCH, SSM_H, SSM_P, SSM_N), generator=gen, device="cuda"))
+    return {**time_ssd_chunked(gen, TRAIN_BATCH, L),
+            "backward_ms": device_ms(lambda: ssd_backward(args, *upstream,
+                                                          (True,) * 6 + (False,)), 3, 7)[0],
+            "backward": "the plain chunked formulation recomputed and differentiated",
+            "launches_per_train_step": per_step}
+
+
+def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str,
+                  train: dict) -> list[dict]:
+    """``counts`` maps each main path to its launch counts; ``prefill_len`` is
+    the hybrid batch-1 prefill's length (K6's main-path shape); ``train``
+    the training phases' statistics (their rows, lengths and launches a
+    step), whose shapes get rows of their own under ``"more"``."""
+    import torch
+
+    trained = train["transformer"]["launches_per_step"]
 
     out = [time_decode_attention(gen, key, counts, errs) for key in ("K1", "K2")]
     out.append({
@@ -3794,7 +4375,9 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str) ->
         **main_shape,
         "library_ms": None,
         "library_why": "no single PyTorch call computes a chunked (or any) selective scan",
-        "more": [time_ssd_chunked(gen, rows, L) for rows, L in K6_TIMED[1:]],
+        "more": [time_ssd_chunked(gen, rows, L) for rows, L in K6_TIMED[1:]]
+                + [time_ssd_train(gen, train["hybrid"]["L"],
+                                  train["hybrid"]["launches_per_step"]["ssd_chunked"])],
     })
     main_shape = time_fused_state_step(gen, 128, torch.float32)
     out.append({
@@ -3856,7 +4439,9 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str) ->
                  for M in GEMM_TIMED_ROWS for name, (din, dout) in FLAGSHIP_WEIGHTS.items()
                  if (name, M) != ("w2", 2)]
                 + [time_gemm(gen, name, *FLAGSHIP_WEIGHTS[name], M, int8=True)
-                   for M in (2, 142) for name in ("wqkv", "heads")],
+                   for M in (2, 142) for name in ("wqkv", "heads")]
+                + [time_gemm_train(gen, name, train["transformer"]["rows"], trained["gemm"])
+                   for name in ("w1", "w2")],
     })
     out.append({
         "name": "gemm_norm", "id": "G1+N1", "route": "cuda",
@@ -3889,7 +4474,8 @@ def phase_timings(gen, counts: dict, errs: dict, prefill_len: int, card: str) ->
         **_launches("row_norm", counts),
         "max_abs_err": errs["row_norm"],
         **time_row_norm(gen, 2),
-        "more": [time_row_norm(gen, rows) for rows in (128, 142, 64 * 142)],
+        "more": [time_row_norm(gen, rows) for rows in (128, 142, 64 * 142)]
+                + [time_row_norm_train(gen, train["transformer"]["rows"], trained["row_norm"])],
     })
     return out
 
@@ -4410,6 +4996,7 @@ def main(argv: list[str]) -> int:
     errs["row_norm"] = check_row_norm(gen)
     errs["gemm_norm"] = check_gemm_fold(gen)
     errs["int4_matmul_norm"] = check_int4_fold(gen)
+    check_autograd(gen)
 
     from zonos_tpu_torch import DACAutoencoder
 
@@ -4489,8 +5076,19 @@ def main(argv: list[str]) -> int:
     print(f"[time] hybrid int8 path done {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
-    print(json.dumps({"graph": graph, "card": card}), flush=True)
-    kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1, card=card)
+    train = {}
+    model = load_model("transformer")  # a fresh seed-0 model
+    counts["train transformer"], train["transformer"] = phase_train_transformer(card, model)
+    counts["train lora"], train["lora"] = phase_train_lora(card, model)
+    del model
+    torch.cuda.empty_cache()
+    print(f"[time] train transformer and lora done {time.perf_counter() - t0:.1f} s", flush=True)
+    counts["train hybrid"], train["hybrid"] = phase_train_hybrid(card)
+    counts["train cli"] = phase_train_cli(card)
+    print(f"[time] train hybrid and cli done {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"graph": graph, "train": train, "card": card}), flush=True)
+    kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1, card=card,
+                            train=train)
     for entry in kernels:  # one JSON line per kernel, each with the card it ran on
         print(json.dumps({**entry, "card": card}), flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device check", flush=True)

@@ -182,6 +182,8 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         import zonos_tpu_torch.apps.batch_cli, zonos_tpu_torch.apps.srt
         import zonos_tpu_torch.apps.sampler_explain, zonos_tpu_torch.kernels.gemm
         import zonos_tpu_torch.kernels.row_norm, zonos_tpu_torch.text.metrics
+        import zonos_tpu_torch.parallel, zonos_tpu_torch.data, zonos_tpu_torch.apps.train_cli
+        import zonos_tpu_torch.utils.train_state
         from zonos_tpu_torch.audio.native import resample_native
         from zonos_tpu_torch.text.metrics import phoneme_error_rate
         assert phoneme_error_rate("həloʊ", "həloʊ") == 0.0

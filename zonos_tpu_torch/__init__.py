@@ -21,6 +21,10 @@ or, with the reference checkpoints under ``$ZONOS_TPU_MODELS_DIR`` (default
     speaker = model.make_speaker_embedding(wav, sr)
     prefix = model.prepare_conditioning(make_cond_dict(text="Hello!", speaker=speaker))
     model.autoencoder.save_codes(["out.wav"], model.generate(prefix))
+
+Training on one device: ``zonos_tpu_torch.parallel`` (the loss, the step
+functions, the optimizers, LoRA), ``zonos_tpu_torch.data`` (datasets, the
+DAC-code cache, the loader) and ``python -m zonos_tpu_torch.apps.train_cli``.
 """
 
 import torch as _torch

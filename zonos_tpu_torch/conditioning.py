@@ -178,11 +178,26 @@ def conditioner_forward(params: dict, spec: ConditionerSpec, value) -> torch.Ten
 
 def prefix_conditioner_forward(params: dict, specs: tuple[ConditionerSpec, ...],
                                config: PrefixConditionerConfig, inputs: dict,
-                               eps: float = 1e-5) -> torch.Tensor:
+                               eps: float = 1e-5, uncond_drop: dict | None = None) -> torch.Tensor:
     """Concatenate all conditioner outputs on the sequence axis ->
     [B, cond_len, d].  ``inputs[name]`` is an array or None (=> the learned
-    uncond vector)."""
-    conds = [conditioner_forward(params[s.name], s, inputs.get(s.name)) for s in specs]
+    uncond vector).
+
+    ``uncond_drop[name]`` (training only) is a per-row bool mask ``[B]``: rows
+    where it is True take the conditioner's learned uncond vector in place of
+    its output, classifier-free-guidance dropout
+    (zonos_tpu/conditioning.py:161-195).  Only conditioners with an uncond
+    vector may be dropped (they emit one sequence position)."""
+    conds = []
+    for s in specs:
+        c = conditioner_forward(params[s.name], s, inputs.get(s.name))
+        if uncond_drop is not None and s.name in uncond_drop:
+            if not s.uncond:
+                raise ValueError(f"conditioner {s.name!r} has no uncond vector to drop to")
+            u = params[s.name]["uncond_vector"][None, None, :].to(c.dtype)
+            mask = torch.as_tensor(uncond_drop[s.name], device=c.device).reshape(-1, 1, 1)
+            c = torch.where(mask, u, c)
+        conds.append(c)
     max_b = max(c.shape[0] for c in conds)
     dtype = functools.reduce(torch.promote_types, [c.dtype for c in conds])
     conds = [c.expand(max_b, *c.shape[1:]).to(dtype) for c in conds]

@@ -8,7 +8,16 @@ kernel is launched, never on the CPU path.  A CUDA graph's replay runs no
 wrapper: the graph's launches are taken at capture (:func:`launches_since`,
 the capture's own count undone) and added once per replay
 (:func:`add_launches`).
+
+Gradients: a wrapper goes through a ``torch.autograd.Function`` exactly
+when :func:`grad_required` says so (grad mode on, an input requiring grad),
+so that a training forward reaching G1, N1 or K6 carries its gradient; any
+other call launches as it always did.  No backward is a kernel of its own:
+each is the plain version's own gradient (``kernels/gemm.py``,
+``row_norm.py``, ``ssd.py``).
 """
+
+import torch
 
 launch_counts: dict[str, int] = {
     "flash_decode_attention": 0,
@@ -30,6 +39,12 @@ launch_counts: dict[str, int] = {
     "int4_matmul_norm": 0,
     "row_norm": 0,
 }
+
+
+def grad_required(*tensors) -> bool:
+    """Whether a wrapper's launch must carry a gradient: grad mode is on and
+    one of ``tensors`` (None allowed) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def reset_launch_counts() -> None:

@@ -22,6 +22,14 @@ norm=)``): the consumers compute each row's statistics and normalise x as
 they stage it, by N1's own code (``csrc/row_stats.cuh``), so the result is
 the bits of N1 followed by G1 with no launch for the norm.
 :func:`folds` says per row count and norm which of the two routes runs.
+
+Under autograd (``grad_required``: a training forward) a bf16 product goes
+through :class:`_GemmGrad`: G1 forward, and as backward the plain version's
+own gradient, ``dX = dY Wᵀ`` and ``dW = Xᵀ dY`` as library products of the
+bf16 values in fp32 (exact products, fp32 sums) rounded once to bf16, the
+bits ``torch.autograd`` gives through :func:`gemm_plain`.  An int8 weight or
+a folded norm under grad raises: quantized weights are not trained, and
+``ops/quant.py`` ``norm_matmul`` runs a norm under grad as N1, then G1.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
-from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels import grad_required, launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 from zonos_tpu_torch.kernels.row_norm import DTYPES as NORM_X_DTYPES  # bf16, fp32
 from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain, params_aligned
@@ -202,7 +210,45 @@ def gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None = None,
     tiles and cluster sizes against the plain version and each other); CPU
     tensors take the plain version.  With ``norm``, the product of
     ``norm(x)`` rounded to bf16 (x bf16 or fp32), the norm folded into the
-    launch (whatever :func:`folds` says: that is the op layer's choice)."""
+    launch (whatever :func:`folds` says: that is the op layer's choice).
+    Under autograd (:func:`grad_required`) the product carries its gradient
+    (:class:`_GemmGrad`)."""
+    norm_params = () if norm is None else (norm.scale, norm.bias)
+    if grad_required(x, w, s, *norm_params):
+        if s is not None or norm is not None:
+            raise ValueError("G1 carries a gradient only for a bf16 weight with no folded norm: "
+                             "quantized weights are not trained, and a norm under grad runs "
+                             "as N1 before the product")
+        return _GemmGrad.apply(x, w, plan)
+    return _gemm(x, w, s, plan, norm)
+
+
+class _GemmGrad(torch.autograd.Function):
+    """G1's product with the plain version's gradient (module note)."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan):
+        ctx.save_for_backward(x, w)
+        return _gemm(x, w, None, plan, None)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*gemm_backward(*ctx.saved_tensors, dy, ctx.needs_input_grad[:2]), None)
+
+
+def gemm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                  wanted: tuple[bool, bool] = (True, True)) -> tuple:
+    """``(dX, dW)`` of ``y = x @ w`` for the upstream ``dy`` (None where not
+    ``wanted``): ``dY Wᵀ`` and ``Xᵀ dY`` by :func:`gemm_plain`, the
+    gradient ``torch.autograd`` gives through it."""
+    return (gemm_plain(dy, w.t()).to(x.dtype) if wanted[0] else None,
+            gemm_plain(x.t(), dy).to(w.dtype) if wanted[1] else None)
+
+
+def _gemm(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None, plan: GemmPlan | None,
+          norm: Norm | None) -> torch.Tensor:
+    """The forward product: G1's launch on CUDA tensors, the plain version
+    on CPU ones."""
     if not x.is_cuda:
         return gemm_plain(x if norm is None else norm_plain(x, norm).to(torch.bfloat16), w, s)
     M, K, N = _check(x, w, s, norm)

@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels import grad_required, launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 from zonos_tpu_torch.kernels.row_norm import DTYPES as NORM_X_DTYPES  # bf16, fp32
 from zonos_tpu_torch.kernels.row_norm import Norm, norm_plain, params_aligned
@@ -181,7 +181,10 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     """K8 on CUDA tensors; CPU tensors take the plain version.  ``n_split``
     overrides the default split of the packed rows (for a sweep).  With
     ``norm``, the product of ``norm(x)`` rounded to bf16 (x bf16 or fp32),
-    the norm folded into the launch."""
+    the norm folded into the launch.  Quantized weights are not trained: a
+    call under autograd (``grad_required``) raises."""
+    if grad_required(x, *(() if norm is None else (norm.scale, norm.bias))):
+        raise ValueError("K8 carries no gradient: int4 weights are not trained")
     if not x.is_cuda:
         return int4_matmul_plain(x if norm is None else norm_plain(x, norm).to(torch.bfloat16),
                                  q, s)

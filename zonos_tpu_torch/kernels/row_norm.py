@@ -8,6 +8,11 @@ row, the order of ``csrc/row_stats.cuh``), so a row's output is the same
 bits alone and in any batch.  Bound by reading and writing each row once.
 G1 and K8 run the same header when a norm is folded into them
 (:class:`Norm`), so a folded norm gives N1's bits.
+
+Under autograd (``grad_required``: a training forward) N1 runs as the
+forward of :class:`_NormGrad`, whose backward recomputes the plain version on
+the saved input and differentiates it: the gradients of x, the scale and the
+bias are the bits ``torch.autograd`` gives through the plain version.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels import grad_required, launch_counts
 from zonos_tpu_torch.kernels._build import check, library
 
 ALIGN = 16  # d must be a multiple of it, as the products' widths (the kernel needs 8)
@@ -124,17 +129,57 @@ def _launch(x, scale, bias, eps: float, rms: bool) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+class _NormGrad(torch.autograd.Function):
+    """N1 forward; the plain version's gradient (module note)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, rms):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.norm = (eps, rms)
+        return _norm(x, scale, bias, eps, rms)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*norm_backward(*ctx.saved_tensors, *ctx.norm, dy, ctx.needs_input_grad[:3]),
+                None, None)
+
+
+def norm_backward(x, scale, bias, eps: float, rms: bool, dy: torch.Tensor,
+                  wanted: tuple[bool, bool, bool] = (True, True, True)) -> tuple:
+    """The gradients of x, the scale and the bias (None where not ``wanted``)
+    for the upstream ``dy``: the plain version recomputed on ``x`` and
+    differentiated."""
+    with torch.enable_grad():
+        x, scale, bias = (None if t is None else t.detach().requires_grad_(need)
+                          for t, need in zip((x, scale, bias), wanted))
+        y = norm_plain(x, Norm(scale, bias, eps, rms))
+        grads = iter(torch.autograd.grad(
+            y, [t for t, need in zip((x, scale, bias), wanted) if need], dy))
+    return tuple(next(grads) if need else None for need in wanted)
+
+
+def _norm(x, scale, bias, eps: float, rms: bool) -> torch.Tensor:
+    """N1's launch on CUDA tensors, the plain version on CPU ones."""
+    if not x.is_cuda:
+        return norm_plain(x, Norm(scale, bias, eps, rms))
+    return _launch(x, scale, bias, eps, rms)
+
+
+def _route(x, scale, bias, eps: float, rms: bool) -> torch.Tensor:
+    if grad_required(x, scale, bias):
+        return _NormGrad.apply(x, scale, bias, eps, rms)
+    return _norm(x, scale, bias, eps, rms)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """N1's LayerNorm on CUDA tensors; CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return layer_norm_plain(x, scale, bias, eps)
-    return _launch(x, scale, bias, eps, rms=False)
+    """N1's LayerNorm on CUDA tensors; CPU tensors take the plain version.
+    Under autograd it carries its gradient (:class:`_NormGrad`)."""
+    return _route(x, scale, bias, eps, rms=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
              bias: torch.Tensor | None = None) -> torch.Tensor:
-    """N1's RMSNorm on CUDA tensors; CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return rms_norm_plain(x, scale, eps, bias)
-    return _launch(x, scale, bias, eps, rms=True)
+    """N1's RMSNorm on CUDA tensors; CPU tensors take the plain version.
+    Under autograd it carries its gradient (:class:`_NormGrad`)."""
+    return _route(x, scale, bias, eps, rms=True)

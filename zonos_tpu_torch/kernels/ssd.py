@@ -10,6 +10,13 @@ Bound and design: see the source note.  A CTA per (row, head) loops
 over the chunks with the fp32 ``[P, N]`` state in its warps' tensor-core
 accumulators; the CTAs of one (row, group) form a cluster that computes
 C.B^T once a chunk.  :func:`ssd_plan` chooses the launch.
+
+Under autograd (``grad_required``: the hybrid's training forward) K6 runs as
+the forward of :class:`_SsdGrad`, whose backward recomputes the plain chunked
+formulation on the saved inputs and differentiates it with respect to x, dt,
+A, B, C, D (and an initial state): the gradients are the bits
+``torch.autograd`` gives through :func:`ssd_chunked_plain`.  The JAX package's
+``ssd_chunked_pallas`` has no VJP at all.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from zonos_tpu_torch.kernels import launch_counts
+from zonos_tpu_torch.kernels import grad_required, launch_counts
 from zonos_tpu_torch.kernels._build import check, library, sm_count
 
 CHUNK = 64  # compiled into the kernel
@@ -152,7 +159,42 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6 for CUDA tensors (any ngroups, any batch) by :func:`ssd_plan`; CPU
     tensors take the plain version.  Shapes and dtypes as
-    :func:`ssd_chunked_plain`."""
+    :func:`ssd_chunked_plain`.  Under autograd both outputs carry their
+    gradients (:class:`_SsdGrad`)."""
+    if grad_required(x, dt, A, Bm, Cm, D, init_state):
+        return _SsdGrad.apply(x, dt, A, Bm, Cm, D, init_state)
+    return _ssd(x, dt, A, Bm, Cm, D, init_state)
+
+
+class _SsdGrad(torch.autograd.Function):
+    """K6 forward; the plain formulation's gradient (module note).  An unused
+    output's gradient arrives as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, init_state):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, init_state)
+        return _ssd(x, dt, A, Bm, Cm, D, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        return ssd_backward(ctx.saved_tensors, dy, dfinal, ctx.needs_input_grad)
+
+
+def ssd_backward(inputs, dy: torch.Tensor, dfinal: torch.Tensor, wanted=(True,) * 7) -> tuple:
+    """The gradients of ``inputs`` ``(x, dt, A, B, C, D, init_state)`` (None
+    where not ``wanted``) for the upstream gradients of y and of the final
+    state: :func:`ssd_chunked_plain` recomputed and differentiated."""
+    with torch.enable_grad():
+        args = [None if t is None else t.detach().requires_grad_(need)
+                for t, need in zip(inputs, wanted)]
+        outs = ssd_chunked_plain(*args)
+        grads = iter(torch.autograd.grad(outs, [t for t, need in zip(args, wanted) if need],
+                                         (dy, dfinal)))
+    return tuple(next(grads) if need else None for need in wanted)
+
+
+def _ssd(x, dt, A, Bm, Cm, D, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's launch on CUDA tensors, the plain version on CPU ones."""
     if not x.is_cuda:
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, init_state)
     tensors = [x, dt, A, Bm, Cm, D] + ([init_state] if init_state is not None else [])

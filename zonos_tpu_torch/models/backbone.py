@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from zonos_tpu_torch.config import BackboneConfig
 from zonos_tpu_torch.kernels.layer_tail import fused_layer_tail
@@ -170,9 +171,10 @@ def _fused_tail_args(lp: dict, y: torch.Tensor, x: torch.Tensor, prefill: bool) 
     return args if layer_tail_takes(*args) else None
 
 
-def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin,
-           cache: KVCache, pos: int | StepPosition, prefill: bool) -> torch.Tensor:
-    lp = _layer_params(params, li)
+def _layer(cfg: BackboneConfig, lp: dict, li: int, x: torch.Tensor, cos, sin,
+           cache: KVCache | None, pos: int | StepPosition, prefill: bool) -> torch.Tensor:
+    """Layer ``li`` with its parameters ``lp``; a prefill without a cache
+    (``transformer_forward``) writes no rows."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
     # each pre-norm feeds one product: norm_matmul folds it into that product's kernel
@@ -183,7 +185,8 @@ def _layer(cfg: BackboneConfig, params: dict, li: int, x: torch.Tensor, cos, sin
     v = v.reshape(B, S, Hkv, hd)
     if prefill:
         y = fresh_prefill_attention(q, k, v)
-        cache.write(li, pos, k, v)
+        if cache is not None:
+            cache.write(li, pos, k, v)
     elif cache.held_out:
         scales = (None, None) if cache.k_scale is None else (cache.k_scale[li], cache.v_scale[li])
         y = decode_attention_held_out(q, cache.k[li], cache.v[li], k, v, pos.pos, *scales,
@@ -215,7 +218,27 @@ def _run_layers(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: KVCac
     cos_t, sin_t = cached_rope_table(cfg.head_dim, cfg.rope_base, x.device)
     cos, sin = rope_at(cos_t, sin_t, pos, x.shape[1])
     for li in range(cfg.n_layer):
-        x = _layer(cfg, params, li, x, cos, sin, cache, pos, prefill)
+        x = _layer(cfg, _layer_params(params, li), li, x, cos, sin, cache, pos, prefill)
+    return layer_norm(x, params["normf_scale"], params["normf_bias"], cfg.norm_epsilon)
+
+
+def transformer_forward(cfg: BackboneConfig, params: dict, x: torch.Tensor,
+                        remat: bool = False) -> torch.Tensor:
+    """The cache-free full-sequence forward of ``x [B, S, d]`` from position 0
+    (training and scoring; zonos_tpu/models/backbone.py:359-391): the
+    prefill's layers, writing no cache.  ``remat`` recomputes each layer in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant) instead of
+    keeping its activations.  Each stacked leaf is unbound once, so its
+    gradient is stacked once rather than summed layer by layer."""
+    cos_t, sin_t = cached_rope_table(cfg.head_dim, cfg.rope_base, x.device)
+    cos, sin = rope_at(cos_t, sin_t, 0, x.shape[1])
+    layers = {name: ({k: t.unbind(0) for k, t in w.items()} if isinstance(w, dict) else w.unbind(0))
+              for name, w in params["layers"].items()}
+    for li in range(cfg.n_layer):
+        lp = {name: ({k: t[li] for k, t in w.items()} if isinstance(w, dict) else w[li])
+              for name, w in layers.items()}
+        args = (cfg, lp, li, x, cos, sin, None, 0, True)
+        x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     return layer_norm(x, params["normf_scale"], params["normf_bias"], cfg.norm_epsilon)
 
 

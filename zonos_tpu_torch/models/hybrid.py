@@ -217,7 +217,8 @@ def _norm_of(cfg: BackboneConfig, scale, bias) -> Norm:
 def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
                  dtype: torch.dtype, st: dict, prefill: bool) -> torch.Tensor:
     """The residual x [B, S, d] -> [B, S, d] in the compute dtype ``dtype``,
-    through ``norm`` (folded into in_proj); rewrites ``st``."""
+    through ``norm`` (folded into in_proj); rewrites ``st`` (a prefill with
+    no ``st`` keeps no state)."""
     _, d_inner, H, G, N, _, conv_dim = _dims(cfg)
     P = cfg.ssm_headdim
     B, S, _ = x.shape
@@ -229,7 +230,8 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
     else:
         y1, conv_state = causal_conv1d_step(xBC[:, 0], st["conv"].to(xBC.dtype), w, b)
         xBC = y1[:, None, :]
-    st["conv"].copy_(conv_state)
+    if st is not None:
+        st["conv"].copy_(conv_state)
     xBC = F.silu(xBC)
 
     xs = xBC[..., :d_inner].reshape(B, S, H, P).float().contiguous()
@@ -245,7 +247,8 @@ def _mamba_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
         # prefill starts from the zero state, as the conv above does: the JAX
         # package passes its fresh cache's zeros, which K6 reads as no state
         y, final = ssd_chunked(xs, dt.contiguous(), A, Bm, Cm, D)
-        store_ssm(st, final)
+        if st is not None:
+            store_ssm(st, final)
     else:
         state = st["ssm_q4"] if "ssm_q4" in st else st["ssm"]
         y, _ = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, state,
@@ -273,8 +276,9 @@ def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
         cos, sin = rope_at(cos_t, sin_t, pos, S)
         q = torch.cat([apply_rope_neox(q[..., :rot], cos, sin), q[..., rot:]], dim=-1)
         k = torch.cat([apply_rope_neox(k[..., :rot], cos, sin), k[..., rot:]], dim=-1)
-    write_rows(st["k"], pos, k.transpose(1, 2))
-    write_rows(st["v"], pos, v.transpose(1, 2))
+    if st is not None:
+        write_rows(st["k"], pos, k.transpose(1, 2))
+        write_rows(st["v"], pos, v.transpose(1, 2))
     if prefill:
         y = fresh_prefill_attention(q, k, v)
     else:
@@ -298,15 +302,24 @@ def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict,
     return x
 
 
-def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict],
+def _run(cfg: BackboneConfig, params: dict, x: torch.Tensor, cache: list[dict] | None,
          pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     compute_dtype = x.dtype
     if cfg.residual_in_fp32:
         x = x.float()
-    for i, (lp, st) in enumerate(zip(params["layers_list"], cache)):
+    layers = params["layers_list"]
+    for i, (lp, st) in enumerate(zip(layers, cache or [None] * len(layers))):
         x = _block(cfg, i, lp, x, st, pos, prefill, compute_dtype)
     normf = _norm_of(cfg, params["normf_scale"], params.get("normf_bias"))
     return apply_norm(x, normf).to(compute_dtype)
+
+
+def hybrid_forward(cfg: BackboneConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The state-free full-sequence forward of ``x [B, S, d]`` (training and
+    scoring): the prefill's blocks with no cache, so nothing is written in
+    place under autograd (JAX prefills into a throwaway cache,
+    zonos_tpu/parallel/train.py:26-32)."""
+    return _run(cfg, params, x, None, 0, prefill=True)
 
 
 def hybrid_prefill(cfg: BackboneConfig, params: dict, x: torch.Tensor,

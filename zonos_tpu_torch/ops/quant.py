@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from zonos_tpu_torch.kernels import grad_required
 from zonos_tpu_torch.kernels.gemm import fold_takes as gemm_fold_takes
 from zonos_tpu_torch.kernels.gemm import folds as gemm_folds
 from zonos_tpu_torch.kernels.gemm import gemm
@@ -66,11 +67,13 @@ def norm_matmul(x: torch.Tensor, norm: Norm, w, dtype: torch.dtype | None = None
     int4 one), one launch normalises x as it stages it, by N1's code: the
     same bits as the composition, with no launch for the norm.  Otherwise,
     and on the CPU, the composition itself: N1 (or the plain norm), the
-    cast, then :func:`matmul_w`."""
+    cast, then :func:`matmul_w`.  Under autograd (a training forward, whose
+    rows are far more than a fold takes) the composition runs too, N1 and
+    G1 each carrying its gradient (:func:`fold_allowed`)."""
     dtype = dtype or x.dtype
     din = x.shape[-1]
     rows = x.numel() // din
-    if x.is_cuda and dtype == torch.bfloat16 and rows:
+    if x.is_cuda and dtype == torch.bfloat16 and rows and fold_allowed(x, norm, w):
         if isinstance(w, dict) and "q4" in w:
             q, s = w["q4"], w["s4"]
             if int4_fold_takes(rows, din, q.shape[-1], din // s.shape[-2], x.dtype, q.dtype,
@@ -85,6 +88,14 @@ def norm_matmul(x: torch.Tensor, norm: Norm, w, dtype: torch.dtype | None = None
                     and gemm_folds(rows, norm)):
                 return gemm(_rows(x, rows), q, s, norm=norm).reshape(*x.shape[:-1], N)
     return matmul_w(apply_norm(x, norm).to(dtype), w)
+
+
+def fold_allowed(x: torch.Tensor, norm: Norm, w) -> bool:
+    """Whether :func:`norm_matmul` may fold ``norm`` into the product's
+    launch: not under autograd (``grad_required`` of x, the norm's
+    parameters or the weight), where the folded launches have no gradient."""
+    weights = tuple(w.values()) if isinstance(w, dict) else (w,)
+    return not grad_required(x, norm.scale, norm.bias, *weights)
 
 
 def int4_rows(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

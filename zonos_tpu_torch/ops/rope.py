@@ -23,7 +23,12 @@ def rope_table(head_dim: int, max_pos: int = MAX_ROPE_POSITIONS, base: float = 1
 
 @functools.lru_cache(maxsize=8)
 def cached_rope_table(head_dim: int, base: float, device: torch.device):
-    return rope_table(head_dim, base=base, device=device)
+    """:func:`rope_table`, built once a (width, base, device) and shared.  It
+    is built as ordinary tensors even inside ``torch.inference_mode`` (a
+    generate), so that a training forward later in the process may save it
+    for its backward."""
+    with torch.inference_mode(False):
+        return rope_table(head_dim, base=base, device=device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
