@@ -112,6 +112,15 @@ Phases, each of which fails the run (non-zero exit) on error:
      4 steps with validation, checkpoints and an export, K5 encoding the
      data; a resumed run encodes nothing and starts at step 4; the export
      loads through ``Zonos.from_local`` and generates 86 frames.
+   - meshes (after training): mesh 1x1: the flagship transformer at bf16
+     and int8 sharded on a world of one process (NCCL), batch 2, 230 tokens
+     with EOS banned: codes and launches equal to the unsharded model's,
+     CUDA graphs; mesh 1x2 and mesh 2x1: the same generate at bf16, int8 and
+     int4 in two processes of this script (``--mesh-rank``) on the one card
+     over gloo: tensor parallel (8 layers) with the prefill's CFG logits
+     held to the fp32 logits of the same weights, K4 never, eager steps;
+     data parallel (26 layers), each row's codes the unsharded model's
+     graph-replayed codes bit for bit.
    Each path is followed by a ``[graph …]`` phase: the private eager decode
    loop and the CUDA graphs on one batch-1 generate (470 new tokens, through
    all three bands of cache lengths; 130 on the hybrid int4), same seed, EOS
@@ -212,6 +221,18 @@ GRAPH_NEW_TOKENS = 470
 ENCODE_SECONDS, ENCODE_RATE, ENCODE_FRAMES = 3, 24000, 259
 PREFIX_NEW_TOKENS = 130  # [prefix ...]: the generate after the 259-frame audio prefix
 STREAM_BATCH = 4  # [stream transformer]: stream_generate_batch's rows
+# the [mesh ...] phases: batch 2 (4 CFG rows) after a seeded 54-row prefix, EOS banned: 230
+# steps take the cache past 256 rows (K2, then K1)
+MESH_BATCH, MESH_COND_LEN, MESH_NEW_TOKENS, MESH_SEED = 2, 54, 230, 99
+MESH_MODES = ("bf16", "int8", "int4")
+MESH_TIMEOUT_S = 300
+# [mesh 1x2] at full depth took 113-130 s on an H100 80GB HBM3 at 700 W (its eager steps under
+# gloo ~155 ms each), over the 90 s the phase may take: its model is cut to 8 of the 26 layers
+MESH_TP_LAYERS = 8
+# how much further from the fp32 logits the tensor-parallel ones may be than the unsharded bf16
+# model's (the second rounding of a row-parallel product's partial sums, nothing more): at 8
+# layers the ratio of their largest deviations was 0.90-1.14 (PERF.md, the meshes); 1.5x of it
+MESH_TP_NOISE = 1.5
 # [main hybrid int8]: batch 8 (16 CFG rows), each SSM-state storage under the CUDA graphs
 HYBRID_INT8_BATCH, HYBRID_INT8_NEW_TOKENS = 8, 130
 # (its cache stays within 256 rows: K2, not K1)
@@ -3727,6 +3748,316 @@ def phase_train_cli(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, meshes: the distributed part on one card
+# ---------------------------------------------------------------------------
+
+
+def mesh_inputs(model, batch: int = MESH_BATCH):
+    """A seeded ``[2B, MESH_COND_LEN, d]`` prefix (the same on every rank) and
+    the generate's arguments: EOS banned, so every step runs and the cache
+    passes 256 rows (K2, then K1)."""
+    import torch
+
+    from zonos_tpu_torch.ops.sampling import SamplingParams
+
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    d = model.config.backbone.d_model
+    prefix = torch.randn((2 * batch, MESH_COND_LEN, d), generator=gen, device="cuda")
+    kw = dict(max_new_tokens=MESH_NEW_TOKENS, batch_size=batch, seed=[5 + i for i in range(batch)],
+              sampling_params=SamplingParams(ban_eos=True), progress_bar=False)
+    return prefix.to(model.compute_dtype), kw
+
+
+def mesh_model(mode: str, n_layer: int | None = None):
+    """The full-width flagship transformer, random bf16 weights from seed 0,
+    quantized to ``mode`` ("bf16", "int8" or "int4"); ``n_layer``: its
+    depth cut to that many layers."""
+    import copy
+
+    from zonos_tpu_torch import Zonos, ZonosConfig
+    from zonos_tpu_torch.config import TRANSFORMER_CONFIG_DICT
+
+    d = copy.deepcopy(TRANSFORMER_CONFIG_DICT)
+    if n_layer is not None:
+        d["backbone"]["n_layer"] = n_layer
+    model = Zonos(ZonosConfig.from_dict(d), seed=0)
+    if mode != "bf16":
+        getattr(model, f"quantize_{mode}")()
+    return model
+
+
+def _counted_generate(model, prefix, kw) -> tuple[list, dict, float, dict]:
+    """``model.generate`` with the launch counts zeroed just before and read
+    just after: (codes, counts, wall s, decode stats)."""
+    import torch
+
+    from zonos_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    codes = model.generate(prefix, **kw)
+    torch.cuda.synchronize()
+    return codes, dict(launch_counts), time.perf_counter() - t, dict(model.decode_stats)
+
+
+def _same_codes(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(x.shape == y.shape and np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _sum_counts(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_mesh_1x1(card: str) -> dict:
+    """``[mesh 1x1]``: in this process, a world of one on NCCL; the flagship
+    transformer at bf16 and int8, ``Zonos.shard(make_mesh(1, 1))``: codes
+    equal to the unsharded model's bit for bit, the same launches kernel by
+    kernel, the decode as CUDA-graph replays."""
+    import torch
+    import torch.distributed as dist
+
+    from zonos_tpu_torch.parallel import make_mesh, mesh_shape
+
+    tag = "[mesh 1x1]"
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, "cuda:0")
+    if dist.get_backend() != "nccl" or mesh_shape(mesh) != {"data": 1, "model": 1}:
+        fail(f"{tag} a world of one on {dist.get_backend()}, mesh {mesh_shape(mesh)}")
+    runs = []
+    for mode in ("bf16", "int8"):
+        model = mesh_model(mode)
+        prefix, kw = mesh_inputs(model)
+        warm = _counted_generate(model, prefix, kw)[0]  # the process's first generate: not timed
+        ref, ref_counts, ref_s, _ = _counted_generate(model, prefix, kw)
+        if not _same_codes(warm, ref):
+            fail(f"{tag} {mode}: two unsharded generates with one seed differ")
+        model.shard(mesh)
+        codes, counts, dt, stats = _counted_generate(model, prefix, kw)
+        check_replayed(f"{tag} {mode}", stats)
+        if not _same_codes(codes, ref):
+            fail(f"{tag} {mode}: the 1x1 mesh's codes differ from the unsharded model's")
+        if {k: v for k, v in counts.items() if v} != {k: v for k, v in ref_counts.items() if v}:
+            fail(f"{tag} {mode}: launches {counts} on the mesh, {ref_counts} without it")
+        if stats["mesh"] != {"data": 1, "model": 1} or stats["eager"] is not None:
+            fail(f"{tag} {mode}: decode stats {stats}")
+        runs.append(counts)
+        print(f"{tag} {mode}: batch {MESH_BATCH}, {stats['steps']} steps; codes and launches "
+              f"equal to the unsharded model's ({ {k: v for k, v in counts.items() if v} }); "
+              f"{stats['graphs']} CUDA graphs; {dt * 1e3 / stats['steps']:.2f} ms/step on the "
+              f"mesh, {ref_s * 1e3 / stats['steps']:.2f} without ({card})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"{tag} done in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return _sum_counts(*runs)
+
+
+def _widened(tree):
+    """Every floating leaf in fp32 (an int8 or int4 weight's integers kept):
+    the same weights, computed by the plain versions in fp32."""
+    if isinstance(tree, dict):
+        return {k: _widened(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widened(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def logit_deviations(got, ref, exact) -> dict:
+    """The tensor-parallel CFG logits ``got`` against the unsharded bf16
+    model's ``ref`` and against ``exact``, the logits of the same weights in
+    fp32: the largest deviation of each pair and the share of entries
+    outside JAX's bound (rtol 0.1, atol 0.15 of the second)."""
+    out = {}
+    for name, a, b in (("tp_exact", got, exact), ("ref_exact", ref, exact), ("tp_ref", got, ref)):
+        d = (a - b).abs()
+        out[name] = float(d.max())
+        out[name + "_outside"] = float((d > 0.15 + 0.1 * b.abs()).float().mean())
+    return out
+
+
+def mesh_rank(rank: int, shape: str, workdir: str) -> int:
+    """One of the two processes of ``[mesh 1x2]`` or ``[mesh 2x1]`` (gloo,
+    both on cuda:0): runs the flagship at bf16, int8 and int4 on the mesh and
+    writes what it measured to ``workdir/rank<r>.json``; an error is written
+    there too, with its traceback (which names the collective that failed)."""
+    import traceback
+
+    out: dict = {"modes": {}}
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from zonos_tpu_torch.kernels import load_all
+        from zonos_tpu_torch.models.backbone import KVCache, transformer_prefill
+        from zonos_tpu_torch.models.tts import apply_heads, cfg_blend
+        from zonos_tpu_torch.parallel import make_mesh
+        from zonos_tpu_torch.ops.tp import axis_group, model_axis
+
+        n_data, n_model = (int(n) for n in shape.split("x"))
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                                world_size=2)
+        mesh = make_mesh(n_data, n_model, "cuda:0")
+        load_all(0)  # the libraries the parent built
+        for mode in MESH_MODES:
+            model = mesh_model(mode, MESH_TP_LAYERS if n_model > 1 else None)
+            prefix, kw = mesh_inputs(model)
+            res: dict = {"layers": model.config.backbone.n_layer}
+            if n_model > 1:  # the prefill's CFG logits: fp32, unsharded bf16, sharded
+                def logits(params, x):
+                    B = kw["batch_size"]
+                    cache = KVCache.create(model.config.backbone, 2 * B, MESH_COND_LEN + 8,
+                                           x.dtype, "cuda")
+                    hidden, _ = transformer_prefill(model.config.backbone, params["backbone"],
+                                                    x, cache)
+                    return cfg_blend(apply_heads(params, model.config, hidden[:, -1]), 2.0)
+
+                with torch.inference_mode():
+                    exact = logits(_widened(model.params), prefix.float())
+                    ref = logits(model.params, prefix)
+                model.shard(mesh)
+                with torch.inference_mode(), model_axis(axis_group(mesh, "model")):
+                    got = logits(model.params, prefix)
+                res.update(logit_deviations(got, ref, exact))
+            else:  # the unsharded model's graph-replayed codes, then the mesh's
+                ref, _, _, stats = _counted_generate(model, prefix, kw)
+                res["ref_graphs"] = stats["graphs"]
+                model.shard(mesh)
+            codes, counts, dt, stats = _counted_generate(model, prefix, kw)
+            res.update(counts=counts, wall_s=dt, stats=stats,
+                       codes_ok=all(c.shape[0] == 9 and c.min() >= 0 and c.max() < 1024
+                                    for c in codes))
+            if n_model == 1:
+                res["equal"] = _same_codes(codes, ref)
+            out["modes"][mode] = res
+            del model
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 — written for the parent, which fails the phase
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_mesh_pair(card: str, shape: str) -> dict:
+    """``[mesh 1x2]`` / ``[mesh 2x1]``: two processes on the one card over
+    gloo (NCCL takes no two ranks on one device), spawned after the build so
+    that they load its libraries.  1x2 (tensor parallel): the prefill's CFG
+    logits within rtol 0.1, atol 0.15 of the unsharded model's; each rank's
+    launches show G1 (K8 at int4), K1, K2 and K3, and no K4; the steps eager
+    (a gloo model axis).  2x1 (data parallel): each row's codes the
+    unsharded model's graph-replayed codes bit for bit, the steps replayed.
+    Both at bf16, int8 and int4 at full width; 2x1 at full depth, 1x2 at
+    MESH_TP_LAYERS layers.
+
+    The 1x2 logits are also held to the fp32 logits of the same weights
+    (the plain versions in fp32): no further from them than MESH_TP_NOISE
+    times the unsharded bf16 model is, and no more of them outside JAX's
+    bound of them than of the unsharded model's.  (At the flagship's 26
+    layers, with CFG tripling the noise, two bf16 roundings of a
+    row-parallel product where the unsharded model has one put a few of
+    41,472 entries just outside JAX's bound of the unsharded bf16 logits,
+    which are as far from the fp32 logits as the sharded ones: PERF.md.)"""
+    tag = f"[mesh {shape}]"
+    t0 = time.perf_counter()
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = []
+        for rank in range(2):
+            log = open(os.path.join(workdir, f"log{rank}"), "w")
+            procs.append((subprocess.Popen([sys.executable, here, "--mesh-rank", str(rank), shape,
+                                            workdir], stdout=log, stderr=subprocess.STDOUT,
+                                           cwd=os.path.dirname(here)), log))
+        try:
+            rcs = [p.wait(timeout=MESH_TIMEOUT_S) for p, _ in procs]
+        except subprocess.TimeoutExpired:
+            rcs = None
+        finally:
+            for p, log in procs:
+                p.kill()
+                p.wait()
+                log.close()
+        logs = ["".join(open(os.path.join(workdir, f"log{r}")).readlines()[-30:])
+                for r in range(2)]
+        if rcs is None:
+            fail(f"{tag} the two processes did not end in {MESH_TIMEOUT_S} s:\n" + "\n".join(logs))
+        results = []
+        for rank in range(2):
+            path = os.path.join(workdir, f"rank{rank}.json")
+            if rcs[rank] != 0 or not os.path.exists(path):
+                fail(f"{tag} rank {rank} exited {rcs[rank]}:\n{logs[rank]}")
+            with open(path) as f:
+                results.append(json.load(f))
+    for rank, res in enumerate(results):
+        if "error" in res:
+            fail(f"{tag} rank {rank} failed:\n{res['error']}")
+    tp = shape == "1x2"
+    all_counts = []
+    for mode in MESH_MODES:
+        for rank, res in enumerate(results):
+            r = res["modes"][mode]
+            counts, stats = r["counts"], r["stats"]
+            all_counts.append(counts)
+            want = ["flash_decode_attention", "decode_attention_single", "fused_sample",
+                    "int4_matmul" if mode == "int4" else "gemm"]
+            if mode == "int8" and not tp:
+                want.append("fused_layer_tail")
+            missing = [k for k in want if counts[k] <= 0]
+            if missing or not r["codes_ok"]:
+                fail(f"{tag} {mode} rank {rank}: {missing} not launched, or codes out of range "
+                     f"({ {k: v for k, v in counts.items() if v} })")
+            if tp:
+                if counts["fused_layer_tail"] != 0:
+                    fail(f"{tag} {mode} rank {rank}: K4 launched {counts['fused_layer_tail']} "
+                         f"times on a model axis of 2")
+                if stats["graphs"] != 0 or stats["eager"] != "gloo model axis":
+                    fail(f"{tag} {mode} rank {rank}: decode stats {stats}")
+                if r["tp_ref_outside"] > 0:
+                    fail(f"{tag} {mode} rank {rank}: {r['tp_ref_outside']:.2e} of the CFG logits "
+                         f"outside rtol 0.1, atol 0.15 of the unsharded model's (max abs err "
+                         f"{r['tp_ref']})")
+                if (r["tp_exact"] > MESH_TP_NOISE * r["ref_exact"]
+                        or r["tp_exact_outside"] > r["ref_exact_outside"]):
+                    fail(f"{tag} {mode} rank {rank}: the CFG logits are {r['tp_exact']} from the "
+                         f"fp32 logits ({r['tp_exact_outside']:.2e} of them outside rtol 0.1, "
+                         f"atol 0.15), the unsharded bf16 model's {r['ref_exact']} "
+                         f"({r['ref_exact_outside']:.2e})")
+            else:
+                check_replayed(f"{tag} {mode} rank {rank}", stats)
+                if not r["equal"]:
+                    fail(f"{tag} {mode} rank {rank}: the data-parallel codes differ from the "
+                         f"unsharded model's graph-replayed codes")
+        r0 = results[0]["modes"][mode]
+        steps = r0["stats"]["steps"]
+        what = (f"CFG logits against the fp32 logits of the same weights: max abs err "
+                f"{r0['tp_exact']:.4f}, {r0['tp_exact_outside']:.2e} of them outside rtol 0.1, "
+                f"atol 0.15 (the unsharded bf16 model's {r0['ref_exact']:.4f}, "
+                f"{r0['ref_exact_outside']:.2e}); against the unsharded model's: max "
+                f"{r0['tp_ref']:.4f}, {r0['tp_ref_outside']:.2e} outside; eager steps, no K4"
+                if tp else
+                "codes of both rows bit for bit the unsharded model's graph-replayed codes; "
+                f"{r0['stats']['graphs']} CUDA graphs a rank")
+        print(f"{tag} {mode}: {r0['layers']} layers, batch {MESH_BATCH}, {steps} steps; {what}; "
+              f"rank 0 launches "
+              f"{ {k: v for k, v in r0['counts'].items() if v} }; {r0['wall_s'] * 1e3 / steps:.2f} "
+              f"ms/step of the generate (two processes sharing one card, not a multi-GPU "
+              f"figure; {card})", flush=True)
+    print(f"{tag} done in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return _sum_counts(*all_counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
 
@@ -4954,6 +5285,9 @@ def k7_sweep(gen, card: str) -> None:
 
 def main(argv: list[str]) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
+    if argv[:1] == ["--mesh-rank"] and len(argv) == 4:  # a process of [mesh 1x2] / [mesh 2x1]
+        sys.path.insert(0, here)
+        return mesh_rank(int(argv[1]), argv[2], argv[3])
     port = argv[:1] in (["--times"], ["--profile"]) and argv[1:2] == ["--port"] and len(argv) == 3
     if port:
         here = os.path.abspath(argv[2])
@@ -5086,6 +5420,10 @@ def main(argv: list[str]) -> int:
     counts["train hybrid"], train["hybrid"] = phase_train_hybrid(card)
     counts["train cli"] = phase_train_cli(card)
     print(f"[time] train hybrid and cli done {time.perf_counter() - t0:.1f} s", flush=True)
+    counts["mesh 1x1"] = phase_mesh_1x1(card)
+    counts["mesh 1x2"] = phase_mesh_pair(card, "1x2")
+    counts["mesh 2x1"] = phase_mesh_pair(card, "2x1")
+    print(f"[time] meshes done {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"graph": graph, "train": train, "card": card}), flush=True)
     kernels = phase_timings(gen, counts, errs, prefill_len=prefix.shape[1] + 1, card=card,
                             train=train)

@@ -240,7 +240,8 @@ def tiny_dac(monkeypatch):
 
 def test_train_cli_end_to_end(dataset_dir, tmp_path, tiny_dac, caplog):
     """Train 2 steps, resume to 4 with a validation split and export; the
-    export loads through ``Zonos.from_local``; a mesh is refused."""
+    export loads through ``Zonos.from_local``; a mesh in one process is
+    refused (it is launched by torchrun, ``tests/test_torch_port_parallel.py``)."""
     from zonos_tpu_torch.apps import train_cli
 
     common = ["--ljspeech", str(dataset_dir), "--tiny", "--device", "cpu", "--batch", "2",
@@ -264,7 +265,7 @@ def test_train_cli_end_to_end(dataset_dir, tmp_path, tiny_dac, caplog):
     m = Zonos.from_local(str(tmp_path / "ref" / "config.json"),
                          str(tmp_path / "ref" / "model.safetensors"), device="cpu")
     assert m.config.backbone.d_model == 64
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(SystemExit, match="torchrun"):
         train_cli.main(common + ["--steps", "1", "--dp", "2"])
     if not torch.cuda.is_available():  # the default device is the card: no silent CPU run
         with pytest.raises(RuntimeError, match="device='cpu'"):

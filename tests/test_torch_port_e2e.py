@@ -184,6 +184,10 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         import zonos_tpu_torch.kernels.row_norm, zonos_tpu_torch.text.metrics
         import zonos_tpu_torch.parallel, zonos_tpu_torch.data, zonos_tpu_torch.apps.train_cli
         import zonos_tpu_torch.utils.train_state
+        import zonos_tpu_torch.parallel.mesh, zonos_tpu_torch.parallel.sharding
+        import zonos_tpu_torch.parallel.dryrun, zonos_tpu_torch.ops.tp
+        import zonos_tpu_torch.parallel.followers
+        from zonos_tpu_torch.parallel import follow, make_mesh, run_dryrun, shard_params
         from zonos_tpu_torch.audio.native import resample_native
         from zonos_tpu_torch.text.metrics import phoneme_error_rate
         assert phoneme_error_rate("həloʊ", "həloʊ") == 0.0
@@ -194,7 +198,8 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
                               "attn_cfg": {{"num_heads": 4, "num_heads_kv": 2}}}})
         m = Zonos(ZonosConfig.from_dict(d), device="cpu")
         export_zonos_checkpoint(m.config, m.params, "models/tiny/zonos")
-        m = Zonos.from_pretrained("tiny/zonos", device="cpu")
+        m = Zonos.from_pretrained("tiny/zonos", device="cpu", mesh=make_mesh(1, 1))
+        assert m.mesh is not None and m.mesh.size() == 1  # a world of one process
         tower = init_speaker_params(torch.Generator().manual_seed(0), in_planes=8,
                                     blocks=(1, 1, 1, 1))
         m._spk_tower = SpeakerEmbeddingLDA(params=tower, device="cpu")  # the LDA: no file

@@ -9,9 +9,14 @@
  -> utils/train_state.py (checkpoints, resume from the newest)
  -> utils/checkpoint.py (``--export``: reference-format weights, LoRA merged)
 
-One device (``--device``, the card by default).  The JAX package's mesh
-(``--dp`` / ``--tp`` past 1) is refused: the distributed slice of the port
-is not written yet.
+One device (``--device``, the card by default), or a ``("data", "model")``
+mesh of one process a device (``--dp`` / ``--tp``, as the JAX CLI's),
+launched by torchrun: every rank loads the same batches, the data axis splits
+their rows, the model axis shards the backbone and the heads
+(``parallel/``).  ``--dp 0`` picks the largest data size that divides
+``--batch``; the world must hold ``dp * tp`` processes.  LoRA adapters are
+replicated.  Rank 0 alone logs and writes checkpoints (the whole parameters
+and optimizer state, gathered over the model axis) and the export.
 
 Examples
 --------
@@ -20,6 +25,8 @@ Examples
     python -m zonos_tpu_torch.apps.train_cli --manifest data.jsonl --model hybrid \\
         --pretrained Zyphra/Zonos-v0.1-hybrid --lr 1e-5 --steps 2000
     python -m zonos_tpu_torch.apps.train_cli --dir clips/ --tiny --device cpu --steps 2
+    torchrun --standalone --nproc_per_node 4 -m zonos_tpu_torch.apps.train_cli \
+        --dir clips/ --tiny --device cpu --dp 2 --tp 2 --batch 4 --steps 2
 """
 
 from __future__ import annotations
@@ -99,9 +106,10 @@ def _build_argparser() -> argparse.ArgumentParser:
     rt.add_argument("--resume", action="store_true", help="resume from the newest checkpoint")
     rt.add_argument("--log_every", type=int, default=10)
     rt.add_argument("--dp", type=int, default=0,
-                    help="data-parallel size: 0 or 1 (one device; a mesh is not ported yet)")
+                    help="data-parallel size (0: the largest that divides --batch); "
+                         "past one process, launch with torchrun")
     rt.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size: 1 (a mesh is not ported yet)")
+                    help="tensor-parallel size (the backbone's heads and MLP, the vocab)")
     rt.add_argument("--profile", default=None,
                     help="write a torch.profiler Chrome trace of the train loop to this dir")
     rt.add_argument("--verbose", action="store_true")
@@ -164,18 +172,58 @@ def _device_put_fn(device: torch.device):
     return put
 
 
+def _mesh(args):
+    """The ``(data, model)`` mesh of a torchrun launch (None for one
+    process), with ``args.device`` set to this rank's device."""
+    import os
+
+    import torch.distributed as dist
+
+    from zonos_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        if args.dp > 1 or args.tp > 1:
+            raise SystemExit(f"--dp {args.dp} --tp {args.tp} needs one process a device: launch "
+                             "with torchrun --standalone --nproc_per_node <dp*tp> -m "
+                             "zonos_tpu_torch.apps.train_cli ...")
+        return None
+    cuda = torch.device(args.device).type == "cuda"
+    initialize_multihost(backend="nccl" if cuda else "gloo")
+    world = dist.get_world_size()
+    if args.dp and args.batch % args.dp:
+        raise SystemExit(f"--batch {args.batch} not divisible by --dp {args.dp}")
+    dp = args.dp or world // args.tp
+    while args.batch % dp:  # auto: the largest dp that divides the batch
+        dp -= 1
+    if dp * args.tp != world:
+        raise SystemExit(f"a {dp}x{args.tp} mesh needs {dp * args.tp} processes; this world "
+                         f"has {world} (torchrun --nproc_per_node {dp * args.tp})")
+    if cuda:
+        args.device = f"cuda:{os.environ.get('LOCAL_RANK', dist.get_rank())}"
+    return make_mesh(dp, args.tp, args.device)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = _build_argparser().parse_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: training over a mesh comes with the port's "
-            "distributed slice (parallel/mesh.py, sharding.py); this CLI runs one device "
-            "(--dp 0 or 1, --tp 1)")
+    mesh = _mesh(args)
+    lead = mesh is None or mesh.get_rank() == 0
+    logging.basicConfig(level=(logging.DEBUG if args.verbose else logging.INFO) if lead
+                        else logging.WARNING, format="%(asctime)s %(name)s %(message)s")
+    try:
+        _train(args, mesh, lead)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
 
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _train(args, mesh, lead: bool) -> None:
     from zonos_tpu_torch.data import BatchSpec, CodesCache, PrefetchLoader, prepare_examples
     from zonos_tpu_torch.data.dataset import FRAME_RATE, total_audio_seconds
+    from zonos_tpu_torch.ops.tp import mesh_shape
     from zonos_tpu_torch.parallel.train import make_conditioned_train_step, make_optimizer
     from zonos_tpu_torch.utils.train_state import profile_trace
 
@@ -194,7 +242,15 @@ def main(argv: list[str] | None = None) -> None:
 
     cache = CodesCache(model.autoencoder, args.cache_dir)
     t0 = time.time()
+    if mesh is not None and not lead:  # rank 0 fills the codes cache, the others read it
+        import torch.distributed as dist
+
+        dist.barrier()
     prepared = prepare_examples(examples, cache, speaker_fn=speaker_fn, on_error="skip")
+    if mesh is not None and lead:
+        import torch.distributed as dist
+
+        dist.barrier()
     if not prepared:
         raise SystemExit("no usable examples after preparation")
     log.info("prepared %d examples (%.1f s of audio; %d fresh encodes) in %.1fs",
@@ -219,11 +275,9 @@ def main(argv: list[str] | None = None) -> None:
     if lora and args.accum > 1:
         raise SystemExit("--lora_rank does not combine with --accum "
                          "(adapters are tiny; accumulation buys nothing)")
-    optimizer = make_optimizer(lr=args.lr, weight_decay=args.weight_decay,
-                               warmup_steps=args.warmup, total_steps=args.steps,
-                               grad_clip=args.grad_clip, kind=args.optimizer)
 
-    # --- trainable: full params or LoRA adapters over a frozen base -------
+    # --- mesh: the base sharded over "model"; adapters made whole ---------
+    tp = 1 if mesh is None else mesh_shape(mesh)["model"]
     if lora:
         from zonos_tpu_torch.parallel.lora import (
             count_lora_params,
@@ -232,12 +286,30 @@ def main(argv: list[str] | None = None) -> None:
             make_lora_train_step,
         )
 
-        trainable = init_lora(torch.Generator().manual_seed(args.seed ^ 0x10A4), params,
-                              rank=args.lora_rank)
+        adapters = init_lora(torch.Generator().manual_seed(args.seed ^ 0x10A4), params,
+                             rank=args.lora_rank)
+    if mesh is not None:
+        from zonos_tpu_torch.parallel.sharding import shard_params, zonos_param_specs
+
+        log.info("mesh: %s over %d processes", mesh_shape(mesh), mesh.size())
+        params = shard_params(mesh, params, cfg)
+        model.params = None  # the whole parameters are not kept
+    # the spec tree of what trains: the base's, or none (replicated adapters)
+    specs = None
+    if mesh is not None and not lora:
+        specs = zonos_param_specs(params, cfg)
+    optimizer = make_optimizer(lr=args.lr, weight_decay=args.weight_decay,
+                               warmup_steps=args.warmup, total_steps=args.steps,
+                               grad_clip=args.grad_clip, kind=args.optimizer, mesh=mesh,
+                               specs=specs)
+
+    # --- trainable: full params or LoRA adapters over a frozen base -------
+    if lora:
+        trainable = adapters
         log.info("LoRA rank %d: %d adapter params", args.lora_rank,
                  count_lora_params(trainable))
         lora_step = make_lora_train_step(cfg, model.specs, optimizer, alpha=args.lora_alpha,
-                                         uncond_p=args.uncond_p, remat=args.remat)
+                                         uncond_p=args.uncond_p, remat=args.remat, mesh=mesh)
 
         def step_fn(t, o, ci, c, g):
             return lora_step(t, o, params, ci, c, g)
@@ -245,15 +317,14 @@ def main(argv: list[str] | None = None) -> None:
         trainable = params
         step_fn = make_conditioned_train_step(cfg, model.specs, optimizer,
                                               uncond_p=args.uncond_p, remat=args.remat,
-                                              accum_steps=args.accum)
+                                              accum_steps=args.accum, mesh=mesh)
     opt_state = optimizer.init(trainable)
+    state_io = _StateIO(mesh, cfg, specs, tp)
 
     # --- resume ----------------------------------------------------------
     start_step = 0
     if args.ckpt_dir and args.resume:
-        from zonos_tpu_torch.utils.train_state import restore_train_state
-
-        restored = restore_train_state(args.ckpt_dir, trainable, opt_state)
+        restored = state_io.restore(args.ckpt_dir, trainable, opt_state)
         if restored is not None:
             start_step, trainable, opt_state = restored
             log.info("resumed from step %d", start_step)
@@ -275,12 +346,12 @@ def main(argv: list[str] | None = None) -> None:
             val, model.specs, cfg.masked_token_id, bs, seed=args.seed, epoch=0)]
         if lora:
             lora_eval = make_lora_eval_fn(cfg, model.specs, alpha=args.lora_alpha,
-                                          remat=args.remat)
+                                          remat=args.remat, mesh=mesh)
 
             def eval_fn(t, ci, c):
                 return lora_eval(t, params, ci, c)
         else:
-            eval_fn = make_conditioned_eval_fn(cfg, model.specs, remat=args.remat)
+            eval_fn = make_conditioned_eval_fn(cfg, model.specs, remat=args.remat, mesh=mesh)
 
     def run_eval(trainable, step):
         vl = float(np.mean([float(eval_fn(trainable, b["cond_inputs"], b["codes"]))
@@ -313,9 +384,7 @@ def main(argv: list[str] | None = None) -> None:
                                             or step + 1 == args.steps):
                     run_eval(trainable, step + 1)
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                    from zonos_tpu_torch.utils.train_state import save_train_state
-
-                    save_train_state(args.ckpt_dir, step + 1, trainable, opt_state)
+                    state_io.save(args.ckpt_dir, step + 1, trainable, opt_state)
                     last_ckpt = step + 1
                     log.info("checkpoint @ step %d", step + 1)
         finally:
@@ -324,20 +393,81 @@ def main(argv: list[str] | None = None) -> None:
     # start_step >= steps: a resumed run that did no work; writing the
     # restored (later-step) state labelled as args.steps would regress it
     if args.ckpt_dir and last_ckpt != args.steps and start_step < args.steps:
-        from zonos_tpu_torch.utils.train_state import save_train_state
-
-        save_train_state(args.ckpt_dir, args.steps, trainable, opt_state)
+        state_io.save(args.ckpt_dir, args.steps, trainable, opt_state)
     if args.export:
         from zonos_tpu_torch.utils.checkpoint import export_zonos_checkpoint
 
-        out_params = trainable
+        out_params = state_io.whole(params if lora else trainable)
         if lora:
             from zonos_tpu_torch.parallel.lora import merge_lora
 
-            out_params = merge_lora(params, trainable, alpha=args.lora_alpha)
-        path = export_zonos_checkpoint(cfg, out_params, args.export)
-        log.info("exported reference-format checkpoint: %s", path)
+            out_params = merge_lora(out_params, trainable, alpha=args.lora_alpha)
+        if lead:
+            path = export_zonos_checkpoint(cfg, out_params, args.export)
+            log.info("exported reference-format checkpoint: %s", path)
     log.info("done: %d steps, final loss %.4f", args.steps, last_loss)
+
+
+class _StateIO:
+    """Train-state checkpoints on a mesh: rank 0 writes the whole parameters
+    and optimizer state (gathered over the model axis, so a checkpoint
+    resumes on any mesh); every rank reads it and keeps its shard."""
+
+    def __init__(self, mesh, cfg, specs, tp: int):
+        self.mesh, self.cfg, self.specs, self.tp = mesh, cfg, specs, tp
+
+    def _state_specs(self, trainable, opt_state):
+        from zonos_tpu_torch.parallel.train import optimizer_state_specs
+
+        return optimizer_state_specs(opt_state, trainable, self.specs, self.mesh)
+
+    def whole(self, params):
+        """The whole base parameters (a collective over the model axis)."""
+        if self.tp == 1:
+            return params
+        from zonos_tpu_torch.parallel.sharding import unshard_params
+
+        return unshard_params(self.mesh, params, self.cfg)
+
+    def save(self, ckpt_dir: str, step: int, trainable, opt_state) -> None:
+        from zonos_tpu_torch.utils.train_state import save_train_state
+
+        if self.tp > 1 and self.specs is not None:
+            from zonos_tpu_torch.ops.tp import axis_group
+            from zonos_tpu_torch.parallel.sharding import gather_part, map_specs
+
+            group = axis_group(self.mesh, "model")
+            state_specs = self._state_specs(trainable, opt_state)
+            trainable = self.whole(trainable)
+            opt_state = map_specs(lambda t, s: gather_part(t, s, group), opt_state, state_specs)
+        if self.mesh is None or self.mesh.get_rank() == 0:
+            save_train_state(ckpt_dir, step, trainable, opt_state)
+
+    def restore(self, ckpt_dir: str, trainable, opt_state):
+        from zonos_tpu_torch.utils.train_state import restore_train_state
+
+        if self.tp == 1 or self.specs is None:
+            return restore_train_state(ckpt_dir, trainable, opt_state)
+        from zonos_tpu_torch.ops.tp import axis_rank
+        from zonos_tpu_torch.parallel.sharding import local_part, map_specs
+
+        restored = restore_train_state(ckpt_dir, None, None)  # whole, on the host
+        if restored is None:
+            return None
+        step, whole_params, whole_state = restored
+        from zonos_tpu_torch.parallel.train import tree_leaves
+
+        r = axis_rank(self.mesh, "model")
+        device = tree_leaves(trainable)[0].device
+
+        def cut(t, spec):
+            if not isinstance(t, torch.Tensor):
+                return t
+            return local_part(t, spec, r, self.tp).to(device)
+
+        params = map_specs(cut, whole_params, self.specs)
+        state = map_specs(cut, whole_state, self._state_specs(trainable, opt_state))
+        return step, params, state
 
 
 if __name__ == "__main__":

@@ -39,8 +39,14 @@ from zonos_tpu_torch.ops.attention import (
 )
 from zonos_tpu_torch.kernels.row_norm import Norm
 from zonos_tpu_torch.ops.norms import layer_norm
-from zonos_tpu_torch.ops.quant import matmul_w, norm_matmul, store_cast
+from zonos_tpu_torch.ops.quant import store_cast
 from zonos_tpu_torch.ops.rope import apply_rope, cached_rope_table
+from zonos_tpu_torch.ops.tp import (
+    column_parallel,
+    local_heads,
+    model_size,
+    row_parallel,
+)
 
 KV_STORAGE = {"f8": torch.float8_e4m3fn, "int8": torch.int8}
 
@@ -72,8 +78,10 @@ class KVCache:
     @classmethod
     def create(cls, cfg: BackboneConfig, batch: int, max_seqlen: int,
                dtype=torch.bfloat16, device="cpu", kv: str | None = None) -> "KVCache":
-        """``kv``: None (the compute dtype), ``"f8"`` or ``"int8"``."""
-        shape = (cfg.n_layer, batch, cfg.num_heads_kv, max_seqlen, cfg.head_dim)
+        """``kv``: None (the compute dtype), ``"f8"`` or ``"int8"``.  Under a
+        model axis (``ops/tp.py``) a rank holds ``H_kv / model_size()`` heads."""
+        shape = (cfg.n_layer, batch, cfg.num_heads_kv // model_size(), max_seqlen,
+                 cfg.head_dim)
         if kv is not None and kv not in KV_STORAGE:
             raise ValueError(f"KV cache storage {kv!r}: want None|f8|int8")
         store = KV_STORAGE.get(kv, dtype)
@@ -161,8 +169,10 @@ def _fused_tail_args(lp: dict, y: torch.Tensor, x: torch.Tensor, prefill: bool) 
     """K4's operands on a CUDA int8 decode step whose dtypes and shapes it
     takes (``kernel_takes``; zonos_tpu/models/backbone.py:235-250 dispatches
     by shape too, behind a TPU opt-in), else None: the unfused tail, as JAX
-    runs it off the TPU, on the CPU and for an fp32 model."""
-    if prefill or not x.is_cuda or x.shape[1] != 1 or not all(
+    runs it off the TPU, on the CPU and for an fp32 model.  None on a model
+    axis of more than one rank too: K4's LayerNorm needs the row after
+    ``wo``'s all-reduce."""
+    if prefill or not x.is_cuda or x.shape[1] != 1 or model_size() > 1 or not all(
             isinstance(lp[n], dict) and "q" in lp[n] for n in ("wo", "w1", "w2")):
         return None
     args = (y.reshape(x.shape[0], -1), x[:, 0].contiguous(), lp["wo"]["q"], lp["wo"]["s"],
@@ -174,12 +184,16 @@ def _fused_tail_args(lp: dict, y: torch.Tensor, x: torch.Tensor, prefill: bool) 
 def _layer(cfg: BackboneConfig, lp: dict, li: int, x: torch.Tensor, cos, sin,
            cache: KVCache | None, pos: int | StepPosition, prefill: bool) -> torch.Tensor:
     """Layer ``li`` with its parameters ``lp``; a prefill without a cache
-    (``transformer_forward``) writes no rows."""
+    (``transformer_forward``) writes no rows.  On a model axis ``lp`` is this
+    rank's shard: its heads are counted from the width of its ``wqkv``, and
+    ``wo`` and ``w2`` are summed over the axis (``ops/tp.py``)."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
+    hd = cfg.head_dim
+    H, Hkv = local_heads(cfg.num_heads, cfg.num_heads_kv, hd, lp["wqkv"])
     # each pre-norm feeds one product: norm_matmul folds it into that product's kernel
     norm1 = Norm(lp["norm1_scale"], lp["norm1_bias"], cfg.norm_epsilon, rms=False)
-    q, k, v = torch.split(norm_matmul(x, norm1, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q, k, v = torch.split(column_parallel(x, norm1, lp["wqkv"]), [H * hd, Hkv * hd, Hkv * hd],
+                          dim=-1)
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, Hkv, hd), cos, sin)
     v = v.reshape(B, S, Hkv, hd)
@@ -198,10 +212,10 @@ def _layer(cfg: BackboneConfig, lp: dict, li: int, x: torch.Tensor, cos, sin,
     tail = _fused_tail_args(lp, y, x, prefill)
     if tail is not None:
         return fused_layer_tail(*tail, eps=cfg.norm_epsilon)[:, None]
-    x = x + matmul_w(y.reshape(B, S, H * hd), lp["wo"])
+    x = x + row_parallel(y.reshape(B, S, H * hd), lp["wo"])
     norm2 = Norm(lp["norm2_scale"], lp["norm2_bias"], cfg.norm_epsilon, rms=False)
-    u, gate = torch.chunk(norm_matmul(x, norm2, lp["w1"]), 2, dim=-1)
-    return x + matmul_w(u * F.silu(gate), lp["w2"])
+    u, gate = torch.chunk(column_parallel(x, norm2, lp["w1"]), 2, dim=-1)
+    return x + row_parallel(u * F.silu(gate), lp["w2"])
 
 
 def rope_at(cos_t: torch.Tensor, sin_t: torch.Tensor, pos: int | StepPosition,

@@ -38,8 +38,9 @@ from zonos_tpu_torch.models.backbone import rope_at, write_rows
 from zonos_tpu_torch.ops.attention import StepPosition, decode_attention, fresh_prefill_attention
 from zonos_tpu_torch.kernels.row_norm import Norm
 from zonos_tpu_torch.ops.norms import apply_norm
-from zonos_tpu_torch.ops.quant import matmul_w, norm_matmul, store_cast
+from zonos_tpu_torch.ops.quant import norm_matmul, store_cast
 from zonos_tpu_torch.ops.rope import apply_rope_neox, cached_rope_table
+from zonos_tpu_torch.ops.tp import column_parallel, local_heads, model_size, row_parallel
 from zonos_tpu_torch.kernels.ssm_state import dequantize_state, quantize_state
 from zonos_tpu_torch.ops.ssm import (
     causal_conv1d_prefill,
@@ -150,9 +151,12 @@ def create_hybrid_cache(cfg: BackboneConfig, batch: int, max_seqlen: int,
     """Zeroed per-layer states for ``batch`` rows (2B with CFG).  A bf16
     compute dtype stores the SSM state by ``ssm_state_mode(batch, ssm_state)``;
     any other compute dtype stores it in fp32 unless ``ssm_state`` says
-    otherwise, as the JAX package does."""
+    otherwise, as the JAX package does.  Under a model axis (``ops/tp.py``)
+    an attention layer holds ``H_kv / model_size()`` heads a rank (the Mamba2
+    states are replicated)."""
     _, _, H, _, N, K, conv_dim = _dims(cfg)
     _, aHkv, ahd, _ = _attn_dims(cfg)
+    aHkv //= model_size()
     if ssm_state is None and dtype != torch.bfloat16:
         ssm_state = "fp32"
     mode = ssm_state_mode(batch, ssm_state)
@@ -265,11 +269,13 @@ def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
                 dtype: torch.dtype, st: dict, pos: int | StepPosition,
                 prefill: bool) -> torch.Tensor:
     """The residual x through ``norm`` (folded into wqkv) -> [B, S, d] in
-    the compute dtype ``dtype``."""
+    the compute dtype ``dtype``; on a model axis over this rank's heads,
+    ``wo`` summed over the axis."""
     H, Hkv, hd, rot = _attn_dims(cfg)
+    H, Hkv = local_heads(H, Hkv, hd, lp["wqkv"])
     B, S, _ = x.shape
-    q, k, v = torch.split(norm_matmul(x, norm, lp["wqkv"], dtype), [H * hd, Hkv * hd, Hkv * hd],
-                          dim=-1)
+    q, k, v = torch.split(column_parallel(x, norm, lp["wqkv"], dtype),
+                          [H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
     if rot > 0:  # rotate-halves over the first `rot` dims; the rest pass through
         cos_t, sin_t = cached_rope_table(rot, cfg.rope_base, x.device)
@@ -283,7 +289,7 @@ def _attn_mixer(cfg: BackboneConfig, lp: dict, x: torch.Tensor, norm: Norm,
         y = fresh_prefill_attention(q, k, v)
     else:
         y = decode_attention(q, st["k"], st["v"], pos.length, pos.band)
-    return matmul_w(y.reshape(B, S, H * hd), lp["wo"])
+    return row_parallel(y.reshape(B, S, H * hd), lp["wo"])
 
 
 def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict,
@@ -297,8 +303,8 @@ def _block(cfg: BackboneConfig, i: int, lp: dict, x: torch.Tensor, st: dict,
     x = x + y.to(x.dtype)
     if "w1" in lp:
         norm2 = _norm_of(cfg, lp["norm2_scale"], lp.get("norm2_bias"))
-        u, gate = torch.chunk(norm_matmul(x, norm2, lp["w1"], compute_dtype), 2, dim=-1)
-        x = x + matmul_w(u * F.silu(gate), lp["w2"]).to(x.dtype)
+        u, gate = torch.chunk(column_parallel(x, norm2, lp["w1"], compute_dtype), 2, dim=-1)
+        x = x + row_parallel(u * F.silu(gate), lp["w2"]).to(x.dtype)
     return x
 
 

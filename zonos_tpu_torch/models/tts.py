@@ -29,6 +29,16 @@ Streaming (``stream_generate_batch``) runs the same prefill and the same
 decode steps (replays on the card) in chunks of ``chunk_frames`` steps and
 vocodes each chunk's final codes with the DAC's receptive field as margin,
 so that the concatenated chunks equal the full decode of the same codes.
+
+On a ``("data", "model")`` mesh (:meth:`Zonos.shard`; one process a device,
+``parallel/mesh.py``) every rank calls ``generate`` with the same whole
+arguments and gets the same whole result: data rank r decodes requests
+``[r B/n, (r+1) B/n)`` (and their uncond rows ``B + i``, each row's noise
+keyed by its global row), the ranks of the model axis share each layer's
+heads and the heads' vocabulary (``ops/tp.py``), and the
+trimmed codes are gathered over the data axis.  At each poll the ranks agree
+on the steps left and on the callback's verdict, so all of them run the same
+number of steps.
 """
 
 from __future__ import annotations
@@ -59,6 +69,16 @@ from zonos_tpu_torch.ops.delay import apply_delay_pattern, revert_delay_pattern
 from zonos_tpu_torch.ops.attention import StepPosition
 from zonos_tpu_torch.ops.eos import EosState, eos_logit_mask, eos_update
 from zonos_tpu_torch.ops.quant import matmul_w, quantize_weight_int4, quantize_weight_int8
+from zonos_tpu_torch.ops.tp import (
+    axis_group,
+    axis_size,
+    copy_to_model,
+    gather_from_model,
+    gather_objects,
+    mesh_shape,
+    model_axis,
+    world_of,
+)
 from zonos_tpu_torch.ops.sampling import (
     SamplingParams,
     element_counters,
@@ -105,10 +125,17 @@ def embed_codes(params: dict, codes: torch.Tensor) -> torch.Tensor:
     return tables[cb, codes].sum(dim=1)
 
 
+def head_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden [..., d] @ the fused [d, K*V_pad] heads (a plain, int8 or int4
+    weight).  On a model axis each rank runs its vocab columns and the
+    logits are gathered: every rank gets all K*V_pad of them."""
+    return gather_from_model(matmul_w(copy_to_model(hidden), params["heads"]))
+
+
 def apply_heads(params: dict, cfg: ZonosConfig, hidden: torch.Tensor) -> torch.Tensor:
     """hidden [B, d] -> fp32 logits [B, K, V_pad] via one fused [d, K*V_pad]
     matmul (a plain, int8 or int4 weight)."""
-    logits = matmul_w(hidden, params["heads"])
+    logits = head_logits(params, hidden)
     return logits.reshape(hidden.shape[0], cfg.num_codebooks, cfg.padded_vocab_size).float()
 
 
@@ -172,7 +199,8 @@ class Zonos:
     Serving modes: :meth:`quantize_int8` / :meth:`quantize_int4` quantize the
     backbone's projections and the heads in place; :meth:`set_storage` picks
     the KV-cache storage (transformer) and the SSM-state storage (hybrid) of
-    later ``generate`` calls.
+    later ``generate`` calls.  :meth:`shard` keeps this rank's shard of the
+    parameters on a ``("data", "model")`` mesh (quantize before sharding).
     """
 
     def __init__(self, config: ZonosConfig, params: dict | None = None, seed: int = 0,
@@ -187,7 +215,9 @@ class Zonos:
             params = self.init_params(seed, dtype)
         self.params = params
         self.storage = {"kv": None, "ssm": None}
-        # the last generate's decode: steps run, CUDA graphs captured, capture seconds
+        self.mesh = None  # the (data, model) mesh of :meth:`shard`
+        # the last generate's decode: steps run, CUDA graphs captured, capture seconds,
+        # the mesh, and why the steps ran eagerly on the card (None: they did not)
         self.decode_stats: dict | None = None
         self._autoencoder = None
         self._spk_tower = None
@@ -208,30 +238,68 @@ class Zonos:
     def compute_dtype(self) -> torch.dtype:
         return self.params["embeddings"].dtype
 
+    def shard(self, mesh) -> "Zonos":
+        """Keep this rank's shard of the parameters on ``mesh``
+        (``parallel/sharding.py``: attention heads, MLP hidden units and the
+        heads' vocabulary on ``"model"``, section by section; the rest
+        replicated) and run later calls on it (zonos_tpu/models/tts.py:455-466):
+        batches split along ``"data"``, each layer's partial products summed
+        over ``"model"``.  Every rank calls this, then the same entry points
+        with the same arguments."""
+        from zonos_tpu_torch.parallel.sharding import shard_params
+
+        self.params = shard_params(mesh, self.params, self.config)
+        self.mesh = mesh
+        return self
+
     @classmethod
     def from_local(cls, config_path: str, model_path: str | None = None,
-                   device: str | torch.device = "cuda", dtype=torch.bfloat16) -> "Zonos":
+                   device: str | torch.device = "cuda", dtype=torch.bfloat16,
+                   mesh=None) -> "Zonos":
         """A model from reference-format files (zonos_tpu/models/tts.py:468-489):
         the parameters are built from ``model_path`` on ``device``, every
         leaf in ``dtype`` (``utils/checkpoint.py``); without ``model_path``
-        a random init from seed 0."""
+        a random init from seed 0.  With ``mesh`` each weight is cut to this
+        rank's shard before it moves to the device (no whole replica of a
+        sharded weight there)."""
         from zonos_tpu_torch.utils.checkpoint import load_zonos_checkpoint
 
         device = resolve_device(device)
         cfg = ZonosConfig.from_json(config_path)
-        params = None if model_path is None else load_zonos_checkpoint(cfg, model_path, device,
-                                                                       dtype)
-        return cls(cfg, params=params, device=device, dtype=dtype)
+        if model_path is None:
+            model = cls(cfg, device=device, dtype=dtype)
+            return model if mesh is None else model.shard(mesh)
+        model = cls(cfg, params=load_zonos_checkpoint(cfg, model_path, device, dtype, mesh=mesh),
+                    device=device, dtype=dtype)
+        model.mesh = mesh
+        return model
 
     @classmethod
     def from_pretrained(cls, repo_id: str, device: str | torch.device = "cuda",
-                        dtype=torch.bfloat16) -> "Zonos":
+                        dtype=torch.bfloat16, mesh=None) -> "Zonos":
         """``config.json`` and ``model.safetensors`` of ``repo_id`` from the
         local models directory (``utils/hub.py``; nothing is downloaded)."""
         from zonos_tpu_torch.utils.hub import hub_download
 
         return cls.from_local(hub_download(repo_id, "config.json"),
-                              hub_download(repo_id, "model.safetensors"), device, dtype)
+                              hub_download(repo_id, "model.safetensors"), device, dtype,
+                              mesh=mesh)
+
+    @property
+    def _model_group(self):
+        return axis_group(self.mesh, "model")
+
+    def _eager_reason(self) -> str | None:
+        """Why the card's decode steps cannot be CUDA graphs, or None: a
+        model axis on gloo, whose collectives a capture cannot hold (a data
+        axis has no collective inside a step; NCCL's are captured)."""
+        group = self._model_group
+        if group is not None and torch.distributed.get_backend(group) != "nccl":
+            return "gloo model axis"
+        return None
+
+    def _graphs_on(self) -> bool:
+        return self.device.type == "cuda" and self._eager_reason() is None
 
     @property
     def autoencoder(self):
@@ -271,6 +339,10 @@ class Zonos:
         return self._quantize(lambda w: quantize_weight_int4(w, group_size))
 
     def _quantize(self, qfn) -> "Zonos":
+        if axis_size(self.mesh, "model") > 1:
+            # a row-parallel weight's scales (and an int4 one whole) come from all its rows
+            raise ValueError("quantize the whole model, then shard it")
+
         def q_or_keep(w):
             try:
                 return qfn(w)
@@ -370,8 +442,7 @@ class Zonos:
         step budget.  A callback that returns a false value stops the decode;
         the codes so far are trimmed as a finished run's are."""
         return self._generate(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                              sampling_params, seed, step_limits,
-                              graphs=self.device.type == "cuda",
+                              sampling_params, seed, step_limits, graphs=self._graphs_on(),
                               audio_prefix_codes=audio_prefix_codes,
                               progress_bar=progress_bar, callback=callback)
 
@@ -382,30 +453,85 @@ class Zonos:
                   callback=None) -> list[np.ndarray]:
         """``generate``; ``graphs`` False runs every decode step eagerly (on
         the card too: what the graphs are held against)."""
-        run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                            sampling_params, seed, step_limits, audio_prefix_codes,
-                            trace=sampling_trace_on())
-        step_graphs = _StepGraphs(self, run) if graphs else None
-        bar = _ProgressLine(run.max_steps) if progress_bar else None
-        steps = 0
-        try:
-            for step in range(run.max_steps + 1):
-                # the host's only reads: at a chunk boundary and after the last step
-                if step == run.max_steps or (step and step % SYNC_INTERVAL == 0):
-                    if run.trace is not None:
-                        _log_trace(run, steps)
-                    remaining = int(run.state.remaining.max())
-                    go_on = self._report(run, remaining, bar, callback)
-                    if not go_on or remaining <= 0 or step == run.max_steps:
-                        break
-                self._step(run, step_graphs, step)
-                steps += 1
-        finally:
-            if bar is not None:
-                bar.close()
+        rows = self._data_rows(prefix_conditioning, batch_size, seed, step_limits,
+                               audio_prefix_codes)
+        with model_axis(self._model_group):
+            run = self._prefill(rows.prefix, max_new_tokens, cfg_scale, rows.batch,
+                                sampling_params, rows.seed, rows.step_limits,
+                                rows.audio_prefix_codes, trace=sampling_trace_on())
+            step_graphs = _StepGraphs(self, run) if graphs else None
+            bar = _ProgressLine(run.max_steps) if progress_bar else None
+            steps = 0
+            try:
+                for step in range(run.max_steps + 1):
+                    # the host's only reads: at a chunk boundary and after the last step
+                    if step == run.max_steps or (step and step % SYNC_INTERVAL == 0):
+                        if run.trace is not None:
+                            _log_trace(run, steps)
+                        remaining, go_on = self._poll(run, bar, callback)
+                        if not go_on or remaining <= 0 or step == run.max_steps:
+                            break
+                    self._step(run, step_graphs, step)
+                    steps += 1
+            finally:
+                if bar is not None:
+                    bar.close()
         self._record_stats(steps, step_graphs)
-        return self._trim(run.delayed.cpu().numpy(), int(run.offset), step_limits,
-                          run.prefix_audio_len)
+        out = self._trim(run.delayed.cpu().numpy(), int(run.offset), rows.step_limits,
+                         run.prefix_audio_len)
+        return [r for part in gather_objects(out, axis_group(self.mesh, "data")) for r in part]
+
+    def _data_rows(self, prefix_conditioning, batch_size: int, seed, step_limits,
+                   audio_prefix_codes, active_rows=None) -> "_Rows":
+        """This data rank's part of a call's per-row arguments: its requests
+        ``[r B/n, (r+1) B/n)`` with their uncond rows ``B + i``, their seeds
+        (a scalar seed fans out as ``seed + row`` over the whole batch first),
+        step limits, audio prefixes and active flags; the arguments as they
+        are without a data axis."""
+        n = axis_size(self.mesh, "data")
+        B = batch_size
+        if n == 1:
+            return _Rows(prefix_conditioning, B, seed, step_limits, audio_prefix_codes,
+                         active_rows, 0)
+        from zonos_tpu_torch.parallel.sharding import batch_sharding
+
+        rows = batch_sharding(self.mesh, B)
+        if prefix_conditioning.shape[0] != 2 * B:
+            raise ValueError(f"prefix_conditioning batch {prefix_conditioning.shape[0]} != 2*{B}")
+        prefix = torch.cat([prefix_conditioning[rows],
+                            prefix_conditioning[B + rows.start:B + rows.stop]])
+        seeds = np.asarray(seed, np.int64)
+        if seeds.ndim == 0:
+            seeds = int(seeds) + np.arange(B, dtype=np.int64)
+        elif seeds.shape != (B,):
+            raise ValueError(f"seed must be a scalar or length-{B} sequence, got shape "
+                             f"{seeds.shape}")
+
+        def cut(a):
+            if a is None:
+                return None
+            if isinstance(a, torch.Tensor):
+                return a[rows]
+            return np.broadcast_to(np.asarray(a), (B, *np.shape(a)[1:]))[rows]
+
+        return _Rows(prefix, rows.stop - rows.start, seeds[rows], cut(step_limits),
+                     cut(audio_prefix_codes), cut(active_rows), rows.start)
+
+    def _poll(self, run: "_DecodeRun", bar: "_ProgressLine | None", callback
+              ) -> tuple[int, bool]:
+        """A poll of the decode: the steps left (the most over the mesh) and
+        whether to go on (every rank's callback says so).  The callback gets
+        the whole batch's frame, gathered over the data axis."""
+        remaining = int(run.state.remaining.max())
+        world = world_of(self.mesh)
+        if world is None:
+            return remaining, self._report(run, remaining, bar, callback)
+        off = int(run.offset)
+        got = gather_objects((remaining, run.delayed[..., off:off + 1].cpu().numpy()), world)
+        remaining = max(r for r, _ in got)
+        frame = np.concatenate([f for _, f in got[::axis_size(self.mesh, "model")]])
+        go_on = self._report(run, remaining, bar, callback, frame)
+        return remaining, all(gather_objects(go_on, world))
 
     def stream_generate(
         self,
@@ -470,18 +596,22 @@ class Zonos:
         if margin_frames < rf:
             raise ValueError(f"margin_frames={margin_frames} is below the DAC decoder's receptive "
                              f"half-width ({rf} frames): emitted chunks would not be final")
-        with torch.inference_mode():
-            run = self._prefill(prefix_conditioning, max_new_tokens, cfg_scale, batch_size,
-                                sampling_params, seed, step_limits, audio_prefix_codes)
-        step_graphs = _StepGraphs(self, run) if self.device.type == "cuda" else None
-        K, B, P = self.config.num_codebooks, batch_size, run.prefix_audio_len
+        rows = self._data_rows(prefix_conditioning, batch_size, seed, step_limits,
+                               audio_prefix_codes, active_rows)
+        world = world_of(self.mesh)
+        with torch.inference_mode(), model_axis(self._model_group):
+            run = self._prefill(rows.prefix, max_new_tokens, cfg_scale, rows.batch,
+                                sampling_params, rows.seed, rows.step_limits,
+                                rows.audio_prefix_codes)
+        step_graphs = _StepGraphs(self, run) if self._graphs_on() else None
+        K, B, P = self.config.num_codebooks, rows.batch, run.prefix_audio_len
         hop = self.autoencoder.hop
-        limits = (None if step_limits is None
-                  else np.broadcast_to(np.asarray(step_limits, np.int64), (B,)))
+        limits = (None if rows.step_limits is None
+                  else np.broadcast_to(np.asarray(rows.step_limits, np.int64), (B,)))
         emitted = np.zeros((B,), np.int64)  # frames emitted, after the prefix
         ends = np.full((B,), -1, np.int64)  # a row's final length once known
-        row_done = (np.zeros((B,), bool) if active_rows is None
-                    else ~np.asarray(active_rows, bool))
+        row_done = (np.zeros((B,), bool) if rows.active_rows is None
+                    else ~np.asarray(rows.active_rows, bool))
 
         def finalized_codes() -> np.ndarray:
             """[B, K, avail] final codes after the prefix (masked ids zeroed),
@@ -516,11 +646,14 @@ class Zonos:
         step = 0
         done = False
         while not done:
-            with torch.inference_mode():
+            with torch.inference_mode(), model_axis(self._model_group):
                 for _ in range(min(chunk_frames, run.max_steps - step)):
                     self._step(run, step_graphs, step)
                     step += 1
-            done = step >= run.max_steps or int(run.state.remaining.max()) <= 0
+            remaining = int(run.state.remaining.max())
+            if world is not None:  # every rank runs the mesh's chunks
+                remaining = max(gather_objects(remaining, world))
+            done = step >= run.max_steps or remaining <= 0
             codes = finalized_codes()
             avail = codes.shape[2]
             if done:
@@ -554,23 +687,30 @@ class Zonos:
                     events.append((i, wavs[j, (lo - w0) * hop:(hi_steady - w0) * hop]))
                     emitted[i] = hi_steady
             self._record_stats(step, step_graphs)
+            all_done = bool(row_done.all())
+            if world is not None:  # the whole batch's events, by global row
+                got = gather_objects(([(rows.start + i, w) for i, w in events], all_done), world)
+                events = [e for ev, _ in got[::axis_size(self.mesh, "model")] for e in ev]
+                all_done = all(flag for _, flag in got)
             if events:
                 yield events
-            if row_done.all():
+            if all_done:
                 break
 
     @staticmethod
     def _report(run: "_DecodeRun", remaining: int, bar: "_ProgressLine | None",
-                callback) -> bool:
-        """A chunk boundary's progress line and callback; False stops the
+                callback, frame: np.ndarray | None = None) -> bool:
+        """A chunk boundary's progress line and callback (``frame``: the
+        batch's current frame, this run's own by default); False stops the
         decode."""
         done = min(run.max_steps, run.max_steps - remaining)
         if bar is not None:
             bar.update(done)
         if callback is None:
             return True
-        off = int(run.offset)
-        frame = run.delayed[..., off:off + 1].cpu().numpy()
+        if frame is None:
+            off = int(run.offset)
+            frame = run.delayed[..., off:off + 1].cpu().numpy()
         return bool(callback(frame, done, run.max_steps))
 
     def _step(self, run: "_DecodeRun", step_graphs: "_StepGraphs | None", step: int) -> None:
@@ -582,7 +722,9 @@ class Zonos:
             step_graphs.step(band)
 
     def _record_stats(self, steps: int, step_graphs: "_StepGraphs | None") -> None:
-        self.decode_stats = {"steps": steps, "graphs": 0, "capture_s": 0.0}
+        self.decode_stats = {"steps": steps, "graphs": 0, "capture_s": 0.0,
+                             "mesh": mesh_shape(self.mesh),
+                             "eager": self._eager_reason() if self.device.type == "cuda" else None}
         if step_graphs is not None:
             self.decode_stats.update(graphs=len(step_graphs.graphs),
                                      capture_s=step_graphs.capture_s)
@@ -751,6 +893,19 @@ class Zonos:
                 end = min(end, prefix_audio_len + int(limits[i]))
             results.append(out[i, :, prefix_audio_len:end].copy())
         return results
+
+
+@dataclass
+class _Rows:
+    """A data rank's part of a call's per-row arguments (``Zonos._data_rows``)."""
+
+    prefix: torch.Tensor  # [2 * batch, cond_len, d]: its cond rows over their uncond rows
+    batch: int
+    seed: object
+    step_limits: object
+    audio_prefix_codes: object
+    active_rows: object
+    start: int  # its first row in the whole batch
 
 
 class _ProgressLine:

@@ -40,11 +40,19 @@ each vocode) runs under ``device_lock``, which the server shares for speaker
 embeddings: a generate captures CUDA graphs, and a capture fails if another
 thread uses the card meanwhile; ``launch_counts`` is also one dict, saved and
 restored around each capture.
+
+**A sharded model** (``Zonos.shard``): requests reach rank 0, whose batcher
+announces each ``generate``, stream chunk and stream close over the world
+before making it (``parallel/followers.py``); every other rank runs
+``zonos_tpu_torch.parallel.follow(model)``, which makes the same calls until
+the batcher's ``close``.  A call that fails on any rank takes the world down:
+its requests get the error, and so does every later one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -60,6 +68,7 @@ from zonos_tpu_torch.conditioning import (
 )
 from zonos_tpu_torch.config import find_multiple
 from zonos_tpu_torch.ops.sampling import SamplingParams
+from zonos_tpu_torch.parallel.followers import announce, leading
 from zonos_tpu_torch.text import phonemize, tokenize_phonemes
 from zonos_tpu_torch.text.symbols import PAD_ID
 
@@ -395,6 +404,7 @@ class ContinuousBatcher:
         }
         self._ttfa: list[float] = []  # stream submit -> first chunk, s (ring)
         self._stream_threads: list[threading.Thread] = []
+        self._stream_ids = itertools.count()
         self._thread = threading.Thread(target=self._run, name="tts-batcher", daemon=True)
         self._thread.start()
 
@@ -418,7 +428,8 @@ class ContinuousBatcher:
                         prefix = torch.zeros((2 * B, cond_len, d), dtype=model.compute_dtype,
                                              device=model.device)
                         apc = None if plen == 0 else np.zeros((B, K, plen), np.int64)
-                        model.generate(prefix, audio_prefix_codes=apc, max_new_tokens=frames,
+                        self._generate(prefix_conditioning=prefix, audio_prefix_codes=apc,
+                                       max_new_tokens=frames,
                                        cfg_scale=2.0 if use_cfg else 1.0, batch_size=B,
                                        sampling_params=sampling or SamplingParams(), seed=0,
                                        progress_bar=False, step_limits=1)
@@ -520,6 +531,40 @@ class ContinuousBatcher:
         self._thread.join(timeout=5)
         for t in self._stream_threads:
             t.join(timeout=5)
+        with self.device_lock:
+            announce(self.model, "stop")
+
+    # -- a sharded model's calls: announced to the followers first ---------
+    def _generate(self, **kwargs) -> list:
+        """``model.generate``; over a mesh rank 0 announces the call first
+        (``parallel/followers.py``), so every rank makes it, and a failure
+        takes the world down."""
+        announce(self.model, "generate", kwargs=kwargs)
+        with leading(self.model):
+            return self.model.generate(**kwargs)
+
+    def _stream(self, **kwargs):
+        """``model.stream_generate_batch``; over a mesh each chunk and the
+        close are announced first (call ``next`` and ``close`` under the
+        device lock, as for any stream)."""
+        sid = next(self._stream_ids)
+        gen = self.model.stream_generate_batch(**kwargs)
+        opened = False
+        try:
+            while True:
+                if not opened:
+                    announce(self.model, "stream", sid, kwargs)
+                    opened = True
+                announce(self.model, "next", sid)
+                with leading(self.model):
+                    events = next(gen, None)
+                if events is None:
+                    return
+                yield events
+        finally:
+            if opened:
+                announce(self.model, "close", sid)
+            gen.close()
 
     def snapshot(self) -> dict:
         with self._stats_lock:
@@ -687,8 +732,8 @@ class ContinuousBatcher:
                 # cache growth: K1/K2 read the cache only up to its length
                 # (kernels/decode_attention.py band_plan), so a long cache costs
                 # nothing per step
-                codes = self.model.generate(
-                    prefix,
+                codes = self._generate(
+                    prefix_conditioning=prefix,
                     audio_prefix_codes=apc,
                     batch_size=Bp,
                     max_new_tokens=program_frames_bucket(max(limits)),
@@ -747,8 +792,8 @@ class ContinuousBatcher:
             with self.device_lock:
                 prefix = build_batch_prefix(self.model, cond_dicts, self.cond_pad_multiple)
             seeds, apc = _row_inputs(batch, Bp)
-            gen = self.model.stream_generate_batch(
-                prefix,
+            gen = self._stream(
+                prefix_conditioning=prefix,
                 audio_prefix_codes=apc,
                 batch_size=Bp,
                 max_new_tokens=program_frames_bucket(max(limits)),

@@ -198,9 +198,21 @@ def convert_prefix_conditioner(sd: dict, cfg: ZonosConfig, put: _Put) -> dict:
 
 
 def load_zonos_checkpoint(cfg: ZonosConfig, path: str, device,
-                          dtype: torch.dtype = torch.bfloat16) -> dict:
+                          dtype: torch.dtype = torch.bfloat16, mesh=None) -> dict:
     """A reference-format ``model.safetensors`` -> the port's ``Zonos``
-    parameters on ``device``, every leaf in ``dtype``."""
+    parameters on ``device``, every leaf in ``dtype``.  With a ``mesh``
+    whose model axis has more than one rank, this rank's shard
+    (``parallel/sharding.py`` ``shard_params``): the conversion runs on the
+    host and each sharded weight is cut to the rank's part, section by
+    section, before it moves to the device, which never holds a whole
+    replica of it (zonos_tpu/utils/checkpoint.py:116-161)."""
+    from zonos_tpu_torch.ops.tp import axis_size
+
+    if mesh is not None and axis_size(mesh, "model") > 1:
+        from zonos_tpu_torch.parallel.sharding import map_specs, shard_params, zonos_param_specs
+
+        host = shard_params(mesh, load_zonos_checkpoint(cfg, path, "cpu", dtype), cfg)
+        return map_specs(lambda t, _: t.to(device), host, zonos_param_specs(host, cfg))
     sd = load_safetensors(path)
     put = _Put(device, dtype)
     if cfg.backbone.is_transformer:
